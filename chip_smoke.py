@@ -5,16 +5,24 @@
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name and
    device count) and turns TF32 off for convolutions and matmuls;
-2. builds the serving path's hand-written kernels from
-   ``mx_rcnn_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, all
-   started together) and prints ptxas' register / shared-memory / spill lines;
+2. builds the hand-written kernels from ``mx_rcnn_tpu_torch/csrc`` with nvcc
+   for sm_90a (one nvcc per source, all started together: ``nms.cu`` exports
+   the NMS launcher, ``roi_align.cu`` the ROIAlign forward and backward) and
+   prints ptxas' register / shared-memory / spill lines;
 3. holds the NMS kernel against its plain PyTorch version on the card at the
-   proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the per-class
-   shape (2 × 20 problems × 300 unsorted, IoU 0.3) and N = 1000 (not a
-   multiple of 64) with invalid rows: the keep masks must be identical;
-4. holds the ROIAlign kernel against its plain version at (1, 64, 64, 1024),
-   R = 300, 14 × 14, s = 2, with and without ``valid_hw``, degenerate and
-   off-canvas rois included: max |Δ| ≤ 1e-5;
+   serving proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the
+   train proposal shape (1 × 12000 sorted, max_keep 2000, IoU 0.7), the
+   per-class shape (2 × 20 problems × 300 unsorted, IoU 0.3) and N = 1000
+   (not a multiple of 64) with invalid rows: the keep masks must be
+   identical;
+4. holds the ROIAlign forward kernel against its plain version at
+   (1, 64, 64, 1024), R = 300, and at the train shape (1, 38, 64, 1024),
+   R = 128, both 14 × 14, s = 2, with and without ``valid_hw``, degenerate
+   and off-canvas rois included: max |Δ| ≤ 1e-5; and the ROIAlign backward
+   kernel against its plain scatter-add at the train shape, with and
+   without ``valid_hw``: |Δ| ≤ 1e-4 · max(1, Σ|terms|) (atomics sum in a
+   run-dependent order, and a float32 sum's rounding grows with the sum of
+   its terms' magnitudes);
 5. serves VOC-sized requests through full-width ResNet-101 C4 Faster R-CNN
    (``generate_config("resnet", "PascalVOC")``, seeded random weights) with
    ``detect_single`` in both buckets, plus a same-bucket batch of 2 through
@@ -23,11 +31,27 @@
    kernels are captured and each kernel is held against its plain version on
    them; one request is profiled (device time by layer); a small request
    runs on the card and on the CPU (plain versions) and the two must agree;
-6. times each kernel on the batch-of-2 call's captured tensors: its device
-   time from a CUDA graph of the wrapper (``ms``), the eager wrapper
-   (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
-   bound for the work this data needs;
-7. prints one JSON line with each kernel's launches, max error, times and
+6. trains the same model (``generate_config("resnet", "PascalVOC")``, full
+   width, BATCH_ROIS 128, 12000 → 2000 proposals) for 10 steps through
+   ``core/fit.py::fit`` on 8 synthetic 480 × 640 images (600 × 800 in the
+   608 × 1024 bucket: a 38 × 64 × 1024 feature map); the three kernels'
+   launch counts are reset just before and read just after, and each must be
+   > 0; the frozen BN moments are first set from one forward on a training
+   image (unit-scale activations, as a pretrained backbone's give); every
+   loss must be finite and none above 100× the first step's, every frozen
+   tensor bit-identical after the steps and some trainable tensor of each
+   trained group changed; each kernel is held against its plain version on
+   the tensors the steps fed it; the loss's central difference along each
+   trained group's gradient must match the gradient within 1e-2; one step is
+   profiled (forward / backward / optimizer, device time by
+   layer); one small step (ResNet-50, 128 × 128) runs on the card and on the
+   CPU with the same weights and sampling draws, and the two must agree;
+7. times each kernel on captured tensors, at the serving shapes (the
+   batch-of-2 call) and at the train shapes: its device time from a CUDA
+   graph of the wrapper (``ms``), the eager wrapper (``wrapper_ms``) and the
+   eager plain version (``plain_ms``), beside the bound for the work this
+   data needs;
+8. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -39,6 +63,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,8 +73,20 @@ import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.fit import batch_to_device, fit
+from mx_rcnn_tpu_torch.core.metrics import METRIC_NAMES
 from mx_rcnn_tpu_torch.core.tester import Predictor
-from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+from mx_rcnn_tpu_torch.core.train import (
+    is_frozen_path,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+)
+from mx_rcnn_tpu_torch.data.loader import _orientation_bucket, make_batch
+from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from mx_rcnn_tpu_torch.models import faster_rcnn as model_mod
+from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, sampling_uniforms
+from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
@@ -65,8 +102,21 @@ F32_FLOP_PER_S = 67e12
 # (4 samples × (3 lerps of 3 flops + 1 add) + 1 divide)
 NMS_FLOPS_PER_PAIR = 17
 ROI_FLOPS_PER_OUTPUT = 41
+# the ROIAlign backward per cotangent element: 1 divide, 4 samples × 6
+# multiplies, 16 adds
+ROI_BWD_FLOPS_PER_G = 41
 ROI_TOL = 1e-5
+ROI_BWD_TOL = 1e-4
+# the train path: no step's loss may exceed this multiple of the first
+# step's (a loss that runs away grows by orders of magnitude in a few
+# steps; a sound one swings with the number of fg rois the image gives),
+# and the loss's central difference along each trained group's gradient
+# must match the gradient to this relative bar
+LOSS_GROWTH_MAX = 100.0
+FD_TOL = 1e-2
 NUM_CLASSES = 21
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2
 REQUEST_HW = [(375, 500), (500, 375), (480, 640), (640, 480), (333, 500), (500, 333)]
 DEVICE = "cuda"
 
@@ -220,6 +270,11 @@ def nms_synthetic(diff, dev):
     valid = torch.from_numpy(rng.rand(3, 1000) > 0.3).to(dev)
     nms_case(diff, boxes, valid, 0.5, 0, "N=1000")
     nms_case(diff, boxes, valid, 0.5, 50, "N=1000 truncated")
+    # train proposal shape: 1 × 12000 sorted, the sweep stops at the 2000th
+    # survivor (pass 2's longest chain; an 18 MB mask scratch)
+    boxes = torch.from_numpy(random_boxes(rng, 1, 12000, 1024, 608, 300)).to(dev)
+    valid = torch.ones((1, 12000), dtype=torch.bool, device=dev)
+    nms_case(diff, boxes, valid, 0.7, 2000, "train proposals")
 
 
 # ------------------------------------------------------------- ROIAlign
@@ -272,7 +327,46 @@ def roi_synthetic(dev):
     rois = torch.from_numpy(synthetic_rois(rng, 300, 1024, 1024)[None]).to(dev)
     err = roi_case(feat, rois, None, "canvas clamp")
     valid_hw = torch.tensor([[600.0, 800.0]], device=dev)
-    return max(err, roi_case(feat, rois, valid_hw, "valid_hw clamp"))
+    err = max(err, roi_case(feat, rois, valid_hw, "valid_hw clamp"))
+    # the train shape: 38 × 64 × 1024, 128 rois, canvas clamp (the train
+    # path's branch) and valid_hw
+    feat = torch.from_numpy(rng.randn(1, 38, 64, 1024).astype(np.float32)).to(dev)
+    rois = torch.from_numpy(synthetic_rois(rng, 128, 608, 1024)[None]).to(dev)
+    err = max(err, roi_case(feat, rois, None, "train shape, canvas clamp"))
+    return max(err, roi_case(feat, rois, valid_hw, "train shape, valid_hw clamp"))
+
+
+class BwdDiff:
+    """Running comparison of kernel 3 with its plain version: the max |Δ|,
+    and the max of |Δ| / max(1, Σ|terms|), Σ|terms| being the plain backward
+    of |g| (the weights are ≥ 0), which the bar holds to ROI_BWD_TOL."""
+
+    def __init__(self):
+        self.max_abs_err, self.scaled_err = 0.0, 0.0
+
+    def add(self, g, rois, shape, pooled, scale, s, valid_hw, label):
+        got = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)
+        ref = roi_mod.roi_align_bwd_plain(g, rois, shape, pooled, scale, s, valid_hw)
+        mag = roi_mod.roi_align_bwd_plain(g.abs(), rois, shape, pooled, scale, s, valid_hw)
+        d = (got - ref).abs()
+        err, scaled = float(d.max()), float((d / mag.clamp_min(1.0)).max())
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.scaled_err = max(self.scaled_err, scaled)
+        log(f"  roi_align_bwd {label}: g={tuple(g.shape)} -> {tuple(shape)} max|d|={err:.3g} "
+            f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g}")
+        if not scaled <= ROI_BWD_TOL:
+            raise AssertionError(f"ROIAlign backward kernel disagrees with the plain version ({label})")
+
+
+def roi_bwd_synthetic(diff, dev):
+    """Kernel 3 at the train shape: g (1, 128, 14, 14, 1024) → (1, 38, 64, 1024)."""
+    rng = np.random.RandomState(5)
+    rois = torch.from_numpy(synthetic_rois(rng, 128, 608, 1024)[None]).to(dev)
+    g = torch.from_numpy(rng.randn(1, 128, 14, 14, 1024).astype(np.float32)).to(dev)
+    shape = (1, 38, 64, 1024)
+    diff.add(g, rois, shape, (14, 14), 1.0 / 16, 2, None, "train shape, canvas clamp")
+    valid_hw = torch.tensor([[600.0, 800.0]], device=dev)
+    diff.add(g, rois, shape, (14, 14), 1.0 / 16, 2, valid_hw, "train shape, valid_hw clamp")
 
 
 # ------------------------------------------------------------ main path
@@ -294,30 +388,54 @@ def request_images(seed: int = 2):
 
 
 class Capture:
-    """Records the inputs the main path hands each kernel's launcher."""
+    """Records the inputs a path hands each kernel's launcher: every NMS
+    call, and the first ``keep`` ROIAlign forward and backward calls (all
+    when None; the train path keeps 2, so the copies add little to its peak
+    memory and nothing measurable to its steps)."""
 
-    def __init__(self):
-        self.nms, self.roi = [], []
-        self._orig = (nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda)
+    def __init__(self, keep=None):
+        self.keep = keep
+        self.nms, self.roi, self.roi_bwd = [], [], []
+        self._orig = (nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda,
+                      roi_mod._roi_align_bwd_cuda)
 
     def __enter__(self):
-        orig_nms, orig_roi = self._orig
+        orig_nms, orig_roi, orig_bwd = self._orig
 
         def nms_rec(boxes, valid, thresh, max_keep):
             self.nms.append((boxes.clone(), valid.clone(), thresh, max_keep))
             return orig_nms(boxes, valid, thresh, max_keep)
 
         def roi_rec(feat, rois, pooled, scale, s, valid_hw):
-            self.roi.append((feat.clone(), rois.clone(), pooled, scale, s,
-                             None if valid_hw is None else valid_hw.clone()))
+            if self.keep is None or len(self.roi) < self.keep:
+                self.roi.append((feat.clone(), rois.clone(), pooled, scale, s,
+                                 None if valid_hw is None else valid_hw.clone()))
             return orig_roi(feat, rois, pooled, scale, s, valid_hw)
 
+        def bwd_rec(g, rois, feat_shape, pooled, scale, s, valid_hw):
+            if self.keep is None or len(self.roi_bwd) < self.keep:
+                self.roi_bwd.append((g.clone(), rois.clone(), tuple(feat_shape), pooled, scale,
+                                     s, None if valid_hw is None else valid_hw.clone()))
+            return orig_bwd(g, rois, feat_shape, pooled, scale, s, valid_hw)
+
         nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda = nms_rec, roi_rec
+        roi_mod._roi_align_bwd_cuda = bwd_rec
         return self
 
     def __exit__(self, *exc):
-        nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda = self._orig
+        (nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda,
+         roi_mod._roi_align_bwd_cuda) = self._orig
         return False
+
+
+def reset_launches():
+    for k in (nms_mod.kernel, roi_mod.kernel, roi_mod.bwd_kernel):
+        k.launches = 0
+
+
+def read_launches():
+    return {"nms": nms_mod.kernel.launches, "roi_align_fwd": roi_mod.kernel.launches,
+            "roi_align_bwd": roi_mod.bwd_kernel.launches}
 
 
 def main_path(cfg, dev):
@@ -341,8 +459,7 @@ def main_path(cfg, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    nms_mod.kernel.launches = 0
-    roi_mod.kernel.launches = 0
+    reset_launches()
     times, all_dets = [], []
     with Capture() as cap:
         for im in images:
@@ -360,10 +477,10 @@ def main_path(cfg, dev):
         t0 = time.perf_counter()
         out = predictor.predict(batch)
         batch_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"nms": nms_mod.kernel.launches, "roi_align_fwd": roi_mod.kernel.launches}
-    log(f"  launches in the main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    launches = read_launches()
+    log(f"  launches in the serving path: {launches}")
+    if min(launches["nms"], launches["roi_align_fwd"]) <= 0:
+        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
 
     for dets in all_dets:
         for d in dets[1:]:
@@ -426,9 +543,10 @@ def profile_request(predictor, cfg, im):
         log(f"    top: {e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
 
 
-def hold_captured(diff, cap):
+def hold_captured(diff, cap, bwd_diff):
     """Each kernel against its plain version on the tensors the path fed it
-    (NMS into ``diff``); returns ROIAlign's max |Δ|."""
+    (NMS into ``diff``, the ROIAlign backward into ``bwd_diff``); returns
+    the ROIAlign forward's max |Δ|."""
     nms_bad = 0
     for boxes, valid, thresh, max_keep in cap.nms:
         got = nms_mod.nms_mask_sorted(boxes, valid.bool(), thresh, max_keep)
@@ -445,7 +563,17 @@ def hold_captured(diff, cap):
     log(f"  roi_align on {len(cap.roi)} captured calls: max|d|={roi_err:.3g}")
     if not roi_err <= ROI_TOL:
         raise AssertionError(f"ROIAlign kernel disagrees on the path's tensors: {roi_err}")
+    for i, (g, rois, shape, pooled, scale, s, valid_hw) in enumerate(cap.roi_bwd):
+        bwd_diff.add(g, rois, shape, pooled, scale, s, valid_hw, f"captured call {i}")
     return roi_err
+
+
+def roi_bwd_work(g, rois, shape, valid_hw):
+    """Bytes the backward must move (g, the rois, valid_hw read once, the
+    whole dfeat written once) and its flops."""
+    nbytes = (g.numel() + rois.numel() + int(np.prod(shape))
+              + (0 if valid_hw is None else valid_hw.numel())) * 4
+    return nbytes, g.numel() * ROI_BWD_FLOPS_PER_G
 
 
 def time_kernel(kernel_fn, plain_fn, reps):
@@ -509,6 +637,396 @@ def small_request_agrees(cfg, dev):
         raise AssertionError(f"card and CPU disagree beyond {limits}")
 
 
+# ------------------------------------------------------------ train path
+TRAINED_GROUPS = ("backbone.stage2", "backbone.stage3", "top_head", "rpn", "rcnn")
+
+
+def train_batch(cfg, roidb, i, dev):
+    rec = roidb[i]
+    return batch_to_device(
+        make_batch([rec], cfg, _orientation_bucket(rec, cfg.SHAPE_BUCKETS), seeds=[i]), dev)
+
+
+def calibrate_bn(model, batch):
+    """Set every frozen BN's moments to the per-channel mean and variance of
+    its input in one train forward on ``batch`` (a pre-hook sets them before
+    the layer runs, so each later layer sees calibrated inputs).  This gives
+    the random network the unit-scale activations a pretrained backbone's BN
+    moments give: with identity moments, seeded random convolutions on raw
+    pixels (PIXEL_STDS 1) reach ~1e3 in the top head, every gradient element
+    hits the ±CLIP_GRADIENT clip, and each clipped update moves the cls
+    logits by ~1e4, so the loss grows ~1e4× within a few steps."""
+
+    def set_moments(bn, args):
+        x = args[0]
+        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    dev = batch["images"].device
+    model.to(dev, memory_format=torch.channels_last)
+    hooks = [m.register_forward_pre_hook(set_moments) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        with torch.no_grad():
+            model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                  train=True, sample_seeds=batch["sample_seeds"])
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"  BN moments set from one forward on a training image: {len(hooks)} layers")
+
+
+def gradient_matches_finite_differences(model, cfg, roidb, dev):
+    """The full-width backward against the forward on the card: for each
+    trained group, the loss's central difference along the group's gradient,
+    f(θ + εd) − f(θ − εd) with d = g/‖g‖, must equal gᵀ(θ₊ − θ₋) (the
+    displacement as rounded into the f32 weights) within FD_TOL.  The
+    samplers' draws are fixed (one rng and seed) and the first forward's
+    sampled rois are reused, so the loss is a smooth function of the
+    weights; ε moves it by ~1e-3 of itself.  stage2 and stage3 take their
+    gradient through the ROIAlign backward (kernel 3) almost wholly, since the
+    RPN's output layers are scaled by 1e-3."""
+    batch = train_batch(cfg, roidb, 1, dev)
+    held = {}
+    orig = model_mod.sample_rois
+
+    def sample_once(*a, **k):
+        if "samples" not in held:
+            held["samples"] = orig(*a, **k)
+        return held["samples"]
+
+    def loss_fn():
+        return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                     train=True, sample_seeds=batch["sample_seeds"], rng=5)[0]
+
+    model_mod.sample_rois = sample_once
+    try:
+        for p in model.parameters():
+            p.grad = None
+        loss = loss_fn()
+        loss.backward()
+        f0 = float(loss.detach())
+        worst = 0.0
+        with torch.no_grad():
+            for grp in TRAINED_GROUPS:
+                ps = [p for n, p in model.named_parameters()
+                      if n.startswith(grp + ".") and p.grad is not None]
+                gs = [p.grad.clone() for p in ps]
+                p0 = [p.clone() for p in ps]
+                gnorm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
+                if not gnorm > 0:
+                    raise AssertionError(f"{grp} has no gradient")
+                eps = 1e-3 * abs(f0) / gnorm
+                f, moved = {}, {}
+                for sign in (1.0, -1.0):
+                    for p, a, g in zip(ps, p0, gs):
+                        p.copy_(a + (sign * eps / gnorm) * g)
+                    moved[sign] = [p.clone() for p in ps]
+                    f[sign] = float(loss_fn())
+                for p, a in zip(ps, p0):
+                    p.copy_(a)
+                want = sum(float((g.double() * (hi.double() - lo.double())).sum())
+                           for g, hi, lo in zip(gs, moved[1.0], moved[-1.0]))
+                got = f[1.0] - f[-1.0]
+                rel = abs(got - want) / abs(want)
+                worst = max(worst, rel)
+                log(f"  {grp}: |g| {gnorm:.4g}, eps {eps:.3g}, f(+)-f(-) {got:.6g}, "
+                    f"g.(p+ - p-) {want:.6g}, relative difference {rel:.3g}")
+    finally:
+        model_mod.sample_rois = orig
+        for p in model.parameters():
+            p.grad = None
+    log(f"  loss {f0:.6f}; worst relative difference {worst:.3g} (bar {FD_TOL})")
+    if not worst <= FD_TOL:
+        raise AssertionError("the full-width gradient disagrees with the loss's finite differences")
+    return worst
+
+
+def train_path(cfg, dev):
+    """TRAIN_STEPS steps of ``fit`` at full width on synthetic records;
+    returns the captured kernel inputs, the launch counts of the run, the
+    model, the roidb and the step statistics."""
+    roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
+    model = make_model(cfg)
+    calibrate_bn(model, train_batch(cfg, roidb, 0, dev))
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with Capture(keep=2) as cap:
+        out = fit(model, cfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS,
+                  frequent=TRAIN_STEPS, device=dev)
+    launches = read_launches()
+    log(f"  launches in the train path: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the train path never launched: {launches}")
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    captured_mib = sum(t.numel() * t.element_size() for c in (cap.roi, cap.roi_bwd)
+                       for entry in c for t in entry[:2]) / 2**20
+
+    hist = out["history"]
+    if len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"fit ran {len(hist)} steps, not {TRAIN_STEPS}")
+    for i, h in enumerate(hist):
+        log(f"  step {i}: loss={h['loss']:.5f} "
+            + " ".join(f"{k}={h[k]:.5f}" for k in METRIC_NAMES)
+            + f" fg_rois={int(h['num_fg_rois'])} valid_props={int(h['num_valid_props'])}"
+            f" fg_anchors={int(h['num_fg_anchors'])} step_ms={h['step_ms']:.3f}"
+            f" load_ms={h['load_ms']:.3f}")
+    bad = sorted({k for h in hist for k in METRIC_NAMES + ("loss",) if not math.isfinite(h[k])})
+    if bad:
+        raise AssertionError(f"non-finite losses in the train path: {bad}")
+    growth = max(h["loss"] for h in hist) / hist[0]["loss"]
+    log(f"  largest loss / first step's loss: {growth:.3f} (bar {LOSS_GROWTH_MAX})")
+    if not growth <= LOSS_GROWTH_MAX:
+        raise AssertionError(f"the train path's loss grew {growth:.3g}x: the run diverges")
+
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    params = {k for k, _ in model.named_parameters()}
+    fixed = cfg.network.FIXED_PARAMS
+    frozen = [k for k in before if k not in params or is_frozen_path(tuple(k.split(".")), fixed)]
+    moved = [k for k in frozen if not torch.equal(before[k], after[k])]
+    if moved:
+        raise AssertionError(f"frozen tensors changed: {moved[:5]}")
+    changed = {grp: any(not torch.equal(before[k], after[k]) for k in params
+                        if k.startswith(grp + ".") and k not in frozen)
+               for grp in TRAINED_GROUPS}
+    n_frozen_params = sum(k in params for k in frozen)
+    log(f"  frozen tensors bit-identical after the steps: {len(frozen)} ({n_frozen_params} "
+        f"parameters of conv0/stage1, {len(frozen) - n_frozen_params} BN buffers); "
+        f"a trainable tensor changed in: {changed}")
+    if not all(changed.values()):
+        raise AssertionError(f"a trained group did not change: {changed}")
+
+    timed = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    stats = {
+        "steps": len(hist), "timed_steps": len(timed),
+        "step_ms_median": statistics.median(timed), "step_ms": timed,
+        "images_per_s": cfg.TRAIN.BATCH_IMAGES * 1e3 / statistics.median(timed),
+        "load_ms_median": statistics.median(h["load_ms"] for h in hist[TRAIN_WARMUP:]),
+        "first_step_ms": hist[0]["step_ms"],
+        "peak_mib": peak_mib, "captured_mib": captured_mib,
+    }
+    log(f"  train step (host batch to metrics on the host, {len(timed)} steps after "
+        f"{TRAIN_WARMUP} warm-up): median {stats['step_ms_median']:.3f} ms, "
+        f"{stats['images_per_s']:.3f} images/s; host batch assembly median "
+        f"{stats['load_ms_median']:.3f} ms; first step {stats['first_step_ms']:.3f} ms")
+    log(f"  max_memory_allocated: {peak_mib:.1f} MiB (of which {captured_mib:.1f} MiB are "
+        f"this script's copies of kernel inputs)")
+    return cap, launches, model, roidb, stats
+
+
+def _train_layer_of(kernel_name: str) -> str:
+    name = kernel_name.lower()
+    if "roi_align_bwd" in name:
+        return "roi_align bwd kernel"
+    if "roi_align_fwd" in name:
+        return "roi_align fwd kernel"
+    if "multi_tensor_apply" in name or "foreach" in name:
+        return "optimizer (foreach clamp / SGD)"
+    return _layer_of(kernel_name).replace("convolutions / matmuls", "convolutions / matmuls, fwd + bwd")
+
+
+def _profiled(fn):
+    """(result, wall ms, CUDA kernel events) of ``fn`` ending in a sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, wall_ms, [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def profile_train_step(model, cfg, roidb, dev):
+    """One more step on the trained model: forward / backward / optimizer
+    spans on the stream (CUDA events, no profiler), then each phase under
+    torch.profiler with a sync after it: its wall time, its device busy
+    time and the device time by layer."""
+    opt = make_optimizer(cfg, model, make_lr_schedule(cfg, len(roidb)))
+    step = make_train_step(model, opt, rng=99)
+    batch = train_batch(cfg, roidb, 0, dev)
+    step(batch)
+    torch.cuda.synchronize()
+
+    def forward():
+        opt.zero_grad()
+        return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                     train=True, sample_seeds=batch["sample_seeds"], rng=1)[0]
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = forward()
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    ev[3].synchronize()
+    spans = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    log(f"  stream spans (CUDA events, no profiler, host gaps included): forward "
+        f"{spans[0]:.3f} ms, backward {spans[1]:.3f} ms, optimizer {spans[2]:.3f} ms")
+
+    loss, fwd_wall, fwd_ev = _profiled(forward)
+    _, bwd_wall, bwd_ev = _profiled(loss.backward)
+    _, opt_wall, opt_ev = _profiled(opt.step)
+    phases = {}
+    by_layer, total = {}, 0.0
+    for name, wall, events in (("forward", fwd_wall, fwd_ev), ("backward", bwd_wall, bwd_ev),
+                               ("optimizer", opt_wall, opt_ev)):
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        phases[name] = {"wall_ms": wall, "busy_ms": busy}
+        for e in events:
+            us = e.self_device_time_total
+            total += us
+            by_layer[_train_layer_of(e.key)] = by_layer.get(_train_layer_of(e.key), 0.0) + us
+    if total == 0:
+        log("  profiler saw no device time: breakdown not measured")
+        return {"spans_ms": spans}
+    for name, ph in phases.items():
+        log(f"  {name}: wall {ph['wall_ms']:.3f} ms, device busy {ph['busy_ms']:.3f} ms "
+            f"(idle {100 * (1 - ph['busy_ms'] / ph['wall_ms']):.1f}%; profiler on, sync after)")
+    log(f"  one train step by layer (device busy {total / 1e3:.3f} ms):")
+    for layer, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
+        log(f"    {layer}: {us / 1e3:.3f} ms ({100 * us / total:.1f}%)")
+    events = fwd_ev + bwd_ev + opt_ev
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    top: {e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
+    return {"spans_ms": spans, "phases": phases, "busy_ms": total / 1e3,
+            "by_layer_ms": {k: v / 1e3 for k, v in by_layer.items()}}
+
+
+def argmax_takes_the_first_maximum(dev):
+    """``torch.argmax`` on the card returns the first of tied maxima (the
+    samplers' gt assignment relies on it, as JAX's does)."""
+    row = torch.zeros(100_000, device=dev)
+    row[[70_000, 90_000]] = 3.0
+    small = torch.tensor([[1.0, 3.0, 3.0, 0.0], [-1.0, -1.0, -1.0, -1.0]], device=dev)
+    got = (int(torch.argmax(row)), torch.argmax(small, -1).tolist())
+    log(f"  argmax of tied maxima on the card: {got}")
+    if got != (70_000, [1, 0]):
+        raise AssertionError(f"argmax does not take the first maximum on the card: {got}")
+
+
+def train_step_agrees(dev):
+    """One small train step (ResNet-50, 128 × 128, the same weights and the
+    same sampling draws) on the card (kernels, cuDNN) and on the CPU (plain
+    versions): identical sampled labels and anchor labels, rois within
+    1e-3 px, losses within 1e-4 relative, and every gradient leaf within
+    1e-3 of its own L2 norm and within 3e-3 of its largest element (cuDNN's
+    f32 convolution algorithms, its split reductions in the weight gradients
+    and the atomics of the ROIAlign backward sum in other orders than the
+    CPU)."""
+    cfg = generate_config("resnet50", "PascalVOC")
+    cfg = cfg.replace(
+        network=dataclasses.replace(cfg.network, ANCHOR_SCALES=(2, 4, 8)),
+        TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=400, RPN_POST_NMS_TOP_N=64,
+                                  BATCH_ROIS=32, RPN_BATCH_SIZE=64),
+    )
+    model = make_model(cfg, seed=3)
+    rng = np.random.RandomState(4)
+    # tests/test_model.py::tiny_batch's inputs: pixels in [0, 1), two gts
+    images = torch.from_numpy(rng.rand(1, 128, 128, 3).astype(np.float32))
+    im_info = torch.tensor([[128.0, 128.0, 1.0]])
+    gt = torch.zeros((1, 4, 5))
+    gt[0, 0] = torch.tensor([10.0, 10.0, 70.0, 70.0, 1.0])
+    gt[0, 1] = torch.tensor([60.0, 60.0, 120.0, 110.0, 2.0])
+    gt_valid = torch.tensor([[True, True, False, False]])
+    draws = sampling_uniforms(11, [0], 8 * 8 * cfg.network.NUM_ANCHORS, 64 + 4, "cpu")
+
+    runs = {}
+    orig = (model_mod.assign_anchor, model_mod.sample_rois)
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = copy.deepcopy(model).to(d, memory_format=torch.channels_last)
+        make_optimizer(cfg, m, make_lr_schedule(cfg, 10))
+        got = {}
+        model_mod.assign_anchor = lambda *a, **k: got.setdefault("anchor", orig[0](*a, **k))
+        model_mod.sample_rois = lambda *a, **k: got.setdefault("rois", orig[1](*a, **k))
+        try:
+            loss, aux = m(images.to(d), im_info.to(d), gt.to(d), gt_valid.to(d), train=True,
+                          draws={k: v.to(d) for k, v in draws.items()})
+        finally:
+            model_mod.assign_anchor, model_mod.sample_rois = orig
+        loss.backward()
+        runs[name] = {
+            "loss": float(loss.detach()), "aux": {k: float(v.detach()) for k, v in aux.items()},
+            "anchor_labels": got["anchor"].labels.cpu(), "labels": got["rois"].labels.cpu(),
+            "rois": got["rois"].rois.cpu(),
+            "grads": {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None},
+        }
+    card, cpu = runs["card"], runs["cpu"]
+    same_labels = torch.equal(card["labels"], cpu["labels"]) and torch.equal(
+        card["anchor_labels"], cpu["anchor_labels"])
+    roi_err = float((card["rois"] - cpu["rois"]).abs().max())
+    loss_rel = {k: abs(card["aux"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["aux"].items()}
+    loss_rel["loss"] = abs(card["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-6)
+    # per leaf: ||Δ||₂ / ||g||₂ and max|Δ| / max|g|
+    leaf = {n: (float((card["grads"][n] - g).norm()) / max(float(g.norm()), 1e-30),
+                float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30))
+            for n, g in cpu["grads"].items()}
+    worst = sorted(leaf.items(), key=lambda kv: -kv[1][0])[:4]
+    grad_rel = worst[0][1][0]
+    grad_max_rel = max(v[1] for v in leaf.values())
+    log(f"  small train step card vs CPU: fg rois {int(cpu['aux']['num_fg_rois'])}, fg anchors "
+        f"{int(cpu['aux']['num_fg_anchors'])}, same labels {same_labels}, rois max|d| {roi_err:.3g} px, "
+        f"loss {cpu['loss']:.6f} vs {card['loss']:.6f}, max relative loss/aux diff "
+        f"{max(loss_rel.values()):.3g}, gradients over {len(cpu['grads'])} leaves: max "
+        f"||d||/||g|| {grad_rel:.3g}, max max|d|/max|g| {grad_max_rel:.3g}")
+    for n, (norm_rel, max_rel) in worst:
+        log(f"    {n}: ||d||/||g|| {norm_rel:.3g}, max|d|/max|g| {max_rel:.3g}, "
+            f"max|g| {float(cpu['grads'][n].abs().max()):.3g}")
+    if set(card["grads"]) != set(cpu["grads"]):
+        raise AssertionError("card and CPU computed gradients for different tensors")
+    if (not same_labels or roi_err > 1e-3 or max(loss_rel.values()) > 1e-4 or grad_rel > 1e-3
+            or grad_max_rel > 3e-3):
+        raise AssertionError("the small train step disagrees between the card and the CPU")
+    if cpu["aux"]["num_fg_rois"] <= 0 or cpu["aux"]["num_fg_anchors"] <= 0:
+        raise AssertionError("the small train step sampled no fg rois or anchors")
+
+
+# ------------------------------------------------------------------ timing
+def nms_timing(entry, label):
+    boxes, valid, thresh, max_keep = entry
+    ms, wrap, plain, bound, by = time_nms(*entry)
+    kept = int(nms_mod.nms_mask_sorted(boxes, valid.bool(), thresh, max_keep).sum())
+    log(f"  nms {label} {tuple(boxes.shape)} valid={int(valid.sum())} max_keep={max_keep} "
+        f"kept={kept}: kernel {ms:.4f} ms (graph), "
+        f"wrapper {wrap:.4f} ms (eager), plain {plain:.2f} ms, bound {bound:.7f} ms ({by})")
+    return {"ms": ms, "wrapper_ms": wrap, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "shape": list(boxes.shape)}
+
+
+def roi_fwd_timing(entry, label):
+    feat, rois, pooled, scale, s, valid_hw = entry
+    ms, wrap, plain = time_kernel(
+        lambda: roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw),
+        lambda: roi_mod.roi_align_plain(feat, rois, pooled, scale, s, valid_hw), reps=20)
+    out = roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw)
+    bound, by = bound_ms(*roi_work(feat, rois, pooled, scale, s, valid_hw, out))
+    log(f"  roi_align {label} feat {tuple(feat.shape)} rois {tuple(rois.shape)}: kernel "
+        f"{ms:.4f} ms (graph), wrapper {wrap:.4f} ms (eager), plain {plain:.2f} ms, "
+        f"bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "wrapper_ms": wrap, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "shape": list(feat.shape) + list(rois.shape)}
+
+
+def roi_bwd_timing(entry, label):
+    g, rois, shape, pooled, scale, s, valid_hw = entry
+    ms, wrap, plain = time_kernel(
+        lambda: roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw),
+        lambda: roi_mod.roi_align_bwd_plain(g, rois, shape, pooled, scale, s, valid_hw), reps=20)
+    bound, by = bound_ms(*roi_bwd_work(g, rois, shape, valid_hw))
+    log(f"  roi_align_bwd {label} g {tuple(g.shape)} -> {tuple(shape)}: kernel {ms:.4f} ms "
+        f"(graph), wrapper {wrap:.4f} ms (eager), plain {plain:.2f} ms, bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "wrapper_ms": wrap, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "shape": list(g.shape) + list(shape)}
+
+
+def _prefixed(prefix, d):
+    return {f"{prefix}_{k}": v for k, v in d.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -526,79 +1044,89 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[card] TF32 off for cuDNN convolutions and matmuls: full float32")
 
-    kernels = (nms_mod.kernel, roi_mod.kernel)
+    libraries = (nms_mod.library, roi_mod.library)
     t0 = time.monotonic()
-    build_all(kernels)
-    log(f"[build] both kernels in {time.monotonic() - t0:.1f} s (parallel nvcc)")
-    for k in kernels:
-        log(f"  {k.source.name}: {k.build_seconds if k.build_seconds is None else round(k.build_seconds, 1)} s")
-        for line in k.ptxas_log.splitlines():
+    build_all(libraries)
+    log(f"[build] {len(libraries)} libraries in {time.monotonic() - t0:.1f} s (parallel nvcc); "
+        f"launchers: {nms_mod.kernel.function} ({nms_mod.library.source.name}), "
+        f"{roi_mod.kernel.function} and {roi_mod.bwd_kernel.function} "
+        f"({roi_mod.library.source.name})")
+    for lib in libraries:
+        secs = lib.build_seconds
+        log(f"  {lib.source.name}: {secs if secs is None else round(secs, 1)} s")
+        for line in lib.ptxas_log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    nms_diff = MaskDiff()
+    nms_diff, bwd_diff = MaskDiff(), BwdDiff()
     log("[nms] kernel vs plain, synthetic")
     nms_synthetic(nms_diff, dev)
-    log("[roi_align] kernel vs plain, synthetic")
+    log("[roi_align] forward kernel vs plain, synthetic")
     roi_err = roi_synthetic(dev)
+    log("[roi_align_bwd] backward kernel vs plain, synthetic")
+    roi_bwd_synthetic(bwd_diff, dev)
 
     cfg = generate_config("resnet", "PascalVOC")
-    log(f"[main path] ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, "
+    log(f"[main path] serving: ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, "
         f"buckets {cfg.SHAPE_BUCKETS}, {cfg.TEST.RPN_PRE_NMS_TOP_N}->{cfg.TEST.RPN_POST_NMS_TOP_N} "
         f"proposals, device postprocess")
-    cap, launches, predictor, image = main_path(cfg, dev)
+    cap, serve_launches, predictor, image = main_path(cfg, dev)
+    log("[main path] serving kernels vs plain on the captured tensors")
+    roi_err = max(roi_err, hold_captured(nms_diff, cap, bwd_diff))
 
-    log("[main path] kernels vs plain on the captured tensors")
-    roi_err = max(roi_err, hold_captured(nms_diff, cap))
+    t = cfg.TRAIN
+    log(f"[train] ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, BATCH_IMAGES "
+        f"{t.BATCH_IMAGES}, BATCH_ROIS {t.BATCH_ROIS}, {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} "
+        f"proposals, {TRAIN_STEPS} steps of fit on synthetic 480x640 images")
+    train_cap, launches, model, roidb, train_stats = train_path(cfg, dev)
+    log("[train] kernels vs plain on the captured tensors")
+    roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff))
+    log("[train] full-width gradient vs finite differences of the loss")
+    train_stats["fd_worst"] = gradient_matches_finite_differences(model, cfg, roidb, dev)
 
-    log("[timing] on the batch-of-2 call's captured tensors")
-    props = [c for c in cap.nms if c[3] > 0][-1]
-    classes = [c for c in cap.nms if c[3] == 0][-1]
-    nms_ms, nms_wrap, nms_plain, nms_bound, nms_by = time_nms(*props)
-    cls_ms, cls_wrap, cls_plain, cls_bound, cls_by = time_nms(*classes)
-    log(f"  nms proposals {tuple(props[0].shape)}: kernel {nms_ms:.4f} ms (graph), "
-        f"wrapper {nms_wrap:.4f} ms (eager), plain {nms_plain:.2f} ms, "
-        f"bound {nms_bound:.6f} ms ({nms_by})")
-    log(f"  nms classes {tuple(classes[0].shape)}: kernel {cls_ms:.4f} ms (graph), "
-        f"wrapper {cls_wrap:.4f} ms (eager), plain {cls_plain:.2f} ms, "
-        f"bound {cls_bound:.6f} ms ({cls_by})")
-    feat, rois, pooled, scale, s, valid_hw = cap.roi[-1]
-    roi_ms, roi_wrap, roi_plain = time_kernel(
-        lambda: roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw),
-        lambda: roi_mod.roi_align_plain(feat, rois, pooled, scale, s, valid_hw), reps=20)
-    out = roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw)
-    roi_bound, roi_by = bound_ms(*roi_work(feat, rois, pooled, scale, s, valid_hw, out))
-    log(f"  roi_align feat {tuple(feat.shape)} rois {tuple(rois.shape)}: kernel {roi_ms:.4f} ms "
-        f"(graph), wrapper {roi_wrap:.4f} ms (eager), plain {roi_plain:.2f} ms, "
-        f"bound {roi_bound:.5f} ms ({roi_by})")
+    log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
+    serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
+    classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
+    serve_roi = roi_fwd_timing(cap.roi[-1], "serving")
+    log("[timing] train shapes, on the train steps' captured tensors")
+    train_nms = nms_timing(train_cap.nms[-1], "train proposals")
+    train_roi = roi_fwd_timing(train_cap.roi[-1], "train")
+    train_bwd = roi_bwd_timing(train_cap.roi_bwd[-1], "train")
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
+    log("[profile] where one train step's device time goes")
+    train_stats["profile"] = profile_train_step(model, cfg, roidb, dev)
 
     log("[reference] small request, card vs CPU")
     small_request_agrees(cfg, dev)
+    log("[train reference] small train step, card vs CPU")
+    argmax_takes_the_first_maximum(dev)
+    train_step_agrees(dev)
 
+    log(f"[train] stats {json.dumps(train_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40",
-            "launches": launches["nms"], "max_abs_err": nms_diff.max_abs_err,
-            "mismatches": nms_diff.mismatches,
-            "ms": nms_ms, "plain_ms": nms_plain, "bound_ms": nms_bound, "bound_by": nms_by,
-            "library_ms": None, "wrapper_ms": nms_wrap,
-            "shape": list(props[0].shape),
-            "class_shape": list(classes[0].shape), "class_ms": cls_ms,
-            "class_wrapper_ms": cls_wrap, "class_plain_ms": cls_plain,
-            "class_bound_ms": cls_bound, "class_bound_by": cls_by,
+            "launches": launches["nms"], "serve_launches": serve_launches["nms"],
+            "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
+            **train_nms, "library_ms": None,
+            **_prefixed("serve", serve_nms), **_prefixed("class", classes),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88",
-            "launches": launches["roi_align_fwd"], "max_abs_err": roi_err,
-            "ms": roi_ms, "plain_ms": roi_plain, "bound_ms": roi_bound, "bound_by": roi_by,
-            "library_ms": None, "wrapper_ms": roi_wrap,
-            "shape": list(feat.shape) + list(rois.shape),
+            "launches": launches["roi_align_fwd"], "serve_launches": serve_launches["roi_align_fwd"],
+            "max_abs_err": roi_err, **train_roi, "library_ms": None,
+            **_prefixed("serve", serve_roi),
+        },
+        {
+            "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
+            "launches": launches["roi_align_bwd"], "max_abs_err": bwd_diff.max_abs_err,
+            "scaled_err": bwd_diff.scaled_err, **train_bwd, "library_ms": None,
         },
     ]}), flush=True)
     print(smi, flush=True)

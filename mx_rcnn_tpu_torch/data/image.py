@@ -10,7 +10,7 @@ images.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -82,3 +82,29 @@ def pad_to_bucket(im: np.ndarray, bucket: Tuple[int, int]) -> np.ndarray:
     out = np.zeros((bh, bw) + im.shape[2:], dtype=im.dtype)
     out[:h, :w] = im
     return out
+
+
+def pick_bucket(h: int, w: int, buckets: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """Smallest bucket that contains (h, w); else the largest-area bucket."""
+    fitting = [b for b in buckets if b[0] >= h and b[1] >= w]
+    if fitting:
+        return min(fitting, key=lambda b: b[0] * b[1])
+    return max(buckets, key=lambda b: b[0] * b[1])
+
+
+def prepare_image(
+    im: np.ndarray,
+    target_size: int,
+    max_size: int,
+    pixel_means,
+    pixel_stds,
+    buckets: Sequence[Tuple[int, int]],
+    uint8_out: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """resize → normalize (or quantize, ``uint8_out``) → bucket-pad; returns
+    (padded image, im_info = (resized h, resized w, scale))."""
+    im, scale = resize_im(im, target_size, max_size)
+    h, w = im.shape[:2]
+    im = quantize_uint8(im) if uint8_out else normalize(im, pixel_means, pixel_stds)
+    im = pad_to_bucket(im, pick_bucket(h, w, buckets))
+    return im, np.array([h, w, scale], np.float32)

@@ -1,4 +1,4 @@
-"""Box geometry: IoU, decode, clipping (port of ``mx_rcnn_tpu/ops/boxes.py``).
+"""Box geometry: IoU, encode, decode, clipping (port of ``mx_rcnn_tpu/ops/boxes.py``).
 
 Same legacy +1-pixel width convention and the same float32 op order as the
 JAX functions.  Every function takes any number of leading batch dims, so
@@ -28,6 +28,26 @@ def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tenso
     area_q = (qx2 - qx1 + 1.0) * (qy2 - qy1 + 1.0)
     union = area_b + area_q - inter
     return inter / union.clamp_min(1e-12)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode gt boxes w.r.t. example rois: (..., N, 4) × (..., N, 4) →
+    (..., N, 4) ``[dx, dy, dw, dh]`` (the leading dims broadcast)."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * (ex_w - 1.0)
+    ex_cy = ex_rois[..., 1] + 0.5 * (ex_h - 1.0)
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * (gt_w - 1.0)
+    gt_cy = gt_rois[..., 1] + 0.5 * (gt_h - 1.0)
+
+    dx = (gt_cx - ex_cx) / (ex_w + 1e-14)
+    dy = (gt_cy - ex_cy) / (ex_h + 1e-14)
+    dw = torch.log(gt_w.clamp_min(1.0) / ex_w.clamp_min(1e-14))
+    dh = torch.log(gt_h.clamp_min(1.0) / ex_h.clamp_min(1e-14))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def bbox_pred(boxes: torch.Tensor, box_deltas: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 
 from mx_rcnn_tpu_torch.utils.cuda_build import (
     CudaKernel,
+    CudaLibrary,
     kernel_input,
     ptr,
     stream_of,
@@ -28,8 +29,9 @@ from mx_rcnn_tpu_torch.utils.cuda_build import (
 
 _NEG_INF = -1e10
 
+library = CudaLibrary("nms.cu")
 kernel = CudaKernel(
-    "nms.cu",
+    library,
     "nms_keep_sorted",
     (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

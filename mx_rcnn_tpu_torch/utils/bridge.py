@@ -44,7 +44,7 @@ def flax_to_torch(params_np: Dict, model: nn.Module) -> nn.Module:
         key = ".".join(path[:-1] + ("weight" if leaf == "kernel" else leaf,))
         if key not in state:
             raise KeyError(f"Flax leaf {'/'.join(path)} has no tensor {key} in the model")
-        t = np.ascontiguousarray(_to_torch_layout(leaf, a), dtype=np.float32)
+        t = np.array(_to_torch_layout(leaf, a), dtype=np.float32, order="C")
         if t.shape != tuple(state[key].shape):
             raise ValueError(f"{key}: Flax {a.shape} → {t.shape} != model {tuple(state[key].shape)}")
         new[key] = torch.from_numpy(t)
@@ -55,10 +55,10 @@ def flax_to_torch(params_np: Dict, model: nn.Module) -> nn.Module:
     return model
 
 
-def torch_to_flax(model: nn.Module) -> Dict:
-    """The model's tensors as a Flax-layout tree of numpy arrays."""
+def _flax_tree(named: Iterator[Tuple[str, torch.Tensor]]) -> Dict:
+    """Dotted names and tensors → a Flax-layout tree of numpy arrays."""
     tree: Dict = {}
-    for key, t in model.state_dict().items():
+    for key, t in named:
         *mods, leaf = key.split(".")
         a = t.detach().cpu().numpy()
         if leaf == "weight":
@@ -69,3 +69,14 @@ def torch_to_flax(model: nn.Module) -> Dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(a)
     return tree
+
+
+def torch_to_flax(model: nn.Module) -> Dict:
+    """The model's tensors as a Flax-layout tree of numpy arrays."""
+    return _flax_tree(iter(model.state_dict().items()))
+
+
+def grads_to_flax(model: nn.Module) -> Dict:
+    """The ``.grad`` of every parameter that has one, as a Flax-layout tree
+    of numpy arrays (the same transposes as :func:`torch_to_flax`)."""
+    return _flax_tree((k, p.grad) for k, p in model.named_parameters() if p.grad is not None)

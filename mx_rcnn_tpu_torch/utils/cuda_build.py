@@ -6,6 +6,10 @@ at first use into ``csrc/build/`` (listed in ``.gitignore``), named by a hash
 of the source and the flags, so an edited source never loads a stale build.
 Nothing is built when a module is imported: the CPU tests import every module
 on machines without ``nvcc``.
+
+A :class:`CudaLibrary` is one source; a :class:`CudaKernel` is one C launcher
+it exports, with its own launch count.  One library may export several
+launchers (``roi_align.cu``: forward and backward), and builds once.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -46,24 +51,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
-class CudaKernel:
-    """One ``csrc/<source>`` library exporting one C launcher ``function``:
-    lazy build, ctypes binding, launch count.
+class CudaLibrary:
+    """One ``csrc/<source>`` compiled into a shared library at first use."""
 
-    The launcher takes ``argtypes`` and returns the ``cudaError_t`` of its
-    launches as an int.  ``launches`` counts wrapper calls that launched the
-    kernel (the wrapper increments it); a run resets it to show that a path
-    went through it.
-    """
-
-    def __init__(self, source: str, function: str, argtypes: Sequence):
+    def __init__(self, source: str):
         self.source = CSRC / source
-        self.function = function
-        self.argtypes = list(argtypes)
-        self.launches = 0
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
-        self._fn = None
+        self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
@@ -71,56 +66,60 @@ class CudaKernel:
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
-    def start_build(self):
-        """Start ``nvcc`` for this source unless its library already exists;
-        returns the pending build for :meth:`finish_build`, or None."""
-        out = self.library_path()
-        if out.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        return proc, tmp, time.monotonic()
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, running ``nvcc`` first unless it is built."""
+        if self._lib is None:
+            out = self.library_path()
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                t0 = time.monotonic()
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {self.source.name}:\n{proc.stdout}")
+                os.replace(tmp, out)
+                self.build_seconds = time.monotonic() - t0
+                self.ptxas_log = proc.stdout
+            self._lib = ctypes.CDLL(str(out))
+        return self._lib
 
-    def finish_build(self, pending) -> None:
-        if pending is None:
-            return
-        proc, tmp, t0 = pending
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
-        os.replace(tmp, self.library_path())
-        self.build_seconds = time.monotonic() - t0
-        self.ptxas_log = log
 
-    def load(self):
-        """The bound launcher, building the library first if needed."""
-        if self._fn is None:
-            self.finish_build(self.start_build())
-            fn = getattr(ctypes.CDLL(str(self.library_path())), self.function)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+class CudaKernel:
+    """One C launcher ``function`` exported by ``library``.
+
+    The launcher takes ``argtypes`` and returns the ``cudaError_t`` of its
+    launches as an int.  ``launches`` counts wrapper calls that launched the
+    kernel (the wrapper increments it); a run resets it to show that a path
+    went through it.
+    """
+
+    def __init__(self, library: CudaLibrary, function: str, argtypes: Sequence):
+        self.library = library
+        self.function = function
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
 
     def __call__(self, *args) -> None:
         """Launch, and raise if the launch was refused."""
-        rc = self.load()(*args)
+        if self._fn is None:
+            fn = getattr(self.library.lib(), self.function)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.source.name}:{self.function} failed with cudaError {rc}")
+            raise RuntimeError(f"{self.library.source.name}:{self.function} failed with cudaError {rc}")
 
 
-def build_all(kernels: Sequence[CudaKernel]) -> None:
-    """Build every kernel library at once, one ``nvcc`` per source, all
-    started together."""
-    pending = [(k, k.start_build()) for k in kernels]
-    for k, build in pending:
-        k.finish_build(build)
-    for k in kernels:
-        k.load()
+def build_all(libraries: Sequence[CudaLibrary]) -> None:
+    """Build every library at once: one ``nvcc`` per source, all started
+    together (each waits in its own thread)."""
+    with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
+        list(pool.map(CudaLibrary.lib, libraries))
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -80,3 +80,38 @@ def test_roi_align_kernel_refuses_unaligned_channels(card):
     rois = torch.zeros((1, 2, 4), device=card)
     with pytest.raises(ValueError):
         troi.roi_align(feat, rois, (7, 7))
+
+
+@pytest.mark.parametrize("with_valid_hw", [False, True])
+@pytest.mark.parametrize("pooled", [(7, 7), (14, 14)])
+def test_roi_align_bwd_kernel_matches_plain(card, with_valid_hw, pooled):
+    """Kernel 3 through autograd (RoIAlignFunction's backward) against the
+    plain scatter-add.  Both sum with atomics in a run-dependent order, and
+    a float32 sum's rounding grows with the sum of its terms' magnitudes:
+    |Δ| ≤ 1e-4 · max(1, Σ|terms|), Σ|terms| being the plain backward of |g|
+    (the weights are ≥ 0)."""
+    rng = np.random.RandomState(2)
+    b, h, w, c = 2, 20, 30, 260
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card).requires_grad_()
+    xy = rng.rand(b, 40, 2) * [w * 16, h * 16]
+    wh = rng.rand(b, 40, 2) * 200
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, 0] = [0, 0, 0, 0]
+    rois[:, 1] = [w * 16 - 2, h * 16 - 2, w * 16 + 50, h * 16 + 50]
+    rois[:, 2] = [700, 500, 650, 450]
+    rois = torch.from_numpy(rois).to(card)
+    valid_hw = torch.tensor([[200.0, 330.0], [h * 16, 150.0]], device=card) if with_valid_hw else None
+    g = torch.from_numpy(rng.randn(b, 40, *pooled, c).astype(np.float32)).to(card)
+    fwd, bwd = troi.kernel.launches, troi.bwd_kernel.launches
+    (troi.roi_align(feat, rois, pooled, 1.0 / 16, 2, valid_hw) * g).sum().backward()
+    assert (troi.kernel.launches, troi.bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    ref = troi.roi_align_bwd_plain(g, rois, feat.shape, pooled, 1.0 / 16, 2, valid_hw)
+    mag = troi.roi_align_bwd_plain(g.abs(), rois, feat.shape, pooled, 1.0 / 16, 2, valid_hw)
+    assert float(((feat.grad - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+
+
+def test_roi_align_bwd_kernel_refuses_a_misshapen_cotangent(card):
+    g = torch.zeros((1, 2, 7, 7, 8), device=card)
+    rois = torch.zeros((1, 3, 4), device=card)
+    with pytest.raises(ValueError):
+        troi._roi_align_bwd_cuda(g, rois, (1, 4, 4, 8), (7, 7), 1.0 / 16, 2, None)

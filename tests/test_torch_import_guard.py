@@ -1,6 +1,7 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
-package cannot be imported, and ``chip_smoke.py`` refuses to report without a
-card or outside the repository."""
+package cannot be imported (it serves a request and trains a step through
+its CLI), and ``chip_smoke.py`` refuses to report without a card or outside
+the repository."""
 
 import json
 import os
@@ -66,6 +67,29 @@ pred = Predictor(FasterRCNN(cfg), make_test_postprocess(cfg, 21, cfg.TEST.SCORE_
 im = (np.random.RandomState(0).rand(60, 80, 3) * 255).astype(np.uint8)
 dets = detect_single(pred, im, cfg, 21)
 assert len(dets) == 21 and all(np.isfinite(d).all() for d in dets[1:])
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_trains_a_step_without_jax():
+    r = run_blocked("""
+import dataclasses, math, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.train_end2end as cli
+from mx_rcnn_tpu_torch.config import generate_config
+def tiny(network, dataset):
+    cfg = generate_config("resnet50", dataset)
+    return cfg.replace(dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                       SHAPE_BUCKETS=((96, 128), (128, 96)),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32))
+cli.generate_config = tiny
+out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1"])
+assert out["steps"] == 1, out
+assert all(math.isfinite(v) for v in out["history"][0].values()), out
 print("ok")
 """)
     assert r.returncode == 0, r.stderr
