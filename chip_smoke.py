@@ -7,50 +7,63 @@
    device count) and turns TF32 off for convolutions and matmuls;
 2. builds the hand-written kernels from ``mx_rcnn_tpu_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, all started together: ``nms.cu`` exports
-   the NMS launcher, ``roi_align.cu`` the ROIAlign forward and backward) and
-   prints ptxas' register / shared-memory / spill lines;
+   the NMS launcher, ``roi_align.cu`` the resident ROIAlign forward and
+   backward, ``roi_align_stream.cu`` the streamed ones) and prints ptxas'
+   register / shared-memory / spill lines;
 3. holds the NMS kernel against its plain PyTorch version on the card at the
    serving proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the
    train proposal shape (1 × 12000 sorted, max_keep 2000, IoU 0.7), the
    per-class shape (2 × 20 problems × 300 unsorted, IoU 0.3) and N = 1000
    (not a multiple of 64) with invalid rows: the keep masks must be
    identical;
-4. holds the ROIAlign forward kernel against its plain version at
+4. holds the ROIAlign forward kernel (2) against its plain version at
    (1, 64, 64, 1024), R = 300, and at the train shape (1, 38, 64, 1024),
    R = 128, both 14 × 14, s = 2, with and without ``valid_hw``, degenerate
-   and off-canvas rois included: max |Δ| ≤ 1e-5; and the ROIAlign backward
-   kernel against its plain scatter-add at the train shape, with and
+   and off-canvas rois included: max |Δ| ≤ 1e-5; the ROIAlign backward
+   kernel (3) against its plain scatter-add at the train shape, with and
    without ``valid_hw``: |Δ| ≤ 1e-4 · max(1, Σ|terms|) (atomics sum in a
    run-dependent order, and a float32 sum's rounding grows with the sum of
-   its terms' magnitudes);
+   its terms' magnitudes); and the streamed kernels 4 and 5 against theirs
+   at FPN's P2 (1, 152, 256, 256) and P3 (1, 76, 128, 256), 128 rois,
+   pooled 14 and 7, inverted, off-map, tiny and map-sized rois included:
+   forward max |Δ| ≤ 1e-5, backward the scaled 1e-4 bar and two launches
+   bit-identical;
 5. serves VOC-sized requests through full-width ResNet-101 C4 Faster R-CNN
    (``generate_config("resnet", "PascalVOC")``, seeded random weights) with
    ``detect_single`` in both buckets, plus a same-bucket batch of 2 through
-   the ``Predictor``; both kernels' launch counts are reset just before and
-   read just after, and each must be > 0.  The tensors the path fed the
-   kernels are captured and each kernel is held against its plain version on
-   them; one request is profiled (device time by layer); a small request
-   runs on the card and on the CPU (plain versions) and the two must agree;
-6. trains the same model (``generate_config("resnet", "PascalVOC")``, full
-   width, BATCH_ROIS 128, 12000 → 2000 proposals) for 10 steps through
-   ``core/fit.py::fit`` on 8 synthetic 480 × 640 images (600 × 800 in the
-   608 × 1024 bucket: a 38 × 64 × 1024 feature map); the three kernels'
-   launch counts are reset just before and read just after, and each must be
-   > 0; the frozen BN moments are first set from one forward on a training
-   image (unit-scale activations, as a pretrained backbone's give); every
-   loss must be finite and none above 100× the first step's, every frozen
-   tensor bit-identical after the steps and some trainable tensor of each
-   trained group changed; each kernel is held against its plain version on
-   the tensors the steps fed it; the loss's central difference along each
-   trained group's gradient must match the gradient within 1e-2; one step is
-   profiled (forward / backward / optimizer, device time by
-   layer); one small step (ResNet-50, 128 × 128) runs on the card and on the
-   CPU with the same weights and sampling draws, and the two must agree;
-7. times each kernel on captured tensors, at the serving shapes (the
-   batch-of-2 call) and at the train shapes: its device time from a CUDA
-   graph of the wrapper (``ms``), the eager wrapper (``wrapper_ms``) and the
-   eager plain version (``plain_ms``), beside the bound for the work this
-   data needs;
+   the ``Predictor``; the kernels' launch counts are reset just before and
+   read just after, and NMS and kernel 2 must be > 0.  The tensors the path
+   fed the kernels are captured and each kernel is held against its plain
+   version on them; one request is profiled (device time by layer); a small
+   request runs on the card and on the CPU (plain versions) and the two
+   must agree;
+6. trains the same model (full width, BATCH_ROIS 128, 12000 → 2000
+   proposals) for 10 steps through ``core/fit.py::fit`` on 8 synthetic
+   480 × 640 images (600 × 800 in the 608 × 1024 bucket: a 38 × 64 × 1024
+   feature map), then ResNet-50 FPN (``generate_config("resnet_fpn",
+   "PascalVOC")``: P2..P6, 12000 → 2000 proposals from the levels' top-k
+   union) the same way.  Each run resets the launch counts just before and
+   reads them just after: a C4 step launches NMS and kernels 2 and 3 once,
+   an FPN step NMS once and kernels 2–5 twice (P2/P3 streamed, P4/P5
+   resident).  The random weights are calibrated first on one training
+   image: the frozen BN moments (unit-scale activations, as a pretrained
+   backbone's give) and, for FPN, the output scale of the neck's convs and
+   the 2-fc head (``calibrate_scales``).  Every loss must be finite and none
+   above 100× the first step's, every frozen tensor bit-identical after the
+   steps and some trainable tensor of each trained group changed; each
+   kernel is held against its plain version on the tensors the steps fed
+   it; the loss's central difference along each trained group's gradient
+   must match the gradient within 1e-2; one step of each is profiled
+   (forward / backward / optimizer, device time by layer); one small step
+   of each (128 × 128) runs on the card and on the CPU with the same weights
+   and sampling draws, and the two must agree;
+7. times each kernel on captured tensors: NMS and kernel 2 at the serving
+   shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
+   and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
+   at P4 and, for the comparison of the two designs, at P2: its device time
+   from a CUDA graph of the wrapper (``ms``), the eager wrapper
+   (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
+   bound for the work this data needs;
 8. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
@@ -62,6 +75,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -84,11 +98,12 @@ from mx_rcnn_tpu_torch.core.train import (
 )
 from mx_rcnn_tpu_torch.data.loader import _orientation_bucket, make_batch
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
-from mx_rcnn_tpu_torch.models import faster_rcnn as model_mod
-from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN, sampling_uniforms
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
+from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve.runner import detect_single, prepare_request
@@ -114,6 +129,8 @@ ROI_BWD_TOL = 1e-4
 # must match the gradient to this relative bar
 LOSS_GROWTH_MAX = 100.0
 FD_TOL = 1e-2
+# the finite-difference steps, as the share of the loss each moves it by
+FD_STEPS = (1e-3, 5e-4)
 NUM_CLASSES = 21
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
@@ -278,23 +295,26 @@ def nms_synthetic(diff, dev):
 
 
 # ------------------------------------------------------------- ROIAlign
-def roi_work(feat, rois, pooled, scale, s, valid_hw, out):
+def roi_work(feat, rois, pooled, scale, s, valid_hw, out, keep=None):
     """Bytes the function must move and the flops it does: the feature cells
     some roi's samples read (each once, all channels), the rois, valid_hw
-    and the output."""
+    and the output.  ``keep`` (B, R): the rois that pool at all (the
+    streamed function's inverted rois read nothing and write zeros)."""
     b, h, w, c = feat.shape
     r = rois.float() * scale
+    keep = torch.ones(r.shape[:2], device=feat.device) if keep is None else keep.float()
     taps = []
     for axis, size, (c1, c2), nbins in ((0, h, (1, 3), pooled[0]), (1, w, (0, 2), pooled[1])):
         lim = None if valid_hw is None else valid_hw[:, axis]
         lim_f, lim_i = roi_mod._feat_limits(size, lim, scale, b, feat.device)
         lo, hi, _, _ = roi_mod._axis_taps(r[..., c1], r[..., c2], nbins, s, lim_f, lim_i)
         hit = torch.zeros(lo.shape[:2] + (size,), device=feat.device)
-        taps.append(hit.scatter_(2, lo, 1.0).scatter_(2, hi, 1.0))
+        taps.append(hit.scatter_(2, lo, 1.0).scatter_(2, hi, 1.0) * keep[..., None])
     cells = int((torch.einsum("brh,brw->bhw", *taps) > 0).sum())
     nbytes = (cells * c + rois.numel() + out.numel()
               + (0 if valid_hw is None else valid_hw.numel())) * 4
-    return nbytes, out.numel() * ROI_FLOPS_PER_OUTPUT
+    pooled_outputs = out.numel() // keep.numel() * float(keep.sum())
+    return nbytes, pooled_outputs * ROI_FLOPS_PER_OUTPUT
 
 
 def roi_case(feat, rois, valid_hw, label):
@@ -369,13 +389,78 @@ def roi_bwd_synthetic(diff, dev):
     diff.add(g, rois, shape, (14, 14), 1.0 / 16, 2, valid_hw, "train shape, valid_hw clamp")
 
 
+# ---------------------------------------------------- streamed ROIAlign
+class StreamDiff:
+    """Running comparison of kernels 4 and 5 with their plain versions:
+    the forward's max |Δ| (bar ROI_TOL); the backward's max |Δ| and max
+    |Δ| / max(1, Σ|terms|) (bar ROI_BWD_TOL), and whether two launches of
+    the backward gave bit-identical dfeat (they must: no atomics)."""
+
+    def __init__(self):
+        self.fwd_err, self.bwd_err, self.bwd_scaled, self.repeatable = 0.0, 0.0, 0.0, True
+
+    def fwd(self, feat, rois, pooled, scale, s, label):
+        got = stream_mod._roi_align_stream_cuda(feat, rois, pooled, scale, s)
+        ref = stream_mod.roi_align_stream_plain(feat, rois, pooled, scale, s)
+        err = float((got - ref).abs().max())
+        self.fwd_err = max(self.fwd_err, err)
+        inverted = ~stream_mod.valid_rois(rois, scale)
+        log(f"  roi_align_stream {label}: feat={tuple(feat.shape)} R={rois.shape[1]} "
+            f"({int(inverted.sum())} inverted) pooled={tuple(pooled)} max|d|={err:.3g}")
+        if not err <= ROI_TOL or got[inverted].any():
+            raise AssertionError(f"streamed ROIAlign kernel disagrees with the plain version ({label})")
+
+    def bwd(self, g, rois, shape, pooled, scale, s, label):
+        got = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)
+        again = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)
+        ref = stream_mod.roi_align_stream_bwd_plain(g, rois, shape, pooled, scale, s)
+        mag = stream_mod.roi_align_stream_bwd_plain(g.abs(), rois, shape, pooled, scale, s)
+        d = (got - ref).abs()
+        err, scaled = float(d.max()), float((d / mag.clamp_min(1.0)).max())
+        same = torch.equal(got, again)
+        self.bwd_err, self.bwd_scaled = max(self.bwd_err, err), max(self.bwd_scaled, scaled)
+        self.repeatable &= same
+        log(f"  roi_align_stream_bwd {label}: g={tuple(g.shape)} -> {tuple(shape)} max|d|={err:.3g} "
+            f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g} "
+            f"two launches bit-identical={same}")
+        if not scaled <= ROI_BWD_TOL or not same:
+            raise AssertionError(f"streamed ROIAlign backward kernel fails its bars ({label})")
+
+
+def stream_rois(rng, r, h_img, w_img):
+    """``synthetic_rois`` (whole canvas, sub-cell, off canvas, degenerate,
+    inverted) plus one roi above and left of the map, a tiny one and an
+    inverted one inside the map."""
+    rois = synthetic_rois(rng, r, h_img, w_img)
+    rois[5] = [-80, -60, -20, -10]
+    rois[6] = [10, 10, 13, 12]
+    rois[7] = [w_img / 2, 30, w_img / 2 - 40, 90]
+    return rois
+
+
+def stream_synthetic(diff, dev):
+    """Kernels 4 and 5 at the FPN train shapes: P2 (1, 152, 256, 256) at 1/4
+    and P3 (1, 76, 128, 256) at 1/8, 128 rois on the 608 × 1024 canvas,
+    pooled 14 and 7."""
+    rng = np.random.RandomState(6)
+    for h, w, stride in ((152, 256, 4), (76, 128, 8)):
+        feat = torch.from_numpy(rng.randn(1, h, w, 256).astype(np.float32)).to(dev)
+        rois = torch.from_numpy(stream_rois(rng, 128, 608, 1024)[None]).to(dev)
+        for pooled in ((14, 14), (7, 7)):
+            label = f"P{int(math.log2(stride))} pooled {pooled[0]}"
+            diff.fwd(feat, rois, pooled, 1.0 / stride, 2, label)
+            g = torch.from_numpy(rng.randn(1, 128, *pooled, 256).astype(np.float32)).to(dev)
+            diff.bwd(g, rois, tuple(feat.shape), pooled, 1.0 / stride, 2, label)
+
+
 # ------------------------------------------------------------ main path
-def make_model(cfg, seed: int = 0) -> FasterRCNN:
-    """Seeded random weights (no checkpoint is on disk).  The RPN output
-    layers are scaled down 1000× so proposals stay near their anchors: the
-    lecun-initialized head on raw-pixel inputs emits deltas of ~75, which
-    would clip nearly every proposal to the whole image."""
-    model = FasterRCNN(cfg, generator=torch.Generator().manual_seed(seed))
+def make_model(cfg, seed: int = 0):
+    """The config's model (``build_model``) with seeded random weights (no
+    checkpoint is on disk).  The RPN output layers are scaled down 1000× so
+    proposals stay near their anchors: the lecun-initialized head on
+    raw-pixel inputs emits deltas of ~75, which would clip nearly every
+    proposal to the whole image."""
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for layer in (model.rpn.rpn_cls_score, model.rpn.rpn_bbox_pred):
             layer.weight.mul_(1e-3)
@@ -389,18 +474,19 @@ def request_images(seed: int = 2):
 
 class Capture:
     """Records the inputs a path hands each kernel's launcher: every NMS
-    call, and the first ``keep`` ROIAlign forward and backward calls (all
-    when None; the train path keeps 2, so the copies add little to its peak
-    memory and nothing measurable to its steps)."""
+    call, and the first ``keep`` calls of each ROIAlign forward and backward
+    (all when None; the train paths keep 2, so the copies add little to
+    their peak memory and nothing measurable to their steps)."""
 
     def __init__(self, keep=None):
         self.keep = keep
-        self.nms, self.roi, self.roi_bwd = [], [], []
+        self.nms, self.roi, self.roi_bwd, self.stream, self.stream_bwd = [], [], [], [], []
         self._orig = (nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda,
-                      roi_mod._roi_align_bwd_cuda)
+                      roi_mod._roi_align_bwd_cuda, stream_mod._roi_align_stream_cuda,
+                      stream_mod._roi_align_stream_bwd_cuda)
 
     def __enter__(self):
-        orig_nms, orig_roi, orig_bwd = self._orig
+        orig_nms, orig_roi, orig_bwd, orig_stream, orig_stream_bwd = self._orig
 
         def nms_rec(boxes, valid, thresh, max_keep):
             self.nms.append((boxes.clone(), valid.clone(), thresh, max_keep))
@@ -418,24 +504,42 @@ class Capture:
                                      s, None if valid_hw is None else valid_hw.clone()))
             return orig_bwd(g, rois, feat_shape, pooled, scale, s, valid_hw)
 
+        def stream_rec(feat, rois, pooled, scale, s):
+            if self.keep is None or len(self.stream) < self.keep:
+                self.stream.append((feat.clone(), rois.clone(), pooled, scale, s))
+            return orig_stream(feat, rois, pooled, scale, s)
+
+        def stream_bwd_rec(g, rois, feat_shape, pooled, scale, s):
+            if self.keep is None or len(self.stream_bwd) < self.keep:
+                self.stream_bwd.append((g.clone(), rois.clone(), tuple(feat_shape), pooled, scale, s))
+            return orig_stream_bwd(g, rois, feat_shape, pooled, scale, s)
+
         nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda = nms_rec, roi_rec
         roi_mod._roi_align_bwd_cuda = bwd_rec
+        stream_mod._roi_align_stream_cuda = stream_rec
+        stream_mod._roi_align_stream_bwd_cuda = stream_bwd_rec
         return self
 
     def __exit__(self, *exc):
         (nms_mod._nms_mask_sorted_cuda, roi_mod._roi_align_cuda,
-         roi_mod._roi_align_bwd_cuda) = self._orig
+         roi_mod._roi_align_bwd_cuda, stream_mod._roi_align_stream_cuda,
+         stream_mod._roi_align_stream_bwd_cuda) = self._orig
         return False
 
 
+KERNELS = {
+    "nms": nms_mod.kernel, "roi_align_fwd": roi_mod.kernel, "roi_align_bwd": roi_mod.bwd_kernel,
+    "roi_align_stream_fwd": stream_mod.fwd_kernel, "roi_align_stream_bwd": stream_mod.bwd_kernel,
+}
+
+
 def reset_launches():
-    for k in (nms_mod.kernel, roi_mod.kernel, roi_mod.bwd_kernel):
+    for k in KERNELS.values():
         k.launches = 0
 
 
 def read_launches():
-    return {"nms": nms_mod.kernel.launches, "roi_align_fwd": roi_mod.kernel.launches,
-            "roi_align_bwd": roi_mod.bwd_kernel.launches}
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def main_path(cfg, dev):
@@ -543,10 +647,11 @@ def profile_request(predictor, cfg, im):
         log(f"    top: {e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
 
 
-def hold_captured(diff, cap, bwd_diff):
+def hold_captured(diff, cap, bwd_diff, stream_diff):
     """Each kernel against its plain version on the tensors the path fed it
-    (NMS into ``diff``, the ROIAlign backward into ``bwd_diff``); returns
-    the ROIAlign forward's max |Δ|."""
+    (NMS into ``diff``, the ROIAlign backward into ``bwd_diff``, the
+    streamed kernels into ``stream_diff``); returns the ROIAlign forward's
+    max |Δ|."""
     nms_bad = 0
     for boxes, valid, thresh, max_keep in cap.nms:
         got = nms_mod.nms_mask_sorted(boxes, valid.bool(), thresh, max_keep)
@@ -565,6 +670,10 @@ def hold_captured(diff, cap, bwd_diff):
         raise AssertionError(f"ROIAlign kernel disagrees on the path's tensors: {roi_err}")
     for i, (g, rois, shape, pooled, scale, s, valid_hw) in enumerate(cap.roi_bwd):
         bwd_diff.add(g, rois, shape, pooled, scale, s, valid_hw, f"captured call {i}")
+    for i, (feat, rois, pooled, scale, s) in enumerate(cap.stream):
+        stream_diff.fwd(feat, rois, pooled, scale, s, f"captured call {i}")
+    for i, (g, rois, shape, pooled, scale, s) in enumerate(cap.stream_bwd):
+        stream_diff.bwd(g, rois, shape, pooled, scale, s, f"captured call {i}")
     return roi_err
 
 
@@ -639,6 +748,15 @@ def small_request_agrees(cfg, dev):
 
 # ------------------------------------------------------------ train path
 TRAINED_GROUPS = ("backbone.stage2", "backbone.stage3", "top_head", "rpn", "rcnn")
+FPN_TRAINED_GROUPS = ("backbone.stage2", "backbone.stage3", "backbone.stage4", "neck", "rpn",
+                      "top_head", "rcnn")
+# launches a train step makes of each kernel: C4 pools one map (kernels 2/3);
+# FPN pools P2/P3 streamed (kernels 4/5) and P4/P5 resident (kernels 2/3);
+# both run one batched NMS
+C4_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
+                        "roi_align_stream_fwd": 0, "roi_align_stream_bwd": 0}
+FPN_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2,
+                         "roi_align_stream_fwd": 2, "roi_align_stream_bwd": 2}
 
 
 def train_batch(cfg, roidb, i, dev):
@@ -676,18 +794,50 @@ def calibrate_bn(model, batch):
     log(f"  BN moments set from one forward on a training image: {len(hooks)} layers")
 
 
-def gradient_matches_finite_differences(model, cfg, roidb, dev):
+def calibrate_scales(model, batch):
+    """Rescale each layer that no frozen BN follows, the FPN neck's convs and
+    its 2-fc head (none in C4), so that its output has unit standard
+    deviation on ``batch``: layer by layer in forward order, one train
+    forward each (LSUV, Mishkin & Matas 2016).  ``calibrate_bn`` gives the
+    backbone unit-scale activations; without this the random neck and head
+    leave the pooled features and the head's outputs far above unit scale,
+    each clipped SGD step moves the 50176-input ``fc1`` outputs by far more
+    than their scale, and the losses run away within a few steps."""
+    layers = [(n, m) for n, m in model.named_modules()
+              if n.startswith("neck.") or n in ("top_head.fc1", "top_head.fc2")]
+    for name, layer in layers:
+        seen = []
+        hook = layer.register_forward_hook(lambda m, i, o: seen.append(float(o.std())))
+        try:
+            with torch.no_grad():
+                model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                      train=True, sample_seeds=batch["sample_seeds"])
+        finally:
+            hook.remove()
+        with torch.no_grad():
+            layer.weight.div_(seen[0])
+            if layer.bias is not None:
+                layer.bias.div_(seen[0])
+    if layers:
+        log(f"  unit output scale set from one forward each on a training image: {len(layers)} "
+            f"layers ({', '.join(n for n, _ in layers)})")
+
+
+def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
     """The full-width backward against the forward on the card: for each
     trained group, the loss's central difference along the group's gradient,
     f(θ + εd) − f(θ − εd) with d = g/‖g‖, must equal gᵀ(θ₊ − θ₋) (the
     displacement as rounded into the f32 weights) within FD_TOL.  The
     samplers' draws are fixed (one rng and seed) and the first forward's
-    sampled rois are reused, so the loss is a smooth function of the
-    weights; ε moves it by ~1e-3 of itself.  stage2 and stage3 take their
-    gradient through the ROIAlign backward (kernel 3) almost wholly, since the
-    RPN's output layers are scaled by 1e-3."""
+    sampled rois are reused, so the loss is a function of the weights alone,
+    smooth but for the ReLU and max-pool switches; ε moves it by ~1e-3 of
+    itself, then by half that, and the smaller of the two readings is held
+    to the bar (a wrong gradient fails both).  The backbone takes its gradient
+    through the ROIAlign backward kernels almost wholly, since the RPN's
+    output layers are scaled by 1e-3."""
     batch = train_batch(cfg, roidb, 1, dev)
     held = {}
+    model_mod = importlib.import_module(type(model).__module__)
     orig = model_mod.sample_rois
 
     def sample_once(*a, **k):
@@ -708,7 +858,7 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev):
         f0 = float(loss.detach())
         worst = 0.0
         with torch.no_grad():
-            for grp in TRAINED_GROUPS:
+            for grp in groups:
                 ps = [p for n, p in model.named_parameters()
                       if n.startswith(grp + ".") and p.grad is not None]
                 gs = [p.grad.clone() for p in ps]
@@ -716,39 +866,46 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev):
                 gnorm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
                 if not gnorm > 0:
                     raise AssertionError(f"{grp} has no gradient")
-                eps = 1e-3 * abs(f0) / gnorm
-                f, moved = {}, {}
-                for sign in (1.0, -1.0):
-                    for p, a, g in zip(ps, p0, gs):
-                        p.copy_(a + (sign * eps / gnorm) * g)
-                    moved[sign] = [p.clone() for p in ps]
-                    f[sign] = float(loss_fn())
-                for p, a in zip(ps, p0):
-                    p.copy_(a)
-                want = sum(float((g.double() * (hi.double() - lo.double())).sum())
-                           for g, hi, lo in zip(gs, moved[1.0], moved[-1.0]))
-                got = f[1.0] - f[-1.0]
-                rel = abs(got - want) / abs(want)
-                worst = max(worst, rel)
-                log(f"  {grp}: |g| {gnorm:.4g}, eps {eps:.3g}, f(+)-f(-) {got:.6g}, "
-                    f"g.(p+ - p-) {want:.6g}, relative difference {rel:.3g}")
+                # two step sizes: a gradient error shows at both, while the
+                # ReLU / max-pool switches a step crosses move each reading
+                # by up to ~1e-2 of the difference on their own
+                rels = []
+                for step in FD_STEPS:
+                    eps = step * abs(f0) / gnorm
+                    f, moved = {}, {}
+                    for sign in (1.0, -1.0):
+                        for p, a, g in zip(ps, p0, gs):
+                            p.copy_(a + (sign * eps / gnorm) * g)
+                        moved[sign] = [p.clone() for p in ps]
+                        f[sign] = float(loss_fn())
+                    for p, a in zip(ps, p0):
+                        p.copy_(a)
+                    want = sum(float((g.double() * (hi.double() - lo.double())).sum())
+                               for g, hi, lo in zip(gs, moved[1.0], moved[-1.0]))
+                    got = f[1.0] - f[-1.0]
+                    rels.append(abs(got - want) / abs(want))
+                    log(f"  {grp}: |g| {gnorm:.4g}, eps {eps:.3g}, f(+)-f(-) {got:.6g}, "
+                        f"g.(p+ - p-) {want:.6g}, relative difference {rels[-1]:.3g}")
+                worst = max(worst, min(rels))
     finally:
         model_mod.sample_rois = orig
         for p in model.parameters():
             p.grad = None
-    log(f"  loss {f0:.6f}; worst relative difference {worst:.3g} (bar {FD_TOL})")
+    log(f"  loss {f0:.6f}; worst group's smaller relative difference {worst:.3g} (bar {FD_TOL})")
     if not worst <= FD_TOL:
         raise AssertionError("the full-width gradient disagrees with the loss's finite differences")
     return worst
 
 
-def train_path(cfg, dev):
+def train_path(cfg, dev, groups, per_step):
     """TRAIN_STEPS steps of ``fit`` at full width on synthetic records;
-    returns the captured kernel inputs, the launch counts of the run, the
-    model, the roidb and the step statistics."""
+    each kernel must launch ``per_step`` times a step.  Returns the captured
+    kernel inputs, the launch counts of the run, the model, the roidb and
+    the step statistics."""
     roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
     model = make_model(cfg)
     calibrate_bn(model, train_batch(cfg, roidb, 0, dev))
+    calibrate_scales(model, train_batch(cfg, roidb, 0, dev))
     before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -757,11 +914,13 @@ def train_path(cfg, dev):
         out = fit(model, cfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS,
                   frequent=TRAIN_STEPS, device=dev)
     launches = read_launches()
-    log(f"  launches in the train path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the train path never launched: {launches}")
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"  launches in the train path: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"the train path's kernel launches {launches} are not {want}")
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    captured_mib = sum(t.numel() * t.element_size() for c in (cap.roi, cap.roi_bwd)
+    captured_mib = sum(t.numel() * t.element_size()
+                       for c in (cap.roi, cap.roi_bwd, cap.stream, cap.stream_bwd)
                        for entry in c for t in entry[:2]) / 2**20
 
     hist = out["history"]
@@ -790,7 +949,7 @@ def train_path(cfg, dev):
         raise AssertionError(f"frozen tensors changed: {moved[:5]}")
     changed = {grp: any(not torch.equal(before[k], after[k]) for k in params
                         if k.startswith(grp + ".") and k not in frozen)
-               for grp in TRAINED_GROUPS}
+               for grp in groups}
     n_frozen_params = sum(k in params for k in frozen)
     log(f"  frozen tensors bit-identical after the steps: {len(frozen)} ({n_frozen_params} "
         f"parameters of conv0/stage1, {len(frozen) - n_frozen_params} BN buffers); "
@@ -818,6 +977,10 @@ def train_path(cfg, dev):
 
 def _train_layer_of(kernel_name: str) -> str:
     name = kernel_name.lower()
+    if "roi_align_stream_bwd" in name:
+        return "roi_align_stream bwd kernel"
+    if "roi_align_stream_fwd" in name:
+        return "roi_align_stream fwd kernel"
     if "roi_align_bwd" in name:
         return "roi_align bwd kernel"
     if "roi_align_fwd" in name:
@@ -909,31 +1072,60 @@ def argmax_takes_the_first_maximum(dev):
         raise AssertionError(f"argmax does not take the first maximum on the card: {got}")
 
 
-def train_step_agrees(dev):
-    """One small train step (ResNet-50, 128 × 128, the same weights and the
-    same sampling draws) on the card (kernels, cuDNN) and on the CPU (plain
+def anchor_count(cfg, h: int, w: int) -> int:
+    """Anchors of an h × w canvas: every stride-2 layer of the backbone
+    rounds up."""
+    net = cfg.network
+    if net.USE_FPN:
+        per_cell = len(net.ANCHOR_RATIOS) * len(net.FPN_ANCHOR_SCALES)
+        return sum(-(-h // s) * -(-w // s) for s in net.FPN_FEAT_STRIDES) * per_cell
+    return -(-h // net.RPN_FEAT_STRIDE) * -(-w // net.RPN_FEAT_STRIDE) * net.NUM_ANCHORS
+
+
+def small_c4_cfg():
+    """ResNet-50 C4 with anchors small enough (32–128 px) to meet the gts of
+    a 128 × 128 image (tests/test_torch_train.py::train_cfg)."""
+    cfg = generate_config("resnet50", "PascalVOC")
+    return cfg.replace(
+        network=dataclasses.replace(cfg.network, ANCHOR_SCALES=(2, 4, 8)),
+        TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=400, RPN_POST_NMS_TOP_N=64,
+                                  BATCH_ROIS=32, RPN_BATCH_SIZE=64),
+    )
+
+
+def small_fpn_cfg():
+    """ResNet-50 FPN at tests/test_fpn.py::fpn_cfg's size: a 128 × 128
+    canvas, 4 classes, 400 → 48 proposals, 16 rois."""
+    cfg = generate_config("resnet_fpn", "PascalVOC")
+    return cfg.replace(
+        SHAPE_BUCKETS=((128, 128),),
+        dataset=dataclasses.replace(cfg.dataset, NUM_CLASSES=4, SCALES=((128, 128),),
+                                    MAX_GT_BOXES=4),
+        TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=400, RPN_POST_NMS_TOP_N=48,
+                                  BATCH_ROIS=16, RPN_BATCH_SIZE=32),
+    )
+
+
+def train_step_agrees(dev, cfg, gts, label):
+    """One small train step (128 × 128, the same weights and the same
+    sampling draws) on the card (kernels, cuDNN) and on the CPU (plain
     versions): identical sampled labels and anchor labels, rois within
     1e-3 px, losses within 1e-4 relative, and every gradient leaf within
     1e-3 of its own L2 norm and within 3e-3 of its largest element (cuDNN's
     f32 convolution algorithms, its split reductions in the weight gradients
     and the atomics of the ROIAlign backward sum in other orders than the
-    CPU)."""
-    cfg = generate_config("resnet50", "PascalVOC")
-    cfg = cfg.replace(
-        network=dataclasses.replace(cfg.network, ANCHOR_SCALES=(2, 4, 8)),
-        TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=400, RPN_POST_NMS_TOP_N=64,
-                                  BATCH_ROIS=32, RPN_BATCH_SIZE=64),
-    )
+    CPU).  ``gts``: the image's (x1, y1, x2, y2, class) boxes."""
     model = make_model(cfg, seed=3)
+    model_mod = importlib.import_module(type(model).__module__)
     rng = np.random.RandomState(4)
     # tests/test_model.py::tiny_batch's inputs: pixels in [0, 1), two gts
     images = torch.from_numpy(rng.rand(1, 128, 128, 3).astype(np.float32))
     im_info = torch.tensor([[128.0, 128.0, 1.0]])
     gt = torch.zeros((1, 4, 5))
-    gt[0, 0] = torch.tensor([10.0, 10.0, 70.0, 70.0, 1.0])
-    gt[0, 1] = torch.tensor([60.0, 60.0, 120.0, 110.0, 2.0])
-    gt_valid = torch.tensor([[True, True, False, False]])
-    draws = sampling_uniforms(11, [0], 8 * 8 * cfg.network.NUM_ANCHORS, 64 + 4, "cpu")
+    gt[0, :len(gts)] = torch.tensor(gts)
+    gt_valid = torch.arange(4)[None] < len(gts)
+    draws = sampling_uniforms(11, [0], anchor_count(cfg, 128, 128),
+                              cfg.TRAIN.RPN_POST_NMS_TOP_N + 4, "cpu")
 
     runs = {}
     orig = (model_mod.assign_anchor, model_mod.sample_rois)
@@ -968,7 +1160,7 @@ def train_step_agrees(dev):
     worst = sorted(leaf.items(), key=lambda kv: -kv[1][0])[:4]
     grad_rel = worst[0][1][0]
     grad_max_rel = max(v[1] for v in leaf.values())
-    log(f"  small train step card vs CPU: fg rois {int(cpu['aux']['num_fg_rois'])}, fg anchors "
+    log(f"  small {label} train step card vs CPU: fg rois {int(cpu['aux']['num_fg_rois'])}, fg anchors "
         f"{int(cpu['aux']['num_fg_anchors'])}, same labels {same_labels}, rois max|d| {roi_err:.3g} px, "
         f"loss {cpu['loss']:.6f} vs {card['loss']:.6f}, max relative loss/aux diff "
         f"{max(loss_rel.values()):.3g}, gradients over {len(cpu['grads'])} leaves: max "
@@ -1023,6 +1215,48 @@ def roi_bwd_timing(entry, label):
             "shape": list(g.shape) + list(shape)}
 
 
+def stream_fwd_timing(entry, label):
+    feat, rois, pooled, scale, s = entry
+    ms, wrap, plain = time_kernel(
+        lambda: stream_mod.roi_align_stream(feat, rois, pooled, scale, s),
+        lambda: stream_mod.roi_align_stream_plain(feat, rois, pooled, scale, s), reps=20)
+    out = stream_mod.roi_align_stream(feat, rois, pooled, scale, s)
+    keep = stream_mod.valid_rois(rois, scale)
+    bound, by = bound_ms(*roi_work(feat, rois, pooled, scale, s, None, out, keep))
+    log(f"  roi_align_stream {label} feat {tuple(feat.shape)} rois {tuple(rois.shape)} "
+        f"({int(keep.sum())} valid): kernel {ms:.4f} ms (graph), wrapper {wrap:.4f} ms (eager), "
+        f"plain {plain:.2f} ms, bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "wrapper_ms": wrap, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "shape": list(feat.shape) + list(rois.shape)}
+
+
+def stream_bwd_work(g, rois, shape, scale):
+    """Bytes the streamed backward must move (the cotangents of the valid
+    rois, the rois, the whole dfeat written once) and its flops."""
+    keep = stream_mod.valid_rois(rois, scale)
+    g_valid = g.numel() // keep.numel() * int(keep.sum())
+    return (g_valid + rois.numel() + int(np.prod(shape))) * 4, g_valid * ROI_BWD_FLOPS_PER_G
+
+
+def stream_bwd_timing(entry, label):
+    g, rois, shape, pooled, scale, s = entry
+    ms, wrap, plain = time_kernel(
+        lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s),
+        lambda: stream_mod.roi_align_stream_bwd_plain(g, rois, shape, pooled, scale, s), reps=20)
+    bound, by = bound_ms(*stream_bwd_work(g, rois, shape, scale))
+    log(f"  roi_align_stream_bwd {label} g {tuple(g.shape)} -> {tuple(shape)}: kernel {ms:.4f} ms "
+        f"(graph), wrapper {wrap:.4f} ms (eager), plain {plain:.2f} ms, bound {bound:.5f} ms ({by})")
+    return {"ms": ms, "wrapper_ms": wrap, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "shape": list(g.shape) + list(shape)}
+
+
+def at_scale(entries, scale):
+    """The last captured ROIAlign call at ``scale`` (the pyramid level):
+    a forward entry holds the scale after (feat, rois, pooled), a backward
+    one after (g, rois, feat_shape, pooled)."""
+    return [e for e in entries if e[3 if e[0].dim() == 4 else 4] == scale][-1]
+
+
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
@@ -1044,13 +1278,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[card] TF32 off for cuDNN convolutions and matmuls: full float32")
 
-    libraries = (nms_mod.library, roi_mod.library)
+    libraries = (nms_mod.library, roi_mod.library, stream_mod.library)
     t0 = time.monotonic()
     build_all(libraries)
     log(f"[build] {len(libraries)} libraries in {time.monotonic() - t0:.1f} s (parallel nvcc); "
-        f"launchers: {nms_mod.kernel.function} ({nms_mod.library.source.name}), "
-        f"{roi_mod.kernel.function} and {roi_mod.bwd_kernel.function} "
-        f"({roi_mod.library.source.name})")
+        f"launchers: " + ", ".join(f"{k.function} ({k.library.source.name})" for k in KERNELS.values()))
     for lib in libraries:
         secs = lib.build_seconds
         log(f"  {lib.source.name}: {secs if secs is None else round(secs, 1)} s")
@@ -1058,13 +1290,15 @@ def main() -> int:
             if "ptxas info" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    nms_diff, bwd_diff = MaskDiff(), BwdDiff()
+    nms_diff, bwd_diff, stream_diff = MaskDiff(), BwdDiff(), StreamDiff()
     log("[nms] kernel vs plain, synthetic")
     nms_synthetic(nms_diff, dev)
     log("[roi_align] forward kernel vs plain, synthetic")
     roi_err = roi_synthetic(dev)
     log("[roi_align_bwd] backward kernel vs plain, synthetic")
     roi_bwd_synthetic(bwd_diff, dev)
+    log("[roi_align_stream] streamed forward and backward kernels vs plain, synthetic P2/P3")
+    stream_synthetic(stream_diff, dev)
 
     cfg = generate_config("resnet", "PascalVOC")
     log(f"[main path] serving: ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, "
@@ -1072,61 +1306,121 @@ def main() -> int:
         f"proposals, device postprocess")
     cap, serve_launches, predictor, image = main_path(cfg, dev)
     log("[main path] serving kernels vs plain on the captured tensors")
-    roi_err = max(roi_err, hold_captured(nms_diff, cap, bwd_diff))
+    roi_err = max(roi_err, hold_captured(nms_diff, cap, bwd_diff, stream_diff))
 
     t = cfg.TRAIN
     log(f"[train] ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, BATCH_IMAGES "
         f"{t.BATCH_IMAGES}, BATCH_ROIS {t.BATCH_ROIS}, {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} "
         f"proposals, {TRAIN_STEPS} steps of fit on synthetic 480x640 images")
-    train_cap, launches, model, roidb, train_stats = train_path(cfg, dev)
+    train_cap, launches, model, roidb, train_stats = train_path(
+        cfg, dev, TRAINED_GROUPS, C4_LAUNCHES_PER_STEP)
     log("[train] kernels vs plain on the captured tensors")
-    roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff))
+    roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff, stream_diff))
     log("[train] full-width gradient vs finite differences of the loss")
-    train_stats["fd_worst"] = gradient_matches_finite_differences(model, cfg, roidb, dev)
+    train_stats["fd_worst"] = gradient_matches_finite_differences(
+        model, cfg, roidb, dev, TRAINED_GROUPS)
+
+    fcfg = generate_config("resnet_fpn", "PascalVOC")
+    ft, fn = fcfg.TRAIN, fcfg.network
+    log(f"[fpn train] ResNet-{fn.depth} FPN ({fn.FPN_CHANNELS} channels, strides "
+        f"{fn.FPN_FEAT_STRIDES}, pooled {fn.POOLED_SIZE}), {fcfg.dataset.NUM_CLASSES} classes, "
+        f"BATCH_ROIS {ft.BATCH_ROIS}, {ft.RPN_PRE_NMS_TOP_N}->{ft.RPN_POST_NMS_TOP_N} proposals, "
+        f"{TRAIN_STEPS} steps of fit on synthetic 480x640 images")
+    fpn_cap, fpn_launches, fpn_model, fpn_roidb, fpn_stats = train_path(
+        fcfg, dev, FPN_TRAINED_GROUPS, FPN_LAUNCHES_PER_STEP)
+    log("[fpn train] kernels vs plain on the captured tensors")
+    roi_err = max(roi_err, hold_captured(nms_diff, fpn_cap, bwd_diff, stream_diff))
+    log("[fpn train] full-width gradient vs finite differences of the loss")
+    fpn_stats["fd_worst"] = gradient_matches_finite_differences(
+        fpn_model, fcfg, fpn_roidb, dev, FPN_TRAINED_GROUPS)
 
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
     classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
     serve_roi = roi_fwd_timing(cap.roi[-1], "serving")
-    log("[timing] train shapes, on the train steps' captured tensors")
+    log("[timing] C4 train shapes, on the train steps' captured tensors")
     train_nms = nms_timing(train_cap.nms[-1], "train proposals")
     train_roi = roi_fwd_timing(train_cap.roi[-1], "train")
     train_bwd = roi_bwd_timing(train_cap.roi_bwd[-1], "train")
+    log("[timing] FPN train shapes, on the FPN steps' captured tensors")
+    fpn_nms = nms_timing(fpn_cap.nms[-1], "FPN union of the levels' top-k")
+    p2, p3 = at_scale(fpn_cap.stream, 0.25), at_scale(fpn_cap.stream, 0.125)
+    p2_bwd, p3_bwd = at_scale(fpn_cap.stream_bwd, 0.25), at_scale(fpn_cap.stream_bwd, 0.125)
+    stream_p2, stream_p3 = stream_fwd_timing(p2, "P2"), stream_fwd_timing(p3, "P3")
+    stream_bwd_p2 = stream_bwd_timing(p2_bwd, "P2")
+    stream_bwd_p3 = stream_bwd_timing(p3_bwd, "P3")
+    fpn_roi = roi_fwd_timing(at_scale(fpn_cap.roi, 1.0 / 16), "FPN P4")
+    fpn_bwd = roi_bwd_timing(at_scale(fpn_cap.roi_bwd, 1.0 / 16), "FPN P4")
+    log("[timing] the resident kernels 2 and 3 on the same P2 tensors (the other design)")
+    resident_p2 = roi_fwd_timing(p2 + (None,), "P2, resident kernel 2")
+    resident_bwd_p2 = roi_bwd_timing(p2_bwd + (None,), "P2, resident kernel 3")
+    log(f"  P2: streamed forward {stream_p2['ms']:.4f} ms vs resident {resident_p2['ms']:.4f} ms; "
+        f"streamed backward {stream_bwd_p2['ms']:.4f} ms vs resident {resident_bwd_p2['ms']:.4f} ms")
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
-    log("[profile] where one train step's device time goes")
+    log("[profile] where one C4 train step's device time goes")
     train_stats["profile"] = profile_train_step(model, cfg, roidb, dev)
+    log("[profile] where one FPN train step's device time goes")
+    fpn_stats["profile"] = profile_train_step(fpn_model, fcfg, fpn_roidb, dev)
 
     log("[reference] small request, card vs CPU")
     small_request_agrees(cfg, dev)
-    log("[train reference] small train step, card vs CPU")
+    log("[train reference] small train steps, card vs CPU")
     argmax_takes_the_first_maximum(dev)
-    train_step_agrees(dev)
+    train_step_agrees(dev, small_c4_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
+                                            [60.0, 60.0, 120.0, 110.0, 2.0]], "C4")
+    log("[fpn train reference] small FPN train step, card vs CPU")
+    train_step_agrees(dev, small_fpn_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
+                                             [50.0, 60.0, 120.0, 110.0, 2.0]], "FPN")
 
     log(f"[train] stats {json.dumps(train_stats)}")
+    log(f"[fpn train] stats {json.dumps(fpn_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40",
-            "launches": launches["nms"], "serve_launches": serve_launches["nms"],
+            "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
+            "serve_launches": serve_launches["nms"],
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
             **train_nms, "library_ms": None,
             **_prefixed("serve", serve_nms), **_prefixed("class", classes),
+            **_prefixed("fpn", fpn_nms),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88",
-            "launches": launches["roi_align_fwd"], "serve_launches": serve_launches["roi_align_fwd"],
+            "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
+            "serve_launches": serve_launches["roi_align_fwd"],
             "max_abs_err": roi_err, **train_roi, "library_ms": None,
-            **_prefixed("serve", serve_roi),
+            **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
+            **_prefixed("p2", resident_p2),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
-            "launches": launches["roi_align_bwd"], "max_abs_err": bwd_diff.max_abs_err,
-            "scaled_err": bwd_diff.scaled_err, **train_bwd, "library_ms": None,
+            "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
+            "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
+            **train_bwd, "library_ms": None,
+            **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
+        },
+        {
+            "name": "roi_align_stream_fwd", "route": "cuda",
+            "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100",
+            "launches": fpn_launches["roi_align_stream_fwd"],
+            "max_abs_err": stream_diff.fwd_err, **stream_p2, "library_ms": None,
+            **_prefixed("p3", stream_p3),
+        },
+        {
+            "name": "roi_align_stream_bwd", "route": "cuda",
+            "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164",
+            "launches": fpn_launches["roi_align_stream_bwd"],
+            "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
+            "bitwise_repeatable": stream_diff.repeatable, **stream_bwd_p2, "library_ms": None,
+            **_prefixed("p3", stream_bwd_p3),
         },
     ]}), flush=True)
     print(smi, flush=True)

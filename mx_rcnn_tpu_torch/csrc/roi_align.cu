@@ -43,28 +43,9 @@
 
 #include <cuda_runtime.h>
 
+#include "roi_align_taps.cuh"
+
 namespace {
-
-struct Tap {
-  int lo, hi;
-  float w_lo, w_hi;
-};
-
-__device__ __forceinline__ Tap sample_tap(float c1, float bin, int k, int s,
-                                          float lim_f, int lim_i, int size) {
-  float g = c1 + ((float)k + 0.5f) / (float)s * bin;
-  g = fminf(fmaxf(g, 0.0f), lim_f - 1.0f);
-  const float lo_f = floorf(g);
-  Tap t;
-  t.lo = (int)lo_f;
-  t.hi = min(t.lo + 1, lim_i - 1);
-  t.w_hi = g - lo_f;
-  t.w_lo = 1.0f - t.w_hi;
-  // never touch a cell outside the map, whatever valid_hw says
-  t.lo = max(0, min(t.lo, size - 1));
-  t.hi = max(0, min(t.hi, size - 1));
-  return t;
-}
 
 // The taps of output row ph of roi r of image b, into shared memory:
 // xt[pw_count * s] along x, then yt[s] along y.  The caller syncs.
@@ -91,19 +72,6 @@ __device__ __forceinline__ void block_taps(const float* __restrict__ rois,
       yt[t - nx] = sample_tap(y1, bin_h, ph * s + (t - nx), s, lim_hf, (int)lim_hf, h);
     }
   }
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-__device__ __forceinline__ float4 scale4(float4 a, float k) {
-  return make_float4(a.x * k, a.y * k, a.z * k, a.w * k);
-}
-
-__device__ __forceinline__ float4 lerp4(float4 a, float wa, float4 b, float wb) {
-  return make_float4(a.x * wa + b.x * wb, a.y * wa + b.y * wb,
-                     a.z * wa + b.z * wb, a.w * wa + b.w * wb);
 }
 
 // dst += v without reading the old value back (compiles to RED).  sm_90 has

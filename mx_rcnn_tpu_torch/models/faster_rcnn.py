@@ -70,19 +70,74 @@ def sampling_uniforms(
     return {k: torch.stack(v) for k, v in rows.items()}
 
 
+def train_losses(
+    cfg: Config, rpn_logits, rpn_deltas, atgt, samples, prop_valid, cls_logits, bbox_pred_out,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The train step's four losses, summed, and its aux metrics under the
+    JAX train_forward's names, from the RPN outputs (B, N, 2/4), the anchor
+    targets, the sampled rois, the proposals' (B, P) validity and the RCNN
+    head's (B·R, K) / (B·R, 4K) outputs."""
+    t = cfg.TRAIN
+    b = rpn_logits.shape[0]
+    labels = samples.labels.reshape(-1)
+    bbox_targets = samples.bbox_targets.reshape(bbox_pred_out.shape)
+    bbox_weights = samples.bbox_weights.reshape(bbox_pred_out.shape)
+    anchor_labels = atgt.labels.reshape(-1)
+
+    rpn_norm = float(t.RPN_BATCH_SIZE * b)
+    rcnn_norm = float(t.BATCH_ROIS * b)
+    rpn_cls_loss = softmax_cross_entropy(rpn_logits.reshape(-1, 2), anchor_labels, -1, rpn_norm)
+    rpn_bbox_loss = weighted_smooth_l1(
+        rpn_deltas.reshape(-1, 4), atgt.bbox_targets.reshape(-1, 4),
+        atgt.bbox_weights.reshape(-1, 4), sigma=3.0, norm=rpn_norm,
+    )
+    rcnn_cls_loss = softmax_cross_entropy(cls_logits, labels, -1, rcnn_norm)
+    rcnn_bbox_loss = weighted_smooth_l1(
+        bbox_pred_out, bbox_targets, bbox_weights, sigma=1.0, norm=rcnn_norm
+    )
+    total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
+    aux = {
+        "RPNAcc": accuracy(rpn_logits.reshape(-1, 2), anchor_labels),
+        "RPNLogLoss": rpn_cls_loss,
+        "RPNL1Loss": rpn_bbox_loss,
+        "RCNNAcc": accuracy(cls_logits, labels),
+        "RCNNLogLoss": rcnn_cls_loss,
+        "RCNNL1Loss": rcnn_bbox_loss,
+        "num_fg_rois": (labels > 0).sum(),
+        "num_valid_props": prop_valid.sum(),
+        "num_fg_anchors": (anchor_labels == 1).sum(),
+    }
+    return total, aux
+
+
+# Flax's initializer for each Dense kernel that is not the nn.Dense default
+# (lecun_normal): the RCNN head's (models/heads.py)
+_DENSE_STD = {"cls_score": 0.01, "bbox_pred": 0.001}
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Flax's lecun_normal: a normal truncated at ±2σ, scaled so the
+    variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Random init with Flax's distributions, drawn from ``generator``:
-    lecun_normal (truncated, fan-in) for conv kernels, Normal(0.01) for
-    ``cls_score`` and Normal(0.001) for ``bbox_pred`` (models/heads.py),
-    zero biases, identity frozen BN (the buffers' defaults)."""
+    """Random init with each layer's Flax initializer, drawn from
+    ``generator``: lecun_normal (truncated, fan-in) for conv kernels and
+    Dense kernels (``nn.Dense``'s default, e.g. the FPN head's ``fc1`` and
+    ``fc2``), Normal(0.01) for ``cls_score`` and Normal(0.001) for
+    ``bbox_pred`` (models/heads.py), zero biases, identity frozen BN (the
+    buffers' defaults)."""
     for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0] * m.kernel_size[1], generator)
         elif isinstance(m, nn.Linear):
-            std = 0.001 if name.endswith("bbox_pred") else 0.01
-            nn.init.normal_(m.weight, 0.0, std, generator=generator)
+            std = _DENSE_STD.get(name.rsplit(".", 1)[-1])
+            if std is None:
+                _lecun_normal_(m.weight, m.in_features, generator)
+            else:
+                nn.init.normal_(m.weight, 0.0, std, generator=generator)
         else:
             continue
         if m.bias is not None:
@@ -98,7 +153,7 @@ class FasterRCNN(nn.Module):
         if net.USE_FPN:
             raise NotImplementedError("USE_FPN: FasterRCNN builds a single-level C4 graph")
         if net.USE_MASK:
-            raise NotImplementedError("USE_MASK: the mask path lands with the FPN model")
+            raise NotImplementedError("USE_MASK: the mask family is not ported yet")
         if net.name != "resnet":
             raise NotImplementedError(f"network {net.name!r} is not ported yet")
         if net.COMPUTE_DTYPE != "float32" or net.FOLD_BN:
@@ -189,35 +244,9 @@ class FasterRCNN(nn.Module):
         trunk = self.top_head(pooled.reshape((b * r,) + pooled.shape[2:]).permute(0, 3, 1, 2))
         cls_logits, bbox_pred_out = self.rcnn(trunk)           # (B·R, K), (B·R, 4K)
 
-        labels = samples.labels.reshape(-1)
-        bbox_targets = samples.bbox_targets.reshape(bbox_pred_out.shape)
-        bbox_weights = samples.bbox_weights.reshape(bbox_pred_out.shape)
-        anchor_labels = atgt.labels.reshape(-1)
-
-        rpn_norm = float(t.RPN_BATCH_SIZE * b)
-        rcnn_norm = float(t.BATCH_ROIS * b)
-        rpn_cls_loss = softmax_cross_entropy(rpn_logits.reshape(-1, 2), anchor_labels, -1, rpn_norm)
-        rpn_bbox_loss = weighted_smooth_l1(
-            rpn_deltas.reshape(-1, 4), atgt.bbox_targets.reshape(-1, 4),
-            atgt.bbox_weights.reshape(-1, 4), sigma=3.0, norm=rpn_norm,
+        return train_losses(
+            cfg, rpn_logits, rpn_deltas, atgt, samples, props.valid, cls_logits, bbox_pred_out
         )
-        rcnn_cls_loss = softmax_cross_entropy(cls_logits, labels, -1, rcnn_norm)
-        rcnn_bbox_loss = weighted_smooth_l1(
-            bbox_pred_out, bbox_targets, bbox_weights, sigma=1.0, norm=rcnn_norm
-        )
-        total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
-        aux = {
-            "RPNAcc": accuracy(rpn_logits.reshape(-1, 2), anchor_labels),
-            "RPNLogLoss": rpn_cls_loss,
-            "RPNL1Loss": rpn_bbox_loss,
-            "RCNNAcc": accuracy(cls_logits, labels),
-            "RCNNLogLoss": rcnn_cls_loss,
-            "RCNNL1Loss": rcnn_bbox_loss,
-            "num_fg_rois": (labels > 0).sum(),
-            "num_valid_props": props.valid.sum(),
-            "num_fg_anchors": (anchor_labels == 1).sum(),
-        }
-        return total, aux
 
     def test_forward(self, images: torch.Tensor, im_info: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B, H, W, 3) normalized images + (B, 3) im_info → padded per-image

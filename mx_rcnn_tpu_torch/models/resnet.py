@@ -1,4 +1,4 @@
-"""ResNet-50/101 C4 backbone + conv5 top head (port of
+"""ResNet-50/101 C4 backbone (or C2–C5 pyramid) + conv5 top head (port of
 ``mx_rcnn_tpu/models/resnet.py``).
 
 Post-activation bottlenecks with the stride on the 1×1 ``conv1``
@@ -64,25 +64,35 @@ class ResNetStage(nn.Module):
 
 
 class ResNetBackbone(nn.Module):
-    """conv1..conv4: (B, 3, H, W) → C4 feature (B, 1024, H/16, W/16)."""
+    """conv1..conv4: (B, 3, H, W) → C4 feature (B, 1024, H/16, W/16).
 
-    def __init__(self, depth: int = 101):
+    With ``return_pyramid`` it also holds ``stage4`` and returns (C2, C3,
+    C4, C5) for FPN, C5 computed convolutionally (the plain Faster R-CNN
+    applies stage4 per roi in :class:`ResNetTopHead` instead)."""
+
+    def __init__(self, depth: int = 101, return_pyramid: bool = False):
         super().__init__()
         blocks = BLOCKS[depth]
+        self.return_pyramid = return_pyramid
         self.conv0 = conv(3, 64, 7, 2)
         self.bn0 = FrozenBatchNorm(64)
         self.stage1 = ResNetStage(64, 64, blocks[0], 1)
         self.stage2 = ResNetStage(256, 128, blocks[1], 2)
         self.stage3 = ResNetStage(512, 256, blocks[2], 2)
+        if return_pyramid:
+            self.stage4 = ResNetStage(1024, 512, blocks[3], 2)
 
-    def forward(self, x: torch.Tensor, pad_mask=_identity) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask=_identity):
         x = F.relu(self.bn0(self.conv0(x)))
         # re-zero bucket padding before the pool: relu output is ≥ 0 and
         # every valid window holds a valid cell, so zeros never win a max
         x = F.max_pool2d(pad_mask(x), 3, stride=2, padding=1)
-        x = self.stage1(x, pad_mask)
-        x = self.stage2(x, pad_mask)
-        return self.stage3(x, pad_mask)
+        c2 = self.stage1(x, pad_mask)
+        c3 = self.stage2(c2, pad_mask)
+        c4 = self.stage3(c3, pad_mask)
+        if not self.return_pyramid:
+            return c4
+        return c2, c3, c4, self.stage4(c4, pad_mask)
 
 
 class ResNetTopHead(nn.Module):

@@ -10,6 +10,10 @@ backward launches kernel 3 (both in ``csrc/roi_align.cu``); CPU tensors run
 they clamp to the canvas (the Pallas kernel ``roi_align_pallas``, which the
 train step takes).  :func:`roi_align_bwd_plain` is the backward's plain
 version: an explicit scatter-add over the same taps.
+
+:func:`extract_roi_features_batched` routes as the JAX package does: maps
+that :func:`fits_vmem` go to :func:`roi_align` (kernels 2/3), larger ones in
+a differentiated graph to ``ops/roi_align_stream.py`` (kernels 4/5).
 """
 
 from __future__ import annotations
@@ -257,6 +261,36 @@ def roi_align(
     return RoIAlignFunction.apply(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw)
 
 
+# The JAX package's routing between its two Pallas ROIAlign kernels
+# (``mx_rcnn_tpu/ops/pallas/roi_align.py::_cblk, _VMEM_BUDGET,
+# _resident_bytes, fits_vmem``), reproduced so that each TPU kernel's
+# counterpart sits at the same call site.  Whether the H100 wants another
+# split is a later, measured question.
+_VMEM_BUDGET = 8 * 2**20
+
+_RBLK = 8  # rois per grid step of the resident TPU kernels
+
+
+def _cblk(c: int, largest: int = 512) -> int:
+    for blk in (512, 256, 128):
+        if blk <= largest and c % blk == 0:
+            return blk
+    return c
+
+
+def _resident_bytes(h: int, w: int, blk: int, esize: int, pooled_max: int = 14) -> int:
+    """The resident TPU kernels' per-step working set: the (H, W, blk)
+    slab plus the f32 stacked roi-block intermediate."""
+    pooled_stack = _RBLK * pooled_max
+    return (h * w * esize + pooled_stack * h * 4) * blk
+
+
+def fits_vmem(h: int, w: int, c: int, pooled_max: int = 14) -> bool:
+    """True iff the JAX package sends an (H, W, C) map to its resident
+    kernels (here kernels 2/3) rather than its streaming ones (4/5)."""
+    return _resident_bytes(h, w, _cblk(c, largest=128), 4, pooled_max) <= _VMEM_BUDGET
+
+
 def extract_roi_features_batched(
     feat: torch.Tensor,
     rois: torch.Tensor,
@@ -264,11 +298,27 @@ def extract_roi_features_batched(
     pooled: Tuple[int, int],
     spatial_scale: float,
     sample_ratio: int = 2,
+    fwd_only: bool = False,
     valid_hw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Dispatch on config ROI_MODE; only 'roi_align' is ported so far."""
-    if mode == "roi_align":
-        return roi_align(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw)
+    """(B, H, W, C) × (B, R, 4) → (B, R, ph, pw, C), dispatched on config
+    ROI_MODE (only 'roi_align' is ported).
+
+    Without ``valid_hw`` a map that :func:`fits_vmem` goes to
+    :func:`roi_align` (kernels 2/3 on CUDA tensors), a larger one in a graph
+    that differentiates it (``fwd_only`` False) to
+    :func:`~mx_rcnn_tpu_torch.ops.roi_align_stream.roi_align_stream`
+    (kernels 4/5), whose rule for inverted rois differs.  Everything else
+    goes to :func:`roi_align`.  CPU tensors take each route's plain
+    version."""
     if mode == "roi_pool":
         raise NotImplementedError("roi_pool (the VGG-16 family) is not ported yet")
-    raise ValueError(f"unknown ROI_MODE {mode!r}")
+    if mode != "roi_align":
+        raise ValueError(f"unknown ROI_MODE {mode!r}")
+    if valid_hw is None and not fwd_only and not fits_vmem(
+        feat.shape[1], feat.shape[2], feat.shape[3], pooled_max=max(pooled)
+    ):
+        from mx_rcnn_tpu_torch.ops import roi_align_stream as stream
+
+        return stream.roi_align_stream(feat, rois, pooled, spatial_scale, sample_ratio)
+    return roi_align(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw)

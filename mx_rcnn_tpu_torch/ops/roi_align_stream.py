@@ -1,0 +1,163 @@
+"""Streamed ROIAlign, forward and backward (port of
+``mx_rcnn_tpu/ops/pallas/roi_align_stream.py``): the function the JAX package
+routes the maps over its resident kernels' budget to (FPN's P2 and P3 in the
+train step; ``ops/roi_align.py::extract_roi_features_batched``).
+
+It is :func:`~mx_rcnn_tpu_torch.ops.roi_align.roi_align_plain` clamped to the
+canvas, with one rule of its own: a roi whose scaled ``x2 < x1`` (the TPU
+kernels' filler) pools to zeros and gets no gradient.  CUDA tensors go
+through :class:`RoIAlignStreamFunction`, whose forward launches kernel 4 and
+whose backward launches kernel 5 (both in ``csrc/roi_align_stream.cu``; the
+backward is deterministic); CPU tensors run :func:`roi_align_stream_plain`,
+which torch autograd differentiates, and :func:`roi_align_stream_bwd_plain`
+is the backward's plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from mx_rcnn_tpu_torch.ops.roi_align import roi_align_bwd_plain, roi_align_plain
+from mx_rcnn_tpu_torch.utils.cuda_build import (
+    CudaKernel,
+    CudaLibrary,
+    kernel_input,
+    ptr,
+    stream_of,
+)
+
+# both launchers take (in, rois, b, h, w, c, r, ph, pw, s, scale, out, stream)
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+)
+library = CudaLibrary("roi_align_stream.cu")
+fwd_kernel = CudaKernel(library, "roi_align_stream_fwd", _ARGTYPES)
+bwd_kernel = CudaKernel(library, "roi_align_stream_bwd", _ARGTYPES)
+
+# kernel 4 gives each of its 8 warps at most 4 output columns
+MAX_POOLED_W = 32
+
+
+def valid_rois(rois: torch.Tensor, spatial_scale: float) -> torch.Tensor:
+    """(B, R) bool: the rois whose scaled ``x2 >= x1`` (the rest are the
+    TPU kernels' inverted fillers)."""
+    r = rois.float() * spatial_scale
+    return r[..., 2] >= r[..., 0]
+
+
+def roi_align_stream_plain(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    pooled: Tuple[int, int] = (7, 7),
+    spatial_scale: float = 0.25,
+    sample_ratio: int = 2,
+) -> torch.Tensor:
+    """Plain PyTorch streamed ROIAlign: (B, H, W, C) × (B, R, 4) →
+    (B, R, ph, pw, C), on any device: the canvas-clamped ROIAlign, zeros for
+    inverted rois."""
+    out = roi_align_plain(feat, rois, pooled, spatial_scale, sample_ratio)
+    keep = valid_rois(rois, spatial_scale)[..., None, None, None]
+    return torch.where(keep, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def roi_align_stream_bwd_plain(
+    g: torch.Tensor,
+    rois: torch.Tensor,
+    feat_shape,
+    pooled: Tuple[int, int] = (7, 7),
+    spatial_scale: float = 0.25,
+    sample_ratio: int = 2,
+) -> torch.Tensor:
+    """Plain PyTorch backward: (B, R, ph, pw, C) cotangent → (B, H, W, C) f32,
+    on any device: the scatter-add of ``roi_align_bwd_plain`` with the
+    inverted rois dropped."""
+    keep = valid_rois(rois, spatial_scale)[..., None, None, None]
+    g = torch.where(keep, g.float(), torch.zeros((), device=g.device))
+    return roi_align_bwd_plain(g, rois, feat_shape, pooled, spatial_scale, sample_ratio)
+
+
+def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
+    feat = kernel_input("feat", feat, torch.float32, 4)
+    rois = kernel_input("rois", rois, torch.float32, 3)
+    b, h, w, c = feat.shape
+    ph, pw = pooled
+    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or pw > MAX_POOLED_W:
+        raise ValueError(
+            f"feat {tuple(feat.shape)} (C % 4 == 0) / rois {tuple(rois.shape)} / "
+            f"pooled {tuple(pooled)} (width <= {MAX_POOLED_W})"
+        )
+    r = rois.shape[1]
+    out = torch.empty((b, r, ph, pw, c), dtype=torch.float32, device=feat.device)
+    with torch.cuda.device(feat.device):
+        fwd_kernel(
+            ptr(feat), ptr(rois), b, h, w, c, r, ph, pw, int(sample_ratio),
+            float(spatial_scale), ptr(out), stream_of(feat),
+        )
+    fwd_kernel.launches += 1
+    return out
+
+
+def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio):
+    g = kernel_input("g", g, torch.float32, 5)
+    rois = kernel_input("rois", rois, torch.float32, 3)
+    b, h, w, c = feat_shape
+    r = rois.shape[1]
+    ph, pw = pooled
+    if c % 4 or tuple(g.shape) != (b, r, ph, pw, c) or tuple(rois.shape) != (b, r, 4):
+        raise ValueError(
+            f"g {tuple(g.shape)} / rois {tuple(rois.shape)} / feat {tuple(feat_shape)} (C % 4 == 0)"
+        )
+    # every element is written by the kernel: no zero fill
+    dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        bwd_kernel(
+            ptr(g), ptr(rois), b, h, w, c, r, ph, pw, int(sample_ratio),
+            float(spatial_scale), ptr(dfeat), stream_of(g),
+        )
+    bwd_kernel.launches += 1
+    return dfeat
+
+
+class RoIAlignStreamFunction(torch.autograd.Function):
+    """Streamed ROIAlign on CUDA tensors: the forward launches kernel 4, the
+    backward kernel 5.  ``rois`` get no gradient, as the JAX vjp returns
+    zeros for them."""
+
+    @staticmethod
+    def forward(ctx, feat, rois, pooled, spatial_scale, sample_ratio):
+        ctx.save_for_backward(rois)
+        ctx.meta = (tuple(feat.shape), feat.dtype, pooled, spatial_scale, sample_ratio)
+        return _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (rois,) = ctx.saved_tensors
+        shape, dtype, pooled, spatial_scale, sample_ratio = ctx.meta
+        dfeat = None
+        if ctx.needs_input_grad[0]:
+            dfeat = _roi_align_stream_bwd_cuda(
+                g, rois, shape, pooled, spatial_scale, sample_ratio
+            ).to(dtype)
+        return dfeat, None, None, None, None
+
+
+def roi_align_stream(
+    feat: torch.Tensor,
+    rois: torch.Tensor,
+    pooled: Tuple[int, int] = (7, 7),
+    spatial_scale: float = 0.25,
+    sample_ratio: int = 2,
+) -> torch.Tensor:
+    """(B, H, W, C) feature + (B, R, 4) image-coordinate rois →
+    (B, R, ph, pw, C), differentiable in ``feat``; inverted rois pool to
+    zeros."""
+    if feat.device.type == "cpu":
+        return roi_align_stream_plain(feat, rois, pooled, spatial_scale, sample_ratio)
+    return RoIAlignStreamFunction.apply(feat, rois, pooled, spatial_scale, sample_ratio)

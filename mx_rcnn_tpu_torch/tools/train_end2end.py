@@ -5,7 +5,8 @@ the same names).
     python -m mx_rcnn_tpu_torch.tools.train_end2end --network resnet \\
         --dataset PascalVOC --synthetic 64 --epochs 1 --max_steps 20
 
-Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
+``--network resnet_fpn`` trains ResNet-50 FPN (box-only) through the same
+loop.  Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
 on the CPU instead.  The log, the Speedometer lines included, goes to
 standard output.  Only synthetic data is ported (``--synthetic N``), and
 the weights are seeded random (``--seed``): no checkpoint is written yet.
@@ -25,12 +26,12 @@ from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.data.imdb import IMDB, filter_roidb
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
-from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+from mx_rcnn_tpu_torch.models import build_model
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train Faster R-CNN end-to-end (PyTorch port)")
-    p.add_argument("--network", default="resnet", choices=["resnet", "resnet50", "resnet152"])
+    p.add_argument("--network", default="resnet", choices=["resnet", "resnet50", "resnet152", "resnet_fpn"])
     p.add_argument("--dataset", default="PascalVOC", choices=["PascalVOC", "PascalVOC0712", "coco"])
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--lr", type=float, default=None)
@@ -67,7 +68,7 @@ def train_net(args) -> Dict:
         roidb = IMDB.append_flipped_images(roidb)
     roidb = filter_roidb(roidb)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
-    model = FasterRCNN(cfg, generator=torch.Generator().manual_seed(args.seed))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,
         frequent=args.frequent, device="cpu" if args.cpu else None,

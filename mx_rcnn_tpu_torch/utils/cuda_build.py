@@ -9,7 +9,9 @@ on machines without ``nvcc``.
 
 A :class:`CudaLibrary` is one source; a :class:`CudaKernel` is one C launcher
 it exports, with its own launch count.  One library may export several
-launchers (``roi_align.cu``: forward and backward), and builds once.
+launchers (``roi_align.cu``: forward and backward), and builds once.  A
+source may include the shared headers ``csrc/*.cuh``; they are hashed into
+every library's name.
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
 
     def library_path(self) -> Path:
+        # the shared headers (``*.cuh``) are part of every source's build
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 

@@ -12,6 +12,7 @@ import torch
 
 from mx_rcnn_tpu_torch.ops import nms as tnms
 from mx_rcnn_tpu_torch.ops import roi_align as troi
+from mx_rcnn_tpu_torch.ops import roi_align_stream as tstream
 
 pytestmark = pytest.mark.gpu
 
@@ -115,3 +116,70 @@ def test_roi_align_bwd_kernel_refuses_a_misshapen_cotangent(card):
     rois = torch.zeros((1, 3, 4), device=card)
     with pytest.raises(ValueError):
         troi._roi_align_bwd_cuda(g, rois, (1, 4, 4, 8), (7, 7), 1.0 / 16, 2, None)
+
+
+def _stream_rois(rng, b, r, h, w, scale):
+    """Rois over a (h, w) map at ``scale``: random, the whole canvas,
+    sub-cell, past the border, degenerate, inverted (x2 < x1) and fully off
+    the map."""
+    h_img, w_img = h / scale, w / scale
+    xy = rng.rand(b, r, 2) * [w_img, h_img]
+    wh = rng.rand(b, r, 2) * [w_img / 2, h_img / 2]
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, 0] = [0, 0, w_img - 1, h_img - 1]
+    rois[:, 1] = [5, 5, 5.5, 5.5]
+    rois[:, 2] = [w_img - 2, h_img - 2, w_img + 50, h_img + 50]
+    rois[:, 3] = [0, 0, 0, 0]
+    rois[:, 4] = [300, 40, 200, 90]
+    rois[:, 5] = [-80, -60, -20, -10]
+    return torch.from_numpy(rois)
+
+
+@pytest.mark.parametrize("pooled", [(7, 7), (14, 14)])
+def test_roi_align_stream_kernel_matches_plain(card, pooled):
+    """Kernel 4 against its plain version (C = 260: a partial channel slice;
+    inverted rois pool to zeros): max |Δ| ≤ 1e-5."""
+    rng = np.random.RandomState(3)
+    b, h, w, c = 2, 45, 61, 260
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card)
+    rois = _stream_rois(rng, b, 40, h, w, 0.25).to(card)
+    before = tstream.fwd_kernel.launches
+    got = tstream.roi_align_stream(feat, rois, pooled, 0.25, 2)
+    assert tstream.fwd_kernel.launches == before + 1
+    ref = tstream.roi_align_stream_plain(feat, rois, pooled, 0.25, 2)
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert not got[:, 4].any()
+
+
+@pytest.mark.parametrize("pooled", [(7, 7), (14, 14)])
+def test_roi_align_stream_bwd_kernel_matches_plain_and_repeats(card, pooled):
+    """Kernel 5 through autograd (RoIAlignStreamFunction's backward) against
+    the plain scatter-add, |Δ| ≤ 1e-4 · max(1, Σ|terms|) (the plain version
+    sums with atomics, in a run-dependent order); and two launches give
+    bit-identical dfeat (no atomics, a fixed sum order)."""
+    rng = np.random.RandomState(4)
+    b, h, w, c = 2, 45, 61, 260
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card).requires_grad_()
+    rois = _stream_rois(rng, b, 40, h, w, 0.25).to(card)
+    g = torch.from_numpy(rng.randn(b, 40, *pooled, c).astype(np.float32)).to(card)
+    fwd, bwd = tstream.fwd_kernel.launches, tstream.bwd_kernel.launches
+    (tstream.roi_align_stream(feat, rois, pooled, 0.25, 2) * g).sum().backward()
+    assert (tstream.fwd_kernel.launches, tstream.bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    ref = tstream.roi_align_stream_bwd_plain(g, rois, feat.shape, pooled, 0.25, 2)
+    mag = tstream.roi_align_stream_bwd_plain(g.abs(), rois, feat.shape, pooled, 0.25, 2)
+    assert float(((feat.grad - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+    again = tstream._roi_align_stream_bwd_cuda(g, rois, feat.shape, pooled, 0.25, 2)
+    assert torch.equal(again, feat.grad)
+
+
+def test_roi_align_stream_kernels_refuse_bad_inputs(card):
+    with pytest.raises(ValueError):
+        tstream.roi_align_stream(torch.zeros((1, 4, 4, 6), device=card),
+                                 torch.zeros((1, 2, 4), device=card), (7, 7))
+    g = torch.zeros((1, 2, 7, 7, 8), device=card)
+    with pytest.raises(ValueError):
+        tstream._roi_align_stream_bwd_cuda(g, torch.zeros((1, 3, 4), device=card),
+                                           (1, 4, 4, 8), (7, 7), 0.25, 2)
+    with pytest.raises(ValueError):
+        tstream._roi_align_stream_bwd_cuda(g, torch.zeros((1, 2, 4), device=card),
+                                           (1, 4, 4, 6), (7, 7), 0.25, 2)
