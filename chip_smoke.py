@@ -9,13 +9,15 @@
    for sm_90a (one nvcc per source, all started together: ``nms.cu`` exports
    the NMS launcher, ``roi_align.cu`` the resident ROIAlign forward and
    backward, ``roi_align_stream.cu`` the streamed ones) and prints ptxas'
-   register / shared-memory / spill lines;
+   register / shared-memory / spill lines, and one summary line of the
+   registers and spills of the NMS and streamed-backward kernels;
 3. holds the NMS kernel against its plain PyTorch version on the card at the
    serving proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the
    train proposal shape (1 × 12000 sorted, max_keep 2000, IoU 0.7), the
-   per-class shape (2 × 20 problems × 300 unsorted, IoU 0.3) and N = 1000
-   (not a multiple of 64) with invalid rows: the keep masks must be
-   identical;
+   per-class shape (2 × 20 problems × 300 unsorted, IoU 0.3), N = 1000
+   (not a multiple of 64) with invalid rows and the FPN union shape (1 ×
+   9504 unsorted, IoU 0.7, no stop, through ``nms_mask``): the keep masks
+   must be identical;
 4. holds the ROIAlign forward kernel (2) against its plain version at
    (1, 64, 64, 1024), R = 300, and at the train shape (1, 38, 64, 1024),
    R = 128, both 14 × 14, s = 2, with and without ``valid_hw``, degenerate
@@ -78,6 +80,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +110,7 @@ from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve.runner import detect_single, prepare_request
+from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -157,32 +161,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int, replays: int = 3) -> float:
-    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed after a warm-up and timed with CUDA events, so the
-    wrapper's host work (checks, allocations, the ctypes call) is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * reps)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -288,10 +266,25 @@ def nms_synthetic(diff, dev):
     nms_case(diff, boxes, valid, 0.5, 0, "N=1000")
     nms_case(diff, boxes, valid, 0.5, 50, "N=1000 truncated")
     # train proposal shape: 1 × 12000 sorted, the sweep stops at the 2000th
-    # survivor (pass 2's longest chain; an 18 MB mask scratch)
+    # survivor (an 18 MB mask scratch)
     boxes = torch.from_numpy(random_boxes(rng, 1, 12000, 1024, 608, 300)).to(dev)
     valid = torch.ones((1, 12000), dtype=torch.bool, device=dev)
     nms_case(diff, boxes, valid, 0.7, 2000, "train proposals")
+    # FPN union shape: 1 × 9504 anchor-like boxes in random score order,
+    # through the full contract (sort, kernel, scatter back) against the
+    # same contract with the plain sweep, on the card; no stop
+    boxes = torch.from_numpy(fpn_union(rng)).to(dev)
+    scores = torch.from_numpy(rng.rand(1, boxes.shape[1]).astype(np.float32)).to(dev)
+    got = nms_mod.nms_mask(boxes, scores, 0.7)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    ref = torch.zeros_like(got).scatter(
+        1, order, nms_mod.nms_mask_sorted_plain(sb, torch.ones_like(got), 0.7))
+    bad = diff.add(got, ref)
+    log(f"  nms FPN union (unsorted, nms_mask): P=1 N={boxes.shape[1]} thresh=0.7 "
+        f"kept={int(got.sum())} mismatches={bad}")
+    if bad:
+        raise AssertionError("NMS kernel disagrees with the plain version (FPN union)")
 
 
 # ------------------------------------------------------------- ROIAlign
@@ -1257,6 +1250,23 @@ def at_scale(entries, scale):
     return [e for e in entries if e[3 if e[0].dim() == 4 else 4] == scale][-1]
 
 
+def ptxas_summary(lib):
+    """{kernel: "R registers, S bytes spill stores, L bytes spill loads"}
+    from ``lib``'s ptxas log."""
+    out, name = {}, None
+    for line in lib.ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)E", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
+
+
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
@@ -1289,6 +1299,11 @@ def main() -> int:
         for line in lib.ptxas_log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"    {line.strip()}")
+
+    redesigned = {k: v for lib in (nms_mod.library, stream_mod.library)
+                  for k, v in ptxas_summary(lib).items() if "fwd" not in k}
+    log("[build] NMS and streamed-backward kernels, registers and spills: "
+        + "; ".join(f"{k}: {v}" for k, v in redesigned.items()))
 
     nms_diff, bwd_diff, stream_diff = MaskDiff(), BwdDiff(), StreamDiff()
     log("[nms] kernel vs plain, synthetic")
@@ -1380,7 +1395,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
-            "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40",
+            "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40", "design": "PR 4",
+            "ptxas": {k: v for k, v in redesigned.items() if k.startswith("nms")},
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
             "serve_launches": serve_launches["nms"],
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
@@ -1416,7 +1432,8 @@ def main() -> int:
         {
             "name": "roi_align_stream_bwd", "route": "cuda",
             "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
-            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164", "design": "PR 4",
+            "ptxas": {k: v for k, v in redesigned.items() if not k.startswith("nms")},
             "launches": fpn_launches["roi_align_stream_bwd"],
             "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
             "bitwise_repeatable": stream_diff.repeatable, **stream_bwd_p2, "library_ms": None,

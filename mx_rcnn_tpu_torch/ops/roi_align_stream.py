@@ -8,7 +8,8 @@ canvas, with one rule of its own: a roi whose scaled ``x2 < x1`` (the TPU
 kernels' filler) pools to zeros and gets no gradient.  CUDA tensors go
 through :class:`RoIAlignStreamFunction`, whose forward launches kernel 4 and
 whose backward launches kernel 5 (both in ``csrc/roi_align_stream.cu``; the
-backward is deterministic); CPU tensors run :func:`roi_align_stream_plain`,
+backward is deterministic, and takes a scratch for its per-roi tables,
+:func:`bwd_scratch`); CPU tensors run :func:`roi_align_stream_plain`,
 which torch autograd differentiates, and :func:`roi_align_stream_bwd_plain`
 is the backward's plain version.
 """
@@ -29,16 +30,19 @@ from mx_rcnn_tpu_torch.utils.cuda_build import (
     stream_of,
 )
 
-# both launchers take (in, rois, b, h, w, c, r, ph, pw, s, scale, out, stream)
-_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-)
+# the forward launcher takes (feat, rois, b, h, w, c, r, ph, pw, s, scale,
+# out, stream); the backward's takes (g, rois, ..., scale, scratch, dfeat,
+# stream)
+_SHAPE_ARGS = (ctypes.c_int,) * 8 + (ctypes.c_float,)
 library = CudaLibrary("roi_align_stream.cu")
-fwd_kernel = CudaKernel(library, "roi_align_stream_fwd", _ARGTYPES)
-bwd_kernel = CudaKernel(library, "roi_align_stream_bwd", _ARGTYPES)
+fwd_kernel = CudaKernel(
+    library, "roi_align_stream_fwd",
+    (ctypes.c_void_p, ctypes.c_void_p) + _SHAPE_ARGS + (ctypes.c_void_p, ctypes.c_void_p),
+)
+bwd_kernel = CudaKernel(
+    library, "roi_align_stream_bwd",
+    (ctypes.c_void_p, ctypes.c_void_p) + _SHAPE_ARGS + (ctypes.c_void_p,) * 3,
+)
 
 # kernel 4 gives each of its 8 warps at most 4 output columns
 MAX_POOLED_W = 32
@@ -82,6 +86,15 @@ def roi_align_stream_bwd_plain(
     return roi_align_bwd_plain(g, rois, feat_shape, pooled, spatial_scale, sample_ratio)
 
 
+def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
+    """The scratch kernel 5 takes: one table per (image, roi), which its
+    set-up kernel writes and its tile kernel reads."""
+    fn = library.lib().roi_align_stream_bwd_scratch_bytes
+    fn.argtypes, fn.restype = (ctypes.c_int,) * 7, ctypes.c_longlong
+    nbytes = fn(b, h, w, r, pooled[0], pooled[1], int(sample_ratio))
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
     feat = kernel_input("feat", feat, torch.float32, 4)
     rois = kernel_input("rois", rois, torch.float32, 3)
@@ -116,9 +129,10 @@ def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sampl
     # every element is written by the kernel: no zero fill
     dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
+        scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
         bwd_kernel(
             ptr(g), ptr(rois), b, h, w, c, r, ph, pw, int(sample_ratio),
-            float(spatial_scale), ptr(dfeat), stream_of(g),
+            float(spatial_scale), ptr(scratch), ptr(dfeat), stream_of(g),
         )
     bwd_kernel.launches += 1
     return dfeat

@@ -1,0 +1,223 @@
+"""Time the NMS kernel (1) and the streamed ROIAlign backward (5) on the card,
+pass by pass, on seeded synthetic inputs at the train and serving shapes.
+
+    python -m mx_rcnn_tpu_torch.tools.kernel_bench
+
+``chip_smoke.py`` times the kernels on the tensors the paths feed them; this
+script times them on inputs it makes itself, so that two versions of the
+kernels can be compared in one run on one card: run it once from each
+checkout (``env PYTHONPATH=<checkout> python <this file>`` imports the
+package of that checkout).  For each case it prints the wrapper's device
+time (calls captured in a CUDA graph, CUDA events), the device time of each
+CUDA kernel the wrapper launches (torch.profiler), and for NMS the same
+boxes with every row invalid, which leaves pass 1 whole and pass 2 no
+survivor to carry.  The last line is one JSON object of every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from mx_rcnn_tpu_torch.ops import nms as nms_mod
+from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
+from mx_rcnn_tpu_torch.ops.anchors import shifted_anchors
+
+CANVAS_HW = (608, 1024)
+
+
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed after a warm-up and timed with CUDA events, so the
+    wrapper's host work (checks, allocations, the ctypes call) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def kernel_ms(fn, reps: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def jittered(rng, anchors: np.ndarray, spread: float) -> np.ndarray:
+    """Anchors moved and resized by a relative ``spread``, clipped to the
+    canvas: the shape of proposals from an RPN near its initialization."""
+    w = anchors[:, 2] - anchors[:, 0] + 1.0
+    h = anchors[:, 3] - anchors[:, 1] + 1.0
+    cx = anchors[:, 0] + 0.5 * w + rng.randn(len(w)) * spread * w
+    cy = anchors[:, 1] + 0.5 * h + rng.randn(len(h)) * spread * h
+    w = w * np.exp(rng.randn(len(w)) * spread)
+    h = h * np.exp(rng.randn(len(h)) * spread)
+    boxes = np.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], 1)
+    hh, ww = CANVAS_HW
+    return np.clip(boxes, 0, [ww - 1, hh - 1, ww - 1, hh - 1]).astype(np.float32)
+
+
+def smooth_scores(rng, boxes: np.ndarray) -> np.ndarray:
+    """Scores that vary smoothly over the canvas (20 random bumps of 60 px),
+    as an RPN's objectness does: the top-k of a level then clusters, and
+    neighbours suppress each other."""
+    hh, ww = CANVAS_HW
+    centres = rng.rand(20, 2) * [ww, hh]
+    amp = rng.rand(20)
+    ctr = np.stack([boxes[:, 0] + boxes[:, 2], boxes[:, 1] + boxes[:, 3]], 1) / 2
+    d2 = ((ctr[:, None] - centres[None]) ** 2).sum(-1)
+    return (amp * np.exp(-d2 / (2 * 60.0 ** 2))).sum(1) + rng.rand(len(boxes)) * 0.05
+
+
+def top_k_sorted(rng, boxes: np.ndarray, k: int):
+    scores = smooth_scores(rng, boxes)
+    order = np.argsort(-scores, kind="stable")[:k]
+    return boxes[order], scores[order]
+
+
+def fpn_union(rng) -> np.ndarray:
+    """(1, 9504, 4) boxes in descending score order: the top 2400 of each of
+    P2..P5 and all of P6 (one scale, three ratios), as the FPN train step's
+    union of its levels' top-k."""
+    hh, ww = CANVAS_HW
+    boxes, scores = [], []
+    for stride in (4, 8, 16, 32, 64):
+        a = shifted_anchors(-(-hh // stride), -(-ww // stride), stride, scales=(8,))
+        b, s = top_k_sorted(rng, jittered(rng, a, 0.01), 2400)
+        boxes.append(b)
+        scores.append(s)
+    boxes, scores = np.concatenate(boxes), np.concatenate(scores)
+    return boxes[np.argsort(-scores, kind="stable")][None]
+
+
+def c4_proposals(rng, p: int, n: int) -> np.ndarray:
+    """(p, n, 4): the top n of the C4 anchors (stride 16, scales 8/16/32),
+    jittered, in descending score order."""
+    hh, ww = CANVAS_HW
+    a = shifted_anchors(hh // 16, ww // 16, 16)
+    return np.stack([top_k_sorted(rng, jittered(rng, a, 0.01), n)[0] for _ in range(p)])
+
+
+def class_boxes(rng, p: int, n: int) -> np.ndarray:
+    xy = rng.rand(p, n, 2) * [450.0, 360.0]
+    wh = rng.rand(p, n, 2) * 120.0 + 2.0
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+def nms_cases(rng, dev):
+    """(label, boxes, valid, thresh, max_keep) on the card, boxes sorted."""
+    union = torch.from_numpy(fpn_union(rng)).to(dev)
+    train = torch.from_numpy(c4_proposals(rng, 1, 12000)).to(dev)
+    serve = torch.from_numpy(c4_proposals(rng, 2, 6000)).to(dev)
+    classes = torch.from_numpy(class_boxes(rng, 40, 300)).to(dev)
+    ones = lambda b: torch.ones(b.shape[:2], dtype=torch.bool, device=dev)  # noqa: E731
+    return [
+        ("FPN union 1x9504, no stop", union, ones(union), 0.7, 0),
+        ("FPN union, every row invalid (pass 1 alone)", union, ~ones(union), 0.7, 0),
+        ("C4 train 1x12000, keep 2000", train, ones(train), 0.7, 2000),
+        ("serving 2x6000, keep 300", serve, ones(serve), 0.7, 300),
+        ("classes 40x300", classes, ones(classes), 0.3, 0),
+    ]
+
+
+def stream_rois(rng, r: int) -> np.ndarray:
+    """(1, r, 4) rois as the FPN train step samples them from a random
+    network's proposals: clustered in one 450 x 280 px region of the canvas,
+    a quarter near two gt boxes, the rest anchor-shaped (32..128 px scales,
+    ratios 0.5 / 1 / 2, the small ones most often), slightly moved."""
+    gts = np.array([[126, 121, 485, 295], [250, 200, 520, 400]], np.float32)
+    n_fg = r // 4
+    fg = gts[rng.randint(0, 2, n_fg)]
+    fg = fg + rng.randn(n_fg, 4) * np.tile(fg[:, 2:] - fg[:, :2], 2) * 0.05
+    scale = np.array([32.0, 64.0, 128.0])[rng.choice(3, r - n_fg, p=[0.6, 0.3, 0.1])]
+    ratio = np.array([0.5, 1.0, 2.0])[rng.randint(0, 3, r - n_fg)]
+    wh = np.stack([scale * np.sqrt(2.0 / ratio), scale * np.sqrt(ratio / 2.0)], 1)
+    ctr = rng.rand(r - n_fg, 2) * [450.0, 280.0] + [100.0, 120.0]
+    bg = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)
+    rois = np.concatenate([fg, bg]).astype(np.float32)
+    hh, ww = CANVAS_HW
+    return np.clip(rois, 0, [ww - 1, hh - 1, ww - 1, hh - 1])[None]
+
+
+def stream_cases(rng, dev):
+    """(label, g, rois, feat_shape, scale) at FPN's P2 and P3."""
+    rois = torch.from_numpy(stream_rois(rng, 128)).to(dev)
+    out = []
+    for level, (h, w) in ((2, (152, 256)), (3, (76, 128))):
+        g = torch.from_numpy(rng.randn(1, 128, 14, 14, 256).astype(np.float32)).to(dev)
+        out.append((f"P{level} g 1x128x14x14x256 -> 1x{h}x{w}x256", g, rois, (1, h, w, 256),
+                    1.0 / 2 ** level))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=20, help="calls in each timed CUDA graph")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[card] {smi} | package {nms_mod.__file__}", flush=True)
+    for lib in (nms_mod.library, stream_mod.library):
+        lib.lib()
+        for line in lib.ptxas_log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {lib.source.name}: {line.strip()}", flush=True)
+    rng = np.random.RandomState(args.seed)
+    result = {"card": smi, "nms": {}, "stream_bwd": {}}
+    for label, boxes, valid, thresh, max_keep in nms_cases(rng, dev):
+        call = lambda: nms_mod.nms_mask_sorted(boxes, valid, thresh, max_keep)  # noqa: E731
+        kept = int(call().sum())
+        ms = graph_ms(call, args.reps)
+        per = kernel_ms(call)
+        result["nms"][label] = {"kept": kept, "ms": ms, "kernels_ms": per}
+        print(f"  nms {label} {tuple(boxes.shape)}: kept {kept}, {ms:.4f} ms (graph); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    for label, g, rois, shape, scale in stream_cases(rng, dev):
+        call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, (14, 14), scale, 2)  # noqa: E731
+        ms = graph_ms(call, args.reps)
+        per = kernel_ms(call)
+        result["stream_bwd"][label] = {"ms": ms, "kernels_ms": per}
+        print(f"  roi_align_stream_bwd {label}: {ms:.4f} ms (graph); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

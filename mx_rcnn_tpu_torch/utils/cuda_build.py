@@ -71,9 +71,12 @@ class CudaLibrary:
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def lib(self) -> ctypes.CDLL:
-        """The loaded library, running ``nvcc`` first unless it is built."""
+        """The loaded library, running ``nvcc`` first unless it is built.
+        ptxas' log is kept beside the library, so a build made earlier
+        still reports its registers and spills."""
         if self._lib is None:
             out = self.library_path()
+            log = out.with_suffix(".ptxas.txt")
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -84,9 +87,10 @@ class CudaLibrary:
                 )
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {self.source.name}:\n{proc.stdout}")
+                log.write_text(proc.stdout)
                 os.replace(tmp, out)
                 self.build_seconds = time.monotonic() - t0
-                self.ptxas_log = proc.stdout
+            self.ptxas_log = log.read_text() if log.exists() else ""
             self._lib = ctypes.CDLL(str(out))
         return self._lib
 

@@ -45,6 +45,75 @@ def test_nms_kernel_matches_plain(card, p, n, thresh, max_keep):
     assert torch.equal(got, ref)
 
 
+def _nms_plain_contract(boxes, scores, thresh):
+    """``nms_mask``'s contract with the plain sweep, on the same device: the
+    stable descending sort, the plain keep mask, scattered back."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    b = torch.gather(boxes, -2, order[..., None].expand(order.shape + (4,)))
+    keep = tnms.nms_mask_sorted_plain(b, torch.ones_like(scores, dtype=torch.bool), thresh)
+    return torch.zeros_like(keep).scatter(-1, order, keep)
+
+
+def test_nms_kernel_at_the_fpn_union_shape(card):
+    """One unsorted problem of 9504 boxes (the FPN train step's union of its
+    levels' top-k) through ``nms_mask``, thousands of survivors, no stop."""
+    from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union
+
+    rng = np.random.RandomState(7)
+    boxes = torch.from_numpy(fpn_union(rng)).to(card)
+    scores = torch.from_numpy(rng.rand(1, boxes.shape[1]).astype(np.float32)).to(card)
+    got = tnms.nms_mask(boxes, scores, 0.7)
+    ref = _nms_plain_contract(boxes, scores, 0.7)
+    assert int(ref.sum()) > 1000
+    assert torch.equal(got, ref)
+
+
+def _chunk0_survivors():
+    """Sorted boxes whose greedy sweep keeps some but not all of the first
+    64 rows, and the survivors' rows."""
+    rng = np.random.RandomState(8)
+    boxes = _boxes(rng, 1, 700, 200.0, 60.0)
+    valid = torch.ones((1, 700), dtype=torch.bool)
+    full = tnms.nms_mask_sorted_plain(boxes, valid, 0.5)
+    return boxes, valid, torch.nonzero(full[0]).flatten()
+
+
+@pytest.mark.parametrize("where", ["mid chunk", "chunk end", "next chunk's first", "past the last"])
+def test_nms_kernel_stops_at_max_keep(card, where):
+    """``max_keep`` reached inside a 64-box chunk, at the last survivor of a
+    chunk, at the first of the next, and never: the first ``max_keep``
+    survivors of the full sweep."""
+    boxes, valid, surv = _chunk0_survivors()
+    k64 = int((surv < 64).sum())
+    assert 2 < k64 < 64
+    max_keep = {"mid chunk": k64 - 2, "chunk end": k64, "next chunk's first": k64 + 1,
+                "past the last": len(surv) + 5}[where]
+    got = tnms.nms_mask_sorted(boxes.to(card), valid.to(card), 0.5, max_keep)
+    ref = tnms.nms_mask_sorted_plain(boxes, valid, 0.5, max_keep)
+    assert int(ref.sum()) == min(max_keep, len(surv))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", ["N=1", "N=63", "N=64", "N=65", "all invalid",
+                                  "all suppressed by the first", "P=40"])
+def test_nms_kernel_edge_cases(card, case):
+    rng = np.random.RandomState(9)
+    n = int(case[2:]) if case.startswith("N=") else 300
+    p = 40 if case == "P=40" else 1
+    boxes = _boxes(rng, p, n, 300.0, 120.0)
+    valid = torch.ones((p, n), dtype=torch.bool)
+    if case == "all invalid":
+        valid[:] = False
+    if case == "all suppressed by the first":
+        boxes[:, 0] = torch.tensor([0.0, 0.0, 1000.0, 1000.0])
+        boxes[:, 1:] = torch.tensor([1.0, 1.0, 999.0, 999.0])
+    got = tnms.nms_mask_sorted(boxes.to(card), valid.to(card), 0.3)
+    ref = tnms.nms_mask_sorted_plain(boxes, valid, 0.3)
+    if case == "all suppressed by the first":
+        assert int(ref.sum()) == 1
+    assert torch.equal(got.cpu(), ref)
+
+
 def test_nms_unsorted_contract_matches_cpu(card):
     rng = np.random.RandomState(0)
     boxes = _boxes(rng, 6, 300, 400.0, 120.0)
@@ -183,3 +252,62 @@ def test_roi_align_stream_kernels_refuse_bad_inputs(card):
     with pytest.raises(ValueError):
         tstream._roi_align_stream_bwd_cuda(g, torch.zeros((1, 2, 4), device=card),
                                            (1, 4, 4, 6), (7, 7), 0.25, 2)
+
+
+def _bwd_case(rng, case):
+    """(g, rois, feat_shape, pooled) of one kernel 5 case, on the CPU."""
+    b, h, w, c, r, pooled = 1, 40, 100, 64, 40, (7, 7)
+    if case == "B=2, C=260":
+        b, c = 2, 260
+    if case == "pooled (14, 7)":
+        pooled = (14, 7)
+    if case == "R=300":
+        r = 300
+    rois = _stream_rois(rng, b, r, h, w, 0.25).numpy()
+    if case == "tile edges":
+        # rois across the edges of the tiles (2 x 8 cells): map rows 8k
+        # and columns 16k are such edges
+        for i in range(r):
+            x, y = 16.0 * (1 + i % 5) - 0.5 - i % 3, 8.0 * (1 + i % 4) - 0.5
+            rois[:, i] = np.array([x, y, x + 1.0 + i % 7, y + 1.0 + i % 5]) * 4.0
+    if case == "tiny rois on one tile":
+        xy = rng.rand(b, r, 2) * [12.0, 6.0]
+        rois = np.concatenate([xy, xy + rng.rand(b, r, 2) * 2.0], -1).astype(np.float32) * 4.0
+    g = rng.randn(b, r, *pooled, c).astype(np.float32)
+    return torch.from_numpy(g), torch.from_numpy(rois.astype(np.float32)), (b, h, w, c), pooled
+
+
+@pytest.mark.parametrize("case", ["tile edges", "tiny rois on one tile", "R=300", "pooled (14, 7)",
+                                  "C=64", "B=2, C=260"])
+def test_roi_align_stream_bwd_kernel_cases(card, case):
+    """Kernel 5 against the plain scatter-add, |Δ| ≤ 1e-4 · max(1, Σ|terms|),
+    and bit-identical across two launches."""
+    g, rois, shape, pooled = _bwd_case(np.random.RandomState(10), case)
+    g, rois = g.to(card), rois.to(card)
+    got = tstream._roi_align_stream_bwd_cuda(g, rois, shape, pooled, 0.25, 2)
+    again = tstream._roi_align_stream_bwd_cuda(g, rois, shape, pooled, 0.25, 2)
+    ref = tstream.roi_align_stream_bwd_plain(g, rois, shape, pooled, 0.25, 2)
+    mag = tstream.roi_align_stream_bwd_plain(g.abs(), rois, shape, pooled, 0.25, 2)
+    assert float(((got - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+    assert torch.equal(got, again)
+
+
+def test_roi_align_stream_bwd_kernel_writes_every_element(card):
+    """The launcher on a dfeat buffer pre-filled with NaN: the region no roi
+    reaches comes back zero, the rest matches the plain version."""
+    from mx_rcnn_tpu_torch.utils.cuda_build import ptr, stream_of
+
+    rng = np.random.RandomState(11)
+    b, h, w, c, pooled = 1, 30, 40, 8, (7, 7)
+    rois = torch.tensor([[[0.0, 0.0, 40.0, 30.0], [20.0, 8.0, 44.0, 36.0]]], device=card)
+    g = torch.from_numpy(rng.randn(b, 2, *pooled, c).astype(np.float32)).to(card)
+    dfeat = torch.full((b, h, w, c), float("nan"), device=card)
+    scratch = tstream.bwd_scratch(b, h, w, 2, pooled, 2, card)
+    tstream.bwd_kernel(ptr(g), ptr(rois), b, h, w, c, 2, *pooled, 2, 0.25, ptr(scratch), ptr(dfeat),
+                       stream_of(g))
+    torch.cuda.synchronize()
+    assert not torch.isnan(dfeat).any()
+    assert float(dfeat[:, 15:, 20:].abs().max()) == 0.0
+    ref = tstream.roi_align_stream_bwd_plain(g, rois, (b, h, w, c), pooled, 0.25, 2)
+    mag = tstream.roi_align_stream_bwd_plain(g.abs(), rois, (b, h, w, c), pooled, 0.25, 2)
+    assert float(((dfeat - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4

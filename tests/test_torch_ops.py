@@ -159,6 +159,22 @@ def test_nms_truncated_exactness(rng, max_keep):
     np.testing.assert_array_equal(np.where(trunc)[0], np.where(pallas)[0][:max_keep])
 
 
+@pytest.mark.parametrize("shape", ["FPN union", "C4 proposals"])
+def test_nms_plain_matches_fori_on_anchor_like_boxes(shape):
+    # the kernel bench's inputs (jittered anchors, top-k by a smooth score,
+    # so neighbours suppress each other), cut to their first 1200 rows
+    from mx_rcnn_tpu_torch.tools import kernel_bench
+
+    rng = np.random.RandomState(0)
+    boxes = (kernel_bench.fpn_union(rng) if shape == "FPN union"
+             else kernel_bench.c4_proposals(rng, 1, 3000))[0, :1200]
+    valid = np.ones(len(boxes), bool)
+    got = _plain_sorted(boxes, valid, 0.7)
+    ref = np.asarray(jnms.nms_mask(jnp.asarray(boxes), None, 0.7, jnp.asarray(valid), sorted_input=True))
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < got.sum() < len(boxes)
+
+
 @pytest.mark.parametrize("sorted_input", [False, True])
 def test_nms_select_matches_on_valid_rows(rng, sorted_input):
     n, max_out = 150, 40
