@@ -8,9 +8,11 @@
 2. builds the hand-written kernels from ``mx_rcnn_tpu_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, all started together: ``nms.cu`` exports
    the NMS launcher, ``roi_align.cu`` the resident ROIAlign forward and
-   backward, ``roi_align_stream.cu`` the streamed ones) and prints ptxas'
-   register / shared-memory / spill lines, and one summary line of the
-   registers and spills of the NMS and streamed-backward kernels;
+   backward, ``roi_align_stream.cu`` the streamed ones; the two ROIAlign
+   sources share the backward's table and tile kernels of
+   ``roi_align_table.cuh``) and prints ptxas' register / shared-memory /
+   spill lines, and one summary line of the registers and spills of the
+   kernels redesigned since the first port (NMS, kernels 2, 3 and 5);
 3. holds the NMS kernel against its plain PyTorch version on the card at the
    serving proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the
    train proposal shape (1 × 12000 sorted, max_keep 2000, IoU 0.7), the
@@ -23,9 +25,10 @@
    R = 128, both 14 × 14, s = 2, with and without ``valid_hw``, degenerate
    and off-canvas rois included: max |Δ| ≤ 1e-5; the ROIAlign backward
    kernel (3) against its plain scatter-add at the train shape, with and
-   without ``valid_hw``: |Δ| ≤ 1e-4 · max(1, Σ|terms|) (atomics sum in a
-   run-dependent order, and a float32 sum's rounding grows with the sum of
-   its terms' magnitudes); and the streamed kernels 4 and 5 against theirs
+   without ``valid_hw``: |Δ| ≤ 1e-4 · max(1, Σ|terms|) (the plain version
+   sums with atomics in a run-dependent order, and a float32 sum's rounding
+   grows with the sum of its terms' magnitudes) and two launches
+   bit-identical; and the streamed kernels 4 and 5 against theirs
    at FPN's P2 (1, 152, 256, 256) and P3 (1, 76, 128, 256), 128 rois,
    pooled 14 and 7, inverted, off-map, tiny and map-sized rois included:
    forward max |Δ| ≤ 1e-5, backward the scaled 1e-4 bar and two launches
@@ -352,23 +355,28 @@ def roi_synthetic(dev):
 class BwdDiff:
     """Running comparison of kernel 3 with its plain version: the max |Δ|,
     and the max of |Δ| / max(1, Σ|terms|), Σ|terms| being the plain backward
-    of |g| (the weights are ≥ 0), which the bar holds to ROI_BWD_TOL."""
+    of |g| (the weights are ≥ 0), which the bar holds to ROI_BWD_TOL; and
+    whether two launches gave bit-identical dfeat (they must: no atomics)."""
 
     def __init__(self):
-        self.max_abs_err, self.scaled_err = 0.0, 0.0
+        self.max_abs_err, self.scaled_err, self.repeatable = 0.0, 0.0, True
 
     def add(self, g, rois, shape, pooled, scale, s, valid_hw, label):
         got = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)
+        again = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)
         ref = roi_mod.roi_align_bwd_plain(g, rois, shape, pooled, scale, s, valid_hw)
         mag = roi_mod.roi_align_bwd_plain(g.abs(), rois, shape, pooled, scale, s, valid_hw)
         d = (got - ref).abs()
         err, scaled = float(d.max()), float((d / mag.clamp_min(1.0)).max())
+        same = torch.equal(got, again)
         self.max_abs_err = max(self.max_abs_err, err)
         self.scaled_err = max(self.scaled_err, scaled)
+        self.repeatable &= same
         log(f"  roi_align_bwd {label}: g={tuple(g.shape)} -> {tuple(shape)} max|d|={err:.3g} "
-            f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g}")
-        if not scaled <= ROI_BWD_TOL:
-            raise AssertionError(f"ROIAlign backward kernel disagrees with the plain version ({label})")
+            f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g} "
+            f"two launches bit-identical={same}")
+        if not scaled <= ROI_BWD_TOL or not same:
+            raise AssertionError(f"ROIAlign backward kernel fails its bars ({label})")
 
 
 def roi_bwd_synthetic(diff, dev):
@@ -970,8 +978,11 @@ def train_path(cfg, dev, groups, per_step):
 
 def _train_layer_of(kernel_name: str) -> str:
     name = kernel_name.lower()
-    if "roi_align_stream_bwd" in name:
+    # the backwards' table and tile kernels are named by their tap rule
+    if "streamtaps" in name:
         return "roi_align_stream bwd kernel"
+    if "residenttaps" in name:
+        return "roi_align bwd kernel"
     if "roi_align_stream_fwd" in name:
         return "roi_align_stream fwd kernel"
     if "roi_align_bwd" in name:
@@ -1251,11 +1262,11 @@ def at_scale(entries, scale):
 
 
 def ptxas_summary(lib):
-    """{kernel: "R registers, S bytes spill stores, L bytes spill loads"}
+    """{mangled kernel name: "R registers, spill stores S B, spill loads L B"}
     from ``lib``'s ptxas log."""
     out, name = {}, None
     for line in lib.ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1264,6 +1275,42 @@ def ptxas_summary(lib):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+    return out
+
+
+# the instances of the redesigned kernels that the paths launch, each by the
+# name printed for it and the piece of its mangled name that picks it out:
+# NMS, kernel 2 at s = 2, and the table and tile kernels (template <Rule,
+# kSplit, kTileW, kGroups>) of kernel 3, in each cluster size the path picks,
+# and of kernel 5
+PATH_INSTANCES = {
+    "nms": {"nms_mask_kernel": "15nms_mask_kernelE",
+            "nms_reduce_kernel": "17nms_reduce_kernelE"},
+    "roi_align_fwd": {"roi_align_fwd_kernel<2>": "20roi_align_fwd_kernelILi2EE"},
+    "roi_align_bwd": {
+        "roi_table_kernel<ResidentTaps>": "16roi_table_kernelINS_12ResidentTapsEE",
+        **{f"roi_align_tile_bwd_kernel<ResidentTaps, 8, 8, {g}>":
+           f"25roi_align_tile_bwd_kernelINS_12ResidentTapsELi8ELi8ELi{g}EE" for g in (1, 2, 4)},
+    },
+    "roi_align_stream_bwd": {
+        "roi_table_kernel<StreamTaps>": "16roi_table_kernelINS_10StreamTapsEE",
+        "roi_align_tile_bwd_kernel<StreamTaps, 4, 8, 1>":
+            "25roi_align_tile_bwd_kernelINS_10StreamTapsELi4ELi8ELi1EE",
+    },
+}
+
+
+def path_ptxas(summaries: dict) -> dict:
+    """{kernel: {instance: its ptxas summary}} for PATH_INSTANCES; raises
+    when an instance matches no kernel, or several, of the ptxas logs."""
+    out = {}
+    for kernel, instances in PATH_INSTANCES.items():
+        out[kernel] = {}
+        for name, piece in instances.items():
+            found = [v for k, v in summaries.items() if piece in k]
+            if len(found) != 1:
+                raise AssertionError(f"ptxas log: {len(found)} kernels match {name} ({piece})")
+            out[kernel][name] = found[0]
     return out
 
 
@@ -1300,10 +1347,10 @@ def main() -> int:
             if "ptxas info" in line or "spill" in line:
                 log(f"    {line.strip()}")
 
-    redesigned = {k: v for lib in (nms_mod.library, stream_mod.library)
-                  for k, v in ptxas_summary(lib).items() if "fwd" not in k}
-    log("[build] NMS and streamed-backward kernels, registers and spills: "
-        + "; ".join(f"{k}: {v}" for k, v in redesigned.items()))
+    # the kernels redesigned since the first port, as the paths launch them
+    redesigned = path_ptxas({k: v for lib in libraries for k, v in ptxas_summary(lib).items()})
+    log("[build] redesigned kernels, registers and spills: "
+        + "; ".join(f"{k}: {v}" for d in redesigned.values() for k, v in d.items()))
 
     nms_diff, bwd_diff, stream_diff = MaskDiff(), BwdDiff(), StreamDiff()
     log("[nms] kernel vs plain, synthetic")
@@ -1396,7 +1443,7 @@ def main() -> int:
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40", "design": "PR 4",
-            "ptxas": {k: v for k, v in redesigned.items() if k.startswith("nms")},
+            "ptxas": redesigned["nms"],
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
             "serve_launches": serve_launches["nms"],
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
@@ -1406,7 +1453,8 @@ def main() -> int:
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
-            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88", "design": "PR 5",
+            "ptxas": redesigned["roi_align_fwd"],
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
             "max_abs_err": roi_err, **train_roi, "library_ms": None,
@@ -1415,9 +1463,11 @@ def main() -> int:
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
-            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148", "design": "PR 5",
+            "ptxas": redesigned["roi_align_bwd"],
             "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
             "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
+            "bitwise_repeatable": bwd_diff.repeatable,
             **train_bwd, "library_ms": None,
             **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
         },
@@ -1433,7 +1483,7 @@ def main() -> int:
             "name": "roi_align_stream_bwd", "route": "cuda",
             "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164", "design": "PR 4",
-            "ptxas": {k: v for k, v in redesigned.items() if not k.startswith("nms")},
+            "ptxas": redesigned["roi_align_stream_bwd"],
             "launches": fpn_launches["roi_align_stream_bwd"],
             "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
             "bitwise_repeatable": stream_diff.repeatable, **stream_bwd_p2, "library_ms": None,

@@ -1,218 +1,244 @@
-// ROIAlign forward and backward on NHWC features.
+// ROIAlign forward (kernel 2) and backward (kernel 3) on NHWC features: the
+// resident maps, C4's and FPN's P4/P5 in the train step, and every map on
+// the eval path.
 //
 // Replaces the Pallas TPU kernels mx_rcnn_tpu/ops/pallas/roi_align.py::
 // _fwd_kernel (forward, entry roi_align_pallas) and ::_bwd_kernel (its
 // custom_vjp backward, _roi_align_bwd_impl).  The forward also serves the
 // eval path, whose JAX reference is the gather twin
 // mx_rcnn_tpu/ops/roi_align.py::roi_align with valid_hw.
-// Contract: feat (B, H, W, C) f32, rois (B, R, 4) f32 image coordinates,
-// optional valid_hw (B, 2) f32 -> out (B, R, PH, PW, C) f32.  Each roi is
-// scaled, its width and height floored at 1; each bin averages s x s
-// bilinear samples at (i + 0.5) / s.  Sample coordinates clamp to
-// [0, lim - 1] and the upper tap is min(lo + 1, lim - 1), where lim is the
-// canvas extent (valid_hw == NULL, the Pallas kernel and the train step) or
-// min(ceil(valid * scale), extent) (the gather path's _feat_limits).
+// Contract: feat (B, H, W, C) f32, C % 4 == 0, rois (B, R, 4) f32 image
+// coordinates, optional valid_hw (B, 2) f32 -> out (B, R, PH, PW, C) f32.
+// Each roi is scaled, its width and height floored at 1 (an inverted or
+// degenerate roi is not empty: it taps the cells at its clamped x1/y1); each
+// bin averages s x s bilinear samples at (i + 0.5) / s.  Sample coordinates
+// clamp to [0, lim - 1] and the upper tap is min(lo + 1, lim - 1), where lim
+// is the canvas extent (valid_hw == NULL, the Pallas kernel and the train
+// step) or min(ceil(valid * scale), extent) (the gather path's
+// _feat_limits).  roi_align_taps.cuh puts every sample at the same position
+// in all four ROIAlign kernels.
 //
-// Forward design: one block per (output row ph, roi r, image b), threads
-// across channels in float4 (C % 4 == 0), so every tap load and every output
-// store is a coalesced 16-byte access along C.  The block first puts its
-// row's sample indices and weights in shared memory.  The feature map
-// (16.8 MB at the serving path's 64 x 64 x 1024) stays in the 50 MB L2, so
-// the 16 taps per output come from L2/L1 while HBM sees each output once.
+// Kernel 2, forward, separable.  One block per (roi, 128-channel slice,
+// image) computes the roi's taps once into shared memory; after that one
+// barrier each of its 14 warps works alone on one output row (every 14th
+// for taller pools), a lane on one float4 of channels.  A warp walks its
+// row's bins in order, holding in registers the y lerps (one per sample
+// row) at the last sample's two columns: the samples' columns never move
+// left, so a column is either one of those two or new, and a new one costs
+// 2 loads a sample row.  A roi narrower than its 2 * s * pw sample columns
+// (most of them at stride 16) loads each column once a row instead of
+// 4 s^2 loads per output.  The output is written with streaming stores
+// (st.global.cs), so the 482 MB of the serving call evict less of the two
+// 16.8 MB maps from the 50 MB L2.  The arithmetic and its order are the
+// gather twin's: along y at both x taps, then along x, then the sum over the
+// samples (sample rows outer), divided by s * s; so the kernel agrees with
+// the plain version bit for bit.  Timed on the card against it, each of
+// these was as fast or slower: 7 warps a block, a register cap of 58
+// (spills), warps splitting a row's bins instead of rows, and reusing a
+// sample row's feature row loaded by the row above; default-policy stores
+// about 1% slower.
 // Bound on the H100: the output writes, B*R*PH*PW*C*4 bytes (241 MB per
-// image on the serving path, 72 us at 3.35 TB/s); the arithmetic is ~40
-// flops per output, half that time at the f32 rate.
-// The interpolation follows the gather twin's order: along y at both x taps,
-// then along x, then the mean of the samples.
+// image on the serving path, 72 us at 3.35 TB/s); ~40 flops per output,
+// half that time at the f32 rate.
 //
-// Backward: the exact adjoint of the forward, built from the same taps
-// (block_taps below is shared, so the sample positions are bit-identical).
-// dfeat (B, H, W, C) f32, zero-filled by the caller, receives for every
-// sample (iy, ix) of every bin and every channel g / (s*s) * w_x * w_y in
-// each of its 4 cells (y_lo|y_hi) x (x_lo|x_hi); where a clamp makes
-// lo == hi both weights land on one cell.  The TPU kernel contracts
-// interpolation matrices on the MXU with a sequential roi sweep; blocks on
-// the H100 run in no order, so the sum across rois is a scatter with
-// fire-and-forget float4 atomics (RED.128 on sm_90) on the forward's grid.
-// Bound at the train shape (g 1x128x14x14x1024, dfeat 1x38x64x1024): g read
-// once (102.8 MB) plus dfeat zero-filled and written (2 x 10.0 MB), 123 MB
-// = 0.037 ms at 3.35 TB/s; ~32 flops per g element (0.8 GFLOP, 0.012 ms at
-// 67 TFLOP/s f32).  What likely sets the time is neither: 16 atomic f32 adds
-// per g element (411 M) resolved in L2.  The sum order of the atomics
-// changes from run to run, so the result is not bitwise repeatable.
+// Kernel 3, backward, the adjoint of kernel 2, deterministic and without
+// atomics: the table and tile kernels of roi_align_table.cuh (kernel 5's
+// design, owner computes) under kernel 2's tap rule.  A set-up kernel writes
+// each roi's per-axis (cell, bin, weight) table once; each tile block of
+// dfeat sums, in roi order, the g of the rois that meet it into its own
+// shared memory and writes every cell once: no zero fill, and two launches
+// give bit-identical dfeat.  The tiling: one-row tiles of 8 cells, 8 warps a
+// row (kernel 5's 2 x 8 tiles, 4 warps a row, took 0.234 ms at C4 on the H100
+// against 0.205, and 2 x 16 tiles 0.323); a map with fewer than 1216 tile
+// blocks (FPN's P4 and P5) splits each tile's rois over a cluster of 2 or 4
+// blocks, which add their partial sums through distributed shared memory in
+// block order.  Bound at the C4 train shape (g 1x128x14x14x1024, dfeat
+// 1x38x64x1024): g read once (102.8 MB) and dfeat written once (10.0 MB),
+// 0.034 ms at 3.35 TB/s.  What sets the time is the longest chain of dependent
+// g loads of one warp under the train step's roi cluster, and at C4 the L2
+// traffic of g's repeated loads (1024 channels: 103 MB of g, twice the L2).
 
 #include <cuda_runtime.h>
 
-#include "roi_align_taps.cuh"
+#include "roi_align_table.cuh"
 
 namespace {
 
-// The taps of output row ph of roi r of image b, into shared memory:
-// xt[pw_count * s] along x, then yt[s] along y.  The caller syncs.
-__device__ __forceinline__ void block_taps(const float* __restrict__ rois,
-                                           const float* __restrict__ valid_hw,
-                                           int b, int r, int ph, int h, int w,
-                                           int r_count, int ph_count, int pw_count,
-                                           int s, float scale, Tap* xt, Tap* yt) {
-  const float* roi = rois + ((size_t)b * r_count + r) * 4;
-  const float x1 = roi[0] * scale, y1 = roi[1] * scale;
-  const float x2 = roi[2] * scale, y2 = roi[3] * scale;
-  float lim_hf = (float)h, lim_wf = (float)w;
-  if (valid_hw != nullptr) {
-    lim_hf = fminf(ceilf(valid_hw[b * 2 + 0] * scale), (float)h);
-    lim_wf = fminf(ceilf(valid_hw[b * 2 + 1] * scale), (float)w);
-  }
-  const float bin_w = fmaxf(x2 - x1, 1.0f) / (float)pw_count;
-  const float bin_h = fmaxf(y2 - y1, 1.0f) / (float)ph_count;
-  const int nx = pw_count * s;
-  for (int t = threadIdx.x; t < nx + s; t += blockDim.x) {
-    if (t < nx) {
-      xt[t] = sample_tap(x1, bin_w, t, s, lim_wf, (int)lim_wf, w);
-    } else {
-      yt[t - nx] = sample_tap(y1, bin_h, ph * s + (t - nx), s, lim_hf, (int)lim_hf, h);
-    }
-  }
-}
+constexpr int kMaxS = 4;       // forward: sample ratios 1..kMaxS
+constexpr int kRowWarps = 14;  // forward: warps a block, one output row each
 
-// dst += v without reading the old value back (compiles to RED).  sm_90 has
-// a 16-byte float4 atomic add on global memory (CUDA 12.1 and later).
-__device__ __forceinline__ void red_add4(float4* dst, float4 v) {
-#if (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)) && \
-    defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(dst, v);
-#else
-  atomicAdd(&dst->x, v.x);
-  atomicAdd(&dst->y, v.y);
-  atomicAdd(&dst->z, v.z);
-  atomicAdd(&dst->w, v.w);
-#endif
-}
-
-__global__ void roi_align_fwd_kernel(const float4* __restrict__ feat,
-                                     const float* __restrict__ rois,
-                                     const float* __restrict__ valid_hw, int h,
-                                     int w, int c4, int r_count, int ph_count,
-                                     int pw_count, int s, float scale,
-                                     float4* __restrict__ out) {
-  const int ph = blockIdx.x;
-  const int r = blockIdx.y;
-  const int b = blockIdx.z;
-  extern __shared__ Tap taps[];  // pw_count * s x taps, then s y taps
-  Tap* xt = taps;
-  Tap* yt = taps + pw_count * s;
-  block_taps(rois, valid_hw, b, r, ph, h, w, r_count, ph_count, pw_count, s,
-             scale, xt, yt);
-  __syncthreads();
-
-  const float4* fb = feat + (size_t)b * h * w * c4;
-  float4* ob = out + (((size_t)b * r_count + r) * ph_count + ph) * pw_count * c4;
-  const float count = (float)(s * s);
-  for (int c = threadIdx.x; c < c4; c += blockDim.x) {
-    for (int pw = 0; pw < pw_count; ++pw) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int iy = 0; iy < s; ++iy) {
-        const Tap ty = yt[iy];
-        const float4* row_lo = fb + (size_t)ty.lo * w * c4 + c;
-        const float4* row_hi = fb + (size_t)ty.hi * w * c4 + c;
-        for (int ix = 0; ix < s; ++ix) {
-          const Tap tx = xt[pw * s + ix];
-          const float4 at_lo = lerp4(row_lo[(size_t)tx.lo * c4], ty.w_lo,
-                                     row_hi[(size_t)tx.lo * c4], ty.w_hi);
-          const float4 at_hi = lerp4(row_lo[(size_t)tx.hi * c4], ty.w_lo,
-                                     row_hi[(size_t)tx.hi * c4], ty.w_hi);
-          acc = add4(acc, lerp4(at_lo, tx.w_lo, at_hi, tx.w_hi));
-        }
-      }
-      ob[(size_t)pw * c4 + c] = make_float4(acc.x / count, acc.y / count,
-                                            acc.z / count, acc.w / count);
-    }
-  }
-}
-
-__global__ void roi_align_bwd_kernel(const float4* __restrict__ g,
-                                     const float* __restrict__ rois,
-                                     const float* __restrict__ valid_hw, int h,
-                                     int w, int c4, int r_count, int ph_count,
-                                     int pw_count, int s, float scale,
-                                     float4* __restrict__ dfeat) {
-  const int ph = blockIdx.x;
-  const int r = blockIdx.y;
-  const int b = blockIdx.z;
+// Warp w on output rows w, w + kRowWarps, ...; at most 73 registers, so
+// that two blocks (28 warps) share an SM.
+template <int S>
+__global__ void __launch_bounds__(kLanes * kRowWarps, 2)
+roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ rois,
+                     const float* __restrict__ valid_hw, int h, int w, int c4, int r_count,
+                     int ph_count, int pw_count, float scale, float4* __restrict__ out) {
+  const int r = blockIdx.x, b = blockIdx.z;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int c = blockIdx.y * kLanes + lane;  // this thread's float4 channel
   extern __shared__ Tap taps[];
-  Tap* xt = taps;
-  Tap* yt = taps + pw_count * s;
-  block_taps(rois, valid_hw, b, r, ph, h, w, r_count, ph_count, pw_count, s,
-             scale, xt, yt);
+  Tap* xt = taps;                 // [pw_count * S]
+  Tap* yt = taps + pw_count * S;  // [ph_count * S]
+  float lim_hf, lim_wf;
+  tap_limits(valid_hw, b, scale, h, w, &lim_hf, &lim_wf);
+  roi_taps(scaled_roi(rois, b, r, r_count, scale), lim_hf, lim_wf, h, w, ph_count, pw_count,
+           S, xt, yt, warp * kLanes + lane, kLanes * kRowWarps);
   __syncthreads();
+  if (c >= c4) return;  // past the only barrier
 
-  float4* db = dfeat + (size_t)b * h * w * c4;
-  const float4* gb = g + (((size_t)b * r_count + r) * ph_count + ph) * pw_count * c4;
-  const float count = (float)(s * s);
-  for (int c = threadIdx.x; c < c4; c += blockDim.x) {
+  const float4* fb = feat + (size_t)b * h * w * c4 + c;
+  float4* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
+  const float count = (float)(S * S);
+  for (int ph = warp; ph < ph_count; ph += kRowWarps) {
+    // the sample rows' feature rows, as float4 offsets into the image
+    int row_lo[S], row_hi[S];
+    float wy_lo[S], wy_hi[S];
+#pragma unroll
+    for (int iy = 0; iy < S; ++iy) {
+      const Tap ty = yt[ph * S + iy];
+      row_lo[iy] = ty.lo * w * c4;
+      row_hi[iy] = ty.hi * w * c4;
+      wy_lo[iy] = ty.w_lo;
+      wy_hi[iy] = ty.w_hi;
+    }
+    // the y lerps of each sample row at the last sample's two columns
+    int col_lo = -1, col_hi = -1;
+    float4 at_lo[S], at_hi[S];
     for (int pw = 0; pw < pw_count; ++pw) {
-      // the mean's adjoint, then x, then y: autograd's order through the
-      // forward's lerps
-      float4 gv = gb[(size_t)pw * c4 + c];
-      gv = make_float4(gv.x / count, gv.y / count, gv.z / count, gv.w / count);
-      for (int iy = 0; iy < s; ++iy) {
-        const Tap ty = yt[iy];
-        float4* row_lo = db + (size_t)ty.lo * w * c4 + c;
-        float4* row_hi = db + (size_t)ty.hi * w * c4 + c;
-        for (int ix = 0; ix < s; ++ix) {
-          const Tap tx = xt[pw * s + ix];
-          const float4 at_lo = scale4(gv, tx.w_lo);
-          const float4 at_hi = scale4(gv, tx.w_hi);
-          red_add4(row_lo + (size_t)tx.lo * c4, scale4(at_lo, ty.w_lo));
-          red_add4(row_hi + (size_t)tx.lo * c4, scale4(at_lo, ty.w_hi));
-          red_add4(row_lo + (size_t)tx.hi * c4, scale4(at_hi, ty.w_lo));
-          red_add4(row_hi + (size_t)tx.hi * c4, scale4(at_hi, ty.w_hi));
+      float4 xl[S][S];  // the x lerp of sample (iy, ix)
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) {
+        const Tap tx = xt[pw * S + ix];  // the same for every lane: no divergence
+        float4 lo[S], hi[S];
+        if (tx.lo == col_hi) {
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) lo[iy] = at_hi[iy];
+        } else if (tx.lo == col_lo) {
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) lo[iy] = at_lo[iy];
+        } else {
+          const int x = tx.lo * c4;
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) {
+            lo[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
+          }
+        }
+        if (tx.hi == tx.lo) {
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) hi[iy] = lo[iy];
+        } else if (tx.hi == col_hi) {
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) hi[iy] = at_hi[iy];
+        } else {
+          const int x = tx.hi * c4;
+#pragma unroll
+          for (int iy = 0; iy < S; ++iy) {
+            hi[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
+          }
+        }
+        col_lo = tx.lo;
+        col_hi = tx.hi;
+#pragma unroll
+        for (int iy = 0; iy < S; ++iy) {
+          at_lo[iy] = lo[iy];
+          at_hi[iy] = hi[iy];
+          xl[iy][ix] = lerp4(lo[iy], tx.w_lo, hi[iy], tx.w_hi);
         }
       }
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int iy = 0; iy < S; ++iy) {
+#pragma unroll
+        for (int ix = 0; ix < S; ++ix) acc = add4(acc, xl[iy][ix]);
+      }
+      __stcs(ob + ((size_t)ph * pw_count + pw) * c4,
+             make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
     }
   }
 }
 
-int launch_config(int c, int pw, int s, int* threads, size_t* smem) {
+template <int S>
+int launch_fwd(const float* feat, const float* rois, const float* valid_hw, int b, int h,
+               int w, int c, int r, int ph, int pw, float scale, float* out,
+               cudaStream_t stream) {
+  if (b == 0 || r == 0 || c == 0) return 0;
   const int c4 = c / 4;
-  *threads = c4 >= 256 ? 256 : ((c4 + 31) / 32) * 32;
-  *smem = sizeof(Tap) * (size_t)(pw * s + s);
-  return c4;
+  const dim3 grid(r, (c4 + kLanes - 1) / kLanes, b);
+  const size_t smem = sizeof(Tap) * (size_t)(pw + ph) * S;
+  roi_align_fwd_kernel<S><<<grid, dim3(kLanes, kRowWarps), smem, stream>>>(
+          reinterpret_cast<const float4*>(feat), rois, valid_hw, h, w, c4, r, ph, pw, scale,
+          reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A measuring aid on no path: n float4 stores of zeros, streaming.
+__global__ void store_floor_kernel(float4* __restrict__ out, size_t n) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    __stcs(out + i, zero);
+  }
 }
 
 }  // namespace
 
 // feat (B, H, W, C) f32 with C % 4 == 0, rois (B, R, 4) f32, valid_hw (B, 2)
-// f32 or NULL, out (B, R, PH, PW, C) f32; launches on `stream`, returns
-// cudaGetLastError().
-extern "C" int roi_align_fwd(const float* feat, const float* rois,
-                             const float* valid_hw, int b, int h, int w, int c,
-                             int r, int ph, int pw, int s, float scale,
-                             float* out, void* stream) {
-  if (b == 0 || r == 0 || c == 0) return 0;
-  int threads;
-  size_t smem;
-  const int c4 = launch_config(c, pw, s, &threads, &smem);
-  const dim3 grid(ph, r, b);
-  roi_align_fwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(feat), rois, valid_hw, h, w, c4, r, ph, pw,
-      s, scale, reinterpret_cast<float4*>(out));
+// f32 or NULL, s in 1..4, out (B, R, PH, PW, C) f32; launches on `stream`,
+// returns a cudaError_t.
+extern "C" int roi_align_fwd(const float* feat, const float* rois, const float* valid_hw,
+                             int b, int h, int w, int c, int r, int ph, int pw, int s,
+                             float scale, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD(S) \
+  case S: return launch_fwd<S>(feat, rois, valid_hw, b, h, w, c, r, ph, pw, scale, out, st);
+  switch (s) {
+    FWD(1)
+    FWD(2)
+    FWD(3)
+    FWD(4)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FWD
+}
+static_assert(kMaxS == 4, "roi_align_fwd dispatches s = 1..4");
+
+// n_floats (a multiple of 4) zeros into out: the store floor of a forward
+// that writes as many bytes, for tools/kernel_bench.py.
+extern "C" int roi_align_store_floor(float* out, long long n_floats, void* stream) {
+  const size_t n = (size_t)n_floats / 4;
+  if (n == 0) return 0;
+  store_floor_kernel<<<132 * 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<float4*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bytes of the scratch roi_align_bwd takes: one table per (image, roi).
+extern "C" long long roi_align_bwd_scratch_bytes(int b, int h, int w, int r, int ph, int pw,
+                                                 int s) {
+  return table_scratch_bytes(b, h, w, r, ph, pw, s);
+}
+
 // g (B, R, PH, PW, C) f32 with C % 4 == 0, rois (B, R, 4) f32, valid_hw
-// (B, 2) f32 or NULL; accumulates into dfeat (B, H, W, C) f32, which the
-// caller has zero-filled on `stream`; returns cudaGetLastError().
-extern "C" int roi_align_bwd(const float* g, const float* rois,
-                             const float* valid_hw, int b, int h, int w, int c,
-                             int r, int ph, int pw, int s, float scale,
-                             float* dfeat, void* stream) {
-  if (b == 0 || r == 0 || c == 0) return 0;
-  int threads;
-  size_t smem;
-  const int c4 = launch_config(c, pw, s, &threads, &smem);
-  const dim3 grid(ph, r, b);
-  roi_align_bwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(g), rois, valid_hw, h, w, c4, r, ph, pw,
-      s, scale, reinterpret_cast<float4*>(dfeat));
-  return static_cast<int>(cudaGetLastError());
+// (B, 2) f32 or NULL -> dfeat (B, H, W, C) f32, every element written (no
+// zero fill needed); scratch: roi_align_bwd_scratch_bytes of device memory.
+// Launches on `stream`, returns a cudaError_t.  One-row tiles, 8 warps a
+// row, bin by bin; a map with fewer than 1216 tile blocks (FPN's P4 and P5,
+// 128 channels a block) splits each tile's rois over a cluster of 2 or 4
+// blocks, so that the card has as many chains of g loads as at C4.
+extern "C" int roi_align_bwd(const float* g, const float* rois, const float* valid_hw, int b,
+                             int h, int w, int c, int r, int ph, int pw, int s, float scale,
+                             void* scratch, float* dfeat, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((w + 7) / 8) * h * b * ((c / 4 + kLanes - 1) / kLanes);
+  if (blocks >= 1216) {
+    return table_bwd<ResidentTaps, 8, 8, 1>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                            scratch, dfeat, st);
+  }
+  if (blocks >= 608) {
+    return table_bwd<ResidentTaps, 8, 8, 2>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                            scratch, dfeat, st);
+  }
+  return table_bwd<ResidentTaps, 8, 8, 4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                          scratch, dfeat, st);
 }

@@ -3,7 +3,9 @@
 
 :func:`roi_align` is the batched, differentiable forward: CUDA tensors go
 through :class:`RoIAlignFunction`, whose forward launches kernel 2 and whose
-backward launches kernel 3 (both in ``csrc/roi_align.cu``); CPU tensors run
+backward launches kernel 3 (both in ``csrc/roi_align.cu``; the backward is
+deterministic, and takes a scratch for its per-roi tables,
+:func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_plain`, which torch autograd differentiates.  With
 ``valid_hw`` the samples clamp to the valid feature extent (the gather path
 ``roi_align`` of the JAX package, which the eval forward takes); without it
@@ -31,17 +33,27 @@ from mx_rcnn_tpu_torch.utils.cuda_build import (
     stream_of,
 )
 
-# both launchers take (in, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
-# out, stream)
-_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-)
+# the forward launcher takes (feat, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+# scale, out, stream); the backward's (g, rois, valid_hw, ..., scale,
+# scratch, dfeat, stream)
+_IN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
 library = CudaLibrary("roi_align.cu")
-kernel = CudaKernel(library, "roi_align_fwd", _ARGTYPES)
-bwd_kernel = CudaKernel(library, "roi_align_bwd", _ARGTYPES)
+kernel = CudaKernel(library, "roi_align_fwd", _IN_ARGS + (ctypes.c_void_p,) * 2)
+bwd_kernel = CudaKernel(library, "roi_align_bwd", _IN_ARGS + (ctypes.c_void_p,) * 3)
+
+# sample ratios kernel 2 is built for
+MAX_SAMPLE_RATIO = 4
+
+
+def table_scratch(lib: CudaLibrary, function: str, b, h, w, r, pooled, sample_ratio, device):
+    """The scratch of a table backward (kernel 3, or kernel 5 in
+    ``ops/roi_align_stream.py``): one table per (image, roi), which its
+    set-up kernel writes and its tile kernel reads; ``function`` is the
+    library's export that sizes it."""
+    fn = getattr(lib.lib(), function)
+    fn.argtypes, fn.restype = (ctypes.c_int,) * 7, ctypes.c_longlong
+    nbytes = fn(b, h, w, r, pooled[0], pooled[1], int(sample_ratio))
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def _feat_limits(size: int, valid: Optional[torch.Tensor], scale: float, batch: int, device):
@@ -179,9 +191,10 @@ def _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
     feat = kernel_input("feat", feat, torch.float32, 4)
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat.shape
-    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4:
+    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or not 1 <= sample_ratio <= MAX_SAMPLE_RATIO:
         raise ValueError(
-            f"feat {tuple(feat.shape)} (C % 4 == 0) / rois {tuple(rois.shape)}"
+            f"feat {tuple(feat.shape)} (C % 4 == 0) / rois {tuple(rois.shape)} / "
+            f"sample_ratio {sample_ratio} (1..{MAX_SAMPLE_RATIO})"
         )
     valid_hw = _kernel_valid_hw(valid_hw, b)
     r = rois.shape[1]
@@ -196,6 +209,12 @@ def _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
     return out
 
 
+def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
+    """The scratch kernel 3 takes (its per-roi tables)."""
+    return table_scratch(library, "roi_align_bwd_scratch_bytes", b, h, w, r, pooled,
+                         sample_ratio, device)
+
+
 def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio, valid_hw):
     g = kernel_input("g", g, torch.float32, 5)
     rois = kernel_input("rois", rois, torch.float32, 3)
@@ -207,12 +226,13 @@ def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio
             f"g {tuple(g.shape)} / rois {tuple(rois.shape)} / feat {tuple(feat_shape)} (C % 4 == 0)"
         )
     valid_hw = _kernel_valid_hw(valid_hw, b)
+    # every element is written by the kernel: no zero fill
+    dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        # zero-filled on PyTorch's current stream, the stream of the launch
-        dfeat = torch.zeros((b, h, w, c), dtype=torch.float32, device=g.device)
+        scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
         bwd_kernel(
             ptr(g), ptr(rois), ptr(valid_hw), b, h, w, c, r, ph, pw,
-            int(sample_ratio), float(spatial_scale), ptr(dfeat), stream_of(g),
+            int(sample_ratio), float(spatial_scale), ptr(scratch), ptr(dfeat), stream_of(g),
         )
     bwd_kernel.launches += 1
     return dfeat

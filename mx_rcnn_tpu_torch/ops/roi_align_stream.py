@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from mx_rcnn_tpu_torch.ops.roi_align import roi_align_bwd_plain, roi_align_plain
+from mx_rcnn_tpu_torch.ops.roi_align import roi_align_bwd_plain, roi_align_plain, table_scratch
 from mx_rcnn_tpu_torch.utils.cuda_build import (
     CudaKernel,
     CudaLibrary,
@@ -89,10 +89,8 @@ def roi_align_stream_bwd_plain(
 def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
     """The scratch kernel 5 takes: one table per (image, roi), which its
     set-up kernel writes and its tile kernel reads."""
-    fn = library.lib().roi_align_stream_bwd_scratch_bytes
-    fn.argtypes, fn.restype = (ctypes.c_int,) * 7, ctypes.c_longlong
-    nbytes = fn(b, h, w, r, pooled[0], pooled[1], int(sample_ratio))
-    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return table_scratch(library, "roi_align_stream_bwd_scratch_bytes", b, h, w, r, pooled,
+                         sample_ratio, device)
 
 
 def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):

@@ -1,5 +1,7 @@
-"""Time the NMS kernel (1) and the streamed ROIAlign backward (5) on the card,
-pass by pass, on seeded synthetic inputs at the train and serving shapes.
+"""Time the hand-written kernels on the card, CUDA kernel by CUDA kernel, on
+seeded synthetic inputs at the train and serving shapes: NMS (kernel 1), the
+resident ROIAlign forward and backward (kernels 2 and 3) and the streamed
+ones (kernels 4 and 5).
 
     python -m mx_rcnn_tpu_torch.tools.kernel_bench
 
@@ -7,16 +9,22 @@ pass by pass, on seeded synthetic inputs at the train and serving shapes.
 script times them on inputs it makes itself, so that two versions of the
 kernels can be compared in one run on one card: run it once from each
 checkout (``env PYTHONPATH=<checkout> python <this file>`` imports the
-package of that checkout).  For each case it prints the wrapper's device
-time (calls captured in a CUDA graph, CUDA events), the device time of each
-CUDA kernel the wrapper launches (torch.profiler), and for NMS the same
-boxes with every row invalid, which leaves pass 1 whole and pass 2 no
-survivor to carry.  The last line is one JSON object of every number.
+package of that checkout; the store floor is left out where a checkout's
+library does not export it).  For each case it prints the wrapper's device
+time (calls captured in a CUDA graph, CUDA events) and the device time of
+each CUDA kernel the wrapper launches (torch.profiler).  Besides: for NMS
+the same boxes with every row invalid, which leaves pass 1 whole and pass 2
+no survivor to carry; for kernel 2 a store-only kernel of the same output
+bytes (the card's practical floor for the function; it runs on no path);
+for kernel 3 the wrapper launched eagerly as well.  The ptxas lines
+(registers, spills) of every library come first; the last line is one JSON
+object of every number.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -25,7 +33,9 @@ import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
+from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
+from mx_rcnn_tpu_torch.utils.cuda_build import ptr, stream_of
 from mx_rcnn_tpu_torch.ops.anchors import shifted_anchors
 
 CANVAS_HW = (608, 1024)
@@ -167,7 +177,7 @@ def stream_rois(rng, r: int) -> np.ndarray:
     bg = np.concatenate([ctr - wh / 2, ctr + wh / 2], 1)
     rois = np.concatenate([fg, bg]).astype(np.float32)
     hh, ww = CANVAS_HW
-    return np.clip(rois, 0, [ww - 1, hh - 1, ww - 1, hh - 1])[None]
+    return np.clip(rois, 0, [ww - 1, hh - 1, ww - 1, hh - 1]).astype(np.float32)[None]
 
 
 def stream_cases(rng, dev):
@@ -179,6 +189,90 @@ def stream_cases(rng, dev):
         out.append((f"P{level} g 1x128x14x14x256 -> 1x{h}x{w}x256", g, rois, (1, h, w, 256),
                     1.0 / 2 ** level))
     return out
+
+
+def serving_rois(rng, b: int, r: int) -> np.ndarray:
+    """(b, r, 4): r of the anchors of a 64 x 64 map at stride 16 (scales
+    8/16/32, ratios 0.5/1/2), moved and resized a little, inside a 1024 x
+    1024 canvas: the serving path's 300 proposals after NMS, spread over
+    the image, 128 to 724 px a side."""
+    a = shifted_anchors(64, 64, 16)
+    out = []
+    for _ in range(b):
+        boxes = jittered(rng, a[rng.choice(len(a), r, replace=False)], 0.05)
+        out.append(np.clip(boxes, 0, 1023))
+    return np.stack(out).astype(np.float32)
+
+
+def resident_cases(rng, dev):
+    """(label, feat shape, rois, valid_hw, scale) of kernels 2 and 3: the
+    serving call (2 images, 300 rois each, valid_hw), C4 train (the clustered
+    train rois) and FPN's P4 and P5 (the same rois)."""
+    train = torch.from_numpy(stream_rois(rng, 128)).to(dev)
+    serve = torch.from_numpy(serving_rois(rng, 2, 300)).to(dev)
+    valid_hw = torch.tensor([[600.0, 1000.0], [1000.0, 600.0]], device=dev)
+    return [
+        ("serving 2x64x64x1024, 2x300 rois, valid_hw", (2, 64, 64, 1024), serve, valid_hw, 1 / 16),
+        ("C4 train 1x38x64x1024, 128 rois", (1, 38, 64, 1024), train, None, 1 / 16),
+        ("FPN P4 1x38x64x256, 128 rois", (1, 38, 64, 256), train, None, 1 / 16),
+        ("FPN P5 1x19x32x256, 128 rois", (1, 19, 32, 256), train, None, 1 / 32),
+    ]
+
+
+def ptxas_lines(lib) -> list:
+    return [line.strip() for line in lib.ptxas_log.splitlines()
+            if "Used" in line or "spill" in line or "Compiling entry" in line]
+
+
+def roi_fwd_bench(label, shape, rois, valid_hw, scale, reps, dev) -> dict:
+    """Kernel 2 at one case: the wrapper, and the store floor of its output
+    bytes."""
+    rng = np.random.RandomState(sum(shape))
+    feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    call = lambda: roi_mod.roi_align(feat, rois, (14, 14), scale, 2, valid_hw)  # noqa: E731
+    out = call()
+    res = {"ms": graph_ms(call, reps), "kernels_ms": kernel_ms(call), "out_mb": out.numel() * 4e-6}
+    floor = getattr(roi_mod.library.lib(), "roi_align_store_floor", None)
+    if floor is not None:
+        floor.argtypes = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
+        floor.restype = ctypes.c_int
+
+        def store_floor():
+            rc = floor(ptr(out), out.numel(), stream_of(out))
+            if rc:
+                raise RuntimeError(f"launch failed with cudaError {rc}")
+
+        res["store_floor_ms"] = graph_ms(store_floor, reps)
+    print(f"  roi_align_fwd {label}: {res['ms']:.4f} ms (graph)"
+          + (f", store floor {res['store_floor_ms']:.4f}" if "store_floor_ms" in res else "")
+          + "; " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
+    return res
+
+
+def eager_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` launched eagerly, CUDA events around
+    ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def roi_bwd_bench(label, shape, rois, valid_hw, scale, reps, dev) -> dict:
+    """Kernel 3 at one case: the wrapper, graph-captured and eager."""
+    rng = np.random.RandomState(sum(shape) + 1)
+    b, h, w, c = shape
+    g = torch.from_numpy(rng.randn(b, rois.shape[1], 14, 14, c).astype(np.float32)).to(dev)
+    call = lambda: roi_mod._roi_align_bwd_cuda(g, rois, shape, (14, 14), scale, 2, valid_hw)  # noqa: E731
+    res = {"ms": graph_ms(call, reps), "eager_ms": eager_ms(call), "kernels_ms": kernel_ms(call)}
+    print(f"  roi_align_bwd {label}: {res['ms']:.4f} ms (graph), {res['eager_ms']:.4f} (eager); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -193,13 +287,14 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[card] {smi} | package {nms_mod.__file__}", flush=True)
-    for lib in (nms_mod.library, stream_mod.library):
+    result = {"card": smi, "package": nms_mod.__file__, "ptxas": {}, "nms": {}, "roi_fwd": {},
+              "roi_bwd": {}, "stream_fwd": {}, "stream_bwd": {}}
+    for lib in (nms_mod.library, roi_mod.library, stream_mod.library):
         lib.lib()
-        for line in lib.ptxas_log.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {lib.source.name}: {line.strip()}", flush=True)
+        result["ptxas"][lib.source.name] = ptxas_lines(lib)
+        for line in result["ptxas"][lib.source.name]:
+            print(f"  {lib.source.name}: {line}", flush=True)
     rng = np.random.RandomState(args.seed)
-    result = {"card": smi, "nms": {}, "stream_bwd": {}}
     for label, boxes, valid, thresh, max_keep in nms_cases(rng, dev):
         call = lambda: nms_mod.nms_mask_sorted(boxes, valid, thresh, max_keep)  # noqa: E731
         kept = int(call().sum())
@@ -208,7 +303,18 @@ def main(argv=None) -> int:
         result["nms"][label] = {"kept": kept, "ms": ms, "kernels_ms": per}
         print(f"  nms {label} {tuple(boxes.shape)}: kept {kept}, {ms:.4f} ms (graph); "
               + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    for label, shape, rois, valid_hw, scale in resident_cases(rng, dev):
+        result["roi_fwd"][label] = roi_fwd_bench(label, shape, rois, valid_hw, scale, args.reps, dev)
+        if valid_hw is None:
+            result["roi_bwd"][label] = roi_bwd_bench(label, shape, rois, valid_hw, scale,
+                                                     args.reps, dev)
     for label, g, rois, shape, scale in stream_cases(rng, dev):
+        feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+        fwd = lambda: stream_mod._roi_align_stream_cuda(feat, rois, (14, 14), scale, 2)  # noqa: E731
+        ms, per = graph_ms(fwd, args.reps), kernel_ms(fwd)
+        result["stream_fwd"][label] = {"ms": ms, "kernels_ms": per}
+        print(f"  roi_align_stream_fwd {label}: {ms:.4f} ms (graph); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
         call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, (14, 14), scale, 2)  # noqa: E731
         ms = graph_ms(call, args.reps)
         per = kernel_ms(call)

@@ -156,10 +156,11 @@ def test_roi_align_kernel_refuses_unaligned_channels(card):
 @pytest.mark.parametrize("pooled", [(7, 7), (14, 14)])
 def test_roi_align_bwd_kernel_matches_plain(card, with_valid_hw, pooled):
     """Kernel 3 through autograd (RoIAlignFunction's backward) against the
-    plain scatter-add.  Both sum with atomics in a run-dependent order, and
-    a float32 sum's rounding grows with the sum of its terms' magnitudes:
-    |Δ| ≤ 1e-4 · max(1, Σ|terms|), Σ|terms| being the plain backward of |g|
-    (the weights are ≥ 0)."""
+    plain scatter-add.  The plain version sums with atomics in a
+    run-dependent order, the kernel in its own fixed order, and a float32
+    sum's rounding grows with the sum of its terms' magnitudes: |Δ| ≤ 1e-4 ·
+    max(1, Σ|terms|), Σ|terms| being the plain backward of |g| (the weights
+    are ≥ 0)."""
     rng = np.random.RandomState(2)
     b, h, w, c = 2, 20, 30, 260
     feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card).requires_grad_()
@@ -185,6 +186,83 @@ def test_roi_align_bwd_kernel_refuses_a_misshapen_cotangent(card):
     rois = torch.zeros((1, 3, 4), device=card)
     with pytest.raises(ValueError):
         troi._roi_align_bwd_cuda(g, rois, (1, 4, 4, 8), (7, 7), 1.0 / 16, 2, None)
+
+
+def _edge_rois(rng, b, r, h_img, w_img):
+    """(b, r, 4) rois on an (h_img, w_img) canvas: random, then the edge
+    cases of kernels 2 and 3's tap rule: the whole canvas, sub-cell, past
+    the border, degenerate, inverted along x, along both axes and inside
+    one cell, above and left of the map, and at the far corner."""
+    xy = rng.rand(b, r, 2) * [w_img, h_img]
+    wh = rng.rand(b, r, 2) * [w_img / 2, h_img / 2]
+    rois = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    rois[:, 0] = [0, 0, w_img - 1, h_img - 1]
+    rois[:, 1] = [5, 5, 5.5, 5.5]
+    rois[:, 2] = [w_img - 2, h_img - 2, w_img + 50, h_img + 50]
+    rois[:, 3] = [0, 0, 0, 0]
+    rois[:, 4] = [300, 40, 200, 90]
+    rois[:, 5] = [100, 100, 60, 60]
+    rois[:, 6] = [37, 41, 36, 40]
+    rois[:, 7] = [-80, -60, -20, -10]
+    rois[:, 8] = [w_img - 1, h_img - 1, w_img + 300, h_img + 300]
+    return torch.from_numpy(rois)
+
+
+# (b, h, w, c, rois, valid_hw): at the train path's width, C = 1024 with 128
+# rois; and two images whose valid_hw clamps put lo == hi (ceil(100 / 16) =
+# 7 < 9 rows, ceil(33 / 16) = 3 < 13 columns), pooled 7 on a small map
+_RESIDENT_EDGE_CASES = {
+    "C=1024, 128 rois, canvas": (1, 38, 64, 1024, 128, None),
+    "C=1024, 128 rois, valid_hw": (1, 38, 64, 1024, 128, [[600.0, 800.0]]),
+    "B=2, valid_hw lo == hi": (2, 9, 13, 8, 12, [[100.0, 130.0], [144.0, 33.0]]),
+}
+
+
+@pytest.mark.parametrize("case", list(_RESIDENT_EDGE_CASES))
+def test_roi_align_kernels_at_the_edge_rois(card, case):
+    """Kernel 2 against its plain version (max |Δ| ≤ 1e-5), kernel 3 against
+    the plain scatter-add (|Δ| ≤ 1e-4 · max(1, Σ|terms|)) and bit-identical
+    across two launches, on the edge rois."""
+    b, h, w, c, r, vh = _RESIDENT_EDGE_CASES[case]
+    rng = np.random.RandomState(12)
+    pooled = (14, 14) if c == 1024 else (7, 7)
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card)
+    rois = _edge_rois(rng, b, r, h * 16.0, w * 16.0).to(card)
+    valid_hw = None if vh is None else torch.tensor(vh, device=card)
+    got = troi.roi_align(feat, rois, pooled, 1.0 / 16, 2, valid_hw)
+    ref = troi.roi_align_plain(feat, rois, pooled, 1.0 / 16, 2, valid_hw)
+    assert float((got - ref).abs().max()) <= 1e-5
+    g = torch.from_numpy(rng.randn(b, r, *pooled, c).astype(np.float32)).to(card)
+    shape = (b, h, w, c)
+    dfeat = troi._roi_align_bwd_cuda(g, rois, shape, pooled, 1.0 / 16, 2, valid_hw)
+    again = troi._roi_align_bwd_cuda(g, rois, shape, pooled, 1.0 / 16, 2, valid_hw)
+    ref = troi.roi_align_bwd_plain(g, rois, shape, pooled, 1.0 / 16, 2, valid_hw)
+    mag = troi.roi_align_bwd_plain(g.abs(), rois, shape, pooled, 1.0 / 16, 2, valid_hw)
+    assert float(((dfeat - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+    assert torch.equal(dfeat, again)
+
+
+def test_roi_align_bwd_kernel_writes_every_element(card):
+    """Kernel 3's launcher on a dfeat buffer and a scratch pre-filled with
+    NaN / garbage: the cells no roi reaches come back as exact zeros, the
+    rest matches the plain version."""
+    from mx_rcnn_tpu_torch.utils.cuda_build import ptr, stream_of
+
+    rng = np.random.RandomState(13)
+    b, h, w, c, pooled = 2, 30, 40, 1024, (7, 7)
+    rois = torch.tensor([[[0.0, 0.0, 300.0, 200.0], [100.0, 60.0, 310.0, 230.0]],
+                         [[16.0, 16.0, 100.0, 50.0], [50.0, 40.0, 20.0, 10.0]]], device=card)
+    g = torch.from_numpy(rng.randn(b, 2, *pooled, c).astype(np.float32)).to(card)
+    dfeat = torch.full((b, h, w, c), float("nan"), device=card)
+    scratch = troi.bwd_scratch(b, h, w, 2, pooled, 2, card).fill_(0xA5)
+    troi.bwd_kernel(ptr(g), ptr(rois), ptr(None), b, h, w, c, 2, *pooled, 2, 1.0 / 16,
+                    ptr(scratch), ptr(dfeat), stream_of(g))
+    torch.cuda.synchronize()
+    assert not torch.isnan(dfeat).any()
+    assert float(dfeat[:, 16:, 21:].abs().max()) == 0.0
+    ref = troi.roi_align_bwd_plain(g, rois, (b, h, w, c), pooled, 1.0 / 16, 2)
+    mag = troi.roi_align_bwd_plain(g.abs(), rois, (b, h, w, c), pooled, 1.0 / 16, 2)
+    assert float(((dfeat - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
 
 
 def _stream_rois(rng, b, r, h, w, scale):
