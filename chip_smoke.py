@@ -10,9 +10,10 @@
    the NMS launcher, ``roi_align.cu`` the resident ROIAlign forward and
    backward, ``roi_align_stream.cu`` the streamed ones; the two ROIAlign
    sources share the backward's table and tile kernels of
-   ``roi_align_table.cuh``) and prints ptxas' register / shared-memory /
-   spill lines, and one summary line of the registers and spills of the
-   kernels redesigned since the first port (NMS, kernels 2, 3 and 5);
+   ``roi_align_table.cuh`` and the forward template of ``roi_align_fwd.cuh``)
+   and prints ptxas' register / shared-memory / spill lines, and one summary
+   line of the registers and spills of the kernels redesigned since the
+   first port (all five) as the paths launch them;
 3. holds the NMS kernel against its plain PyTorch version on the card at the
    serving proposal shape (2 × 6000 sorted, max_keep 300, IoU 0.7), the
    train proposal shape (1 × 12000 sorted, max_keep 2000, IoU 0.7), the
@@ -32,7 +33,10 @@
    at FPN's P2 (1, 152, 256, 256) and P3 (1, 76, 128, 256), 128 rois,
    pooled 14 and 7, inverted, off-map, tiny and map-sized rois included:
    forward max |Δ| ≤ 1e-5, backward the scaled 1e-4 bar and two launches
-   bit-identical;
+   bit-identical; and the run-time sample-ratio instances at s = 5: kernel 2
+   with and without ``valid_hw`` and kernel 4 against their plain versions
+   (max |Δ| ≤ 1e-5, 0 expected), kernels 3 and 5 at the scaled bar and
+   bit-identical across two launches;
 5. serves VOC-sized requests through full-width ResNet-101 C4 Faster R-CNN
    (``generate_config("resnet", "PascalVOC")``, seeded random weights) with
    ``detect_single`` in both buckets, plus a same-bucket batch of 2 through
@@ -65,7 +69,8 @@
 7. times each kernel on captured tensors: NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
-   at P4 and, for the comparison of the two designs, at P2: its device time
+   at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
+   kernel 2 at P3): its device time
    from a CUDA graph of the wrapper (``ms``), the eager wrapper
    (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
    bound for the work this data needs;
@@ -313,11 +318,11 @@ def roi_work(feat, rois, pooled, scale, s, valid_hw, out, keep=None):
     return nbytes, pooled_outputs * ROI_FLOPS_PER_OUTPUT
 
 
-def roi_case(feat, rois, valid_hw, label):
-    got = roi_mod.roi_align(feat, rois, (14, 14), 1.0 / 16, 2, valid_hw)
-    ref = roi_mod.roi_align_plain(feat, rois, (14, 14), 1.0 / 16, 2, valid_hw)
+def roi_case(feat, rois, valid_hw, label, s=2):
+    got = roi_mod.roi_align(feat, rois, (14, 14), 1.0 / 16, s, valid_hw)
+    ref = roi_mod.roi_align_plain(feat, rois, (14, 14), 1.0 / 16, s, valid_hw)
     err = float((got - ref).abs().max())
-    log(f"  roi_align {label}: feat={tuple(feat.shape)} R={rois.shape[1]} max|d|={err:.3g}")
+    log(f"  roi_align {label}: feat={tuple(feat.shape)} R={rois.shape[1]} s={s} max|d|={err:.3g}")
     if not err <= ROI_TOL:
         raise AssertionError(f"ROIAlign kernel disagrees with the plain version ({label}): {err}")
     return err
@@ -452,6 +457,38 @@ def stream_synthetic(diff, dev):
             diff.fwd(feat, rois, pooled, 1.0 / stride, 2, label)
             g = torch.from_numpy(rng.randn(1, 128, *pooled, 256).astype(np.float32)).to(dev)
             diff.bwd(g, rois, tuple(feat.shape), pooled, 1.0 / stride, 2, label)
+
+
+# the sample ratio of the run-time instances' phase: past the compiled-in 1..4
+RUNTIME_S = 5
+
+
+def runtime_s_synthetic(dev):
+    """The run-time sample-ratio instances at s = RUNTIME_S (no configuration
+    uses s > 4): kernel 2 with and without ``valid_hw`` at the C4 train shape
+    and kernel 4 at P2 against their plain versions (max |Δ| ≤ ROI_TOL; the
+    kernels add in the plain version's order, so 0 is expected where the
+    plain mean adds in that order too), kernels 3 and 5 (whose tables take
+    any s) at the scaled bar and bit-identical across two launches.  Returns
+    kernel 2's max |Δ| and the comparisons of kernel 3 (a BwdDiff) and of
+    kernels 4 and 5 (a StreamDiff), kept apart from the s = 2 ones."""
+    bwd_diff, stream_diff = BwdDiff(), StreamDiff()
+    rng = np.random.RandomState(7)
+    s = RUNTIME_S
+    feat = torch.from_numpy(rng.randn(1, 38, 64, 1024).astype(np.float32)).to(dev)
+    rois = torch.from_numpy(synthetic_rois(rng, 128, 608, 1024)[None]).to(dev)
+    valid_hw = torch.tensor([[600.0, 800.0]], device=dev)
+    err = max(roi_case(feat, rois, None, "train shape, canvas clamp", s),
+              roi_case(feat, rois, valid_hw, "train shape, valid_hw clamp", s))
+    g = torch.from_numpy(rng.randn(1, 128, 14, 14, 1024).astype(np.float32)).to(dev)
+    bwd_diff.add(g, rois, tuple(feat.shape), (14, 14), 1.0 / 16, s, None,
+                 f"s={s} train shape, canvas clamp")
+    feat = torch.from_numpy(rng.randn(1, 152, 256, 256).astype(np.float32)).to(dev)
+    rois = torch.from_numpy(stream_rois(rng, 128, 608, 1024)[None]).to(dev)
+    stream_diff.fwd(feat, rois, (14, 14), 0.25, s, f"s={s} P2 pooled 14")
+    g = torch.from_numpy(rng.randn(1, 128, 14, 14, 256).astype(np.float32)).to(dev)
+    stream_diff.bwd(g, rois, tuple(feat.shape), (14, 14), 0.25, s, f"s={s} P2 pooled 14")
+    return err, bwd_diff, stream_diff
 
 
 # ------------------------------------------------------------ main path
@@ -614,7 +651,7 @@ def _layer_of(kernel_name: str) -> str:
     name = kernel_name.lower()
     if "nms_" in name:
         return "nms kernel"
-    if "roi_align" in name:
+    if "roi_align" in name or "roi_table" in name:
         return "roi_align kernel"
     if "nhwctonchw" in name or "nchwtonhwc" in name:
         return "layout transposes around cuDNN"
@@ -978,17 +1015,17 @@ def train_path(cfg, dev, groups, per_step):
 
 def _train_layer_of(kernel_name: str) -> str:
     name = kernel_name.lower()
-    # the backwards' table and tile kernels are named by their tap rule
+    # both forwards are instances of one template (roi_align_fwd.cuh), the
+    # backwards' table and tile kernels of others (roi_align_table.cuh),
+    # each named by its tap rule
+    if "roi_align_fwd" in name:
+        return "roi_align_stream fwd kernel" if "streamtaps" in name else "roi_align fwd kernel"
     if "streamtaps" in name:
         return "roi_align_stream bwd kernel"
     if "residenttaps" in name:
         return "roi_align bwd kernel"
-    if "roi_align_stream_fwd" in name:
-        return "roi_align_stream fwd kernel"
     if "roi_align_bwd" in name:
         return "roi_align bwd kernel"
-    if "roi_align_fwd" in name:
-        return "roi_align fwd kernel"
     if "multi_tensor_apply" in name or "foreach" in name:
         return "optimizer (foreach clamp / SGD)"
     return _layer_of(kernel_name).replace("convolutions / matmuls", "convolutions / matmuls, fwd + bwd")
@@ -1280,13 +1317,16 @@ def ptxas_summary(lib):
 
 # the instances of the redesigned kernels that the paths launch, each by the
 # name printed for it and the piece of its mangled name that picks it out:
-# NMS, kernel 2 at s = 2, and the table and tile kernels (template <Rule,
-# kSplit, kTileW, kGroups>) of kernel 3, in each cluster size the path picks,
-# and of kernel 5
+# NMS, kernels 2 and 4 (the forward template <S, Rule>) at s = 2, and the
+# table and tile kernels (template <Rule, kSplit, kTileW, kGroups>) of kernel
+# 3, in each cluster size the path picks, and of kernel 5
 PATH_INSTANCES = {
     "nms": {"nms_mask_kernel": "15nms_mask_kernelE",
             "nms_reduce_kernel": "17nms_reduce_kernelE"},
-    "roi_align_fwd": {"roi_align_fwd_kernel<2>": "20roi_align_fwd_kernelILi2EE"},
+    "roi_align_fwd": {"roi_align_fwd_kernel<2, ResidentTaps>":
+                      "20roi_align_fwd_kernelILi2ENS_12ResidentTapsEEE"},
+    "roi_align_stream_fwd": {"roi_align_fwd_kernel<2, StreamTaps>":
+                             "20roi_align_fwd_kernelILi2ENS_10StreamTapsEEE"},
     "roi_align_bwd": {
         "roi_table_kernel<ResidentTaps>": "16roi_table_kernelINS_12ResidentTapsEE",
         **{f"roi_align_tile_bwd_kernel<ResidentTaps, 8, 8, {g}>":
@@ -1361,6 +1401,8 @@ def main() -> int:
     roi_bwd_synthetic(bwd_diff, dev)
     log("[roi_align_stream] streamed forward and backward kernels vs plain, synthetic P2/P3")
     stream_synthetic(stream_diff, dev)
+    log(f"[roi_align s={RUNTIME_S}] the run-time sample-ratio instances vs plain, synthetic")
+    s5_err, s5_bwd, s5_stream = runtime_s_synthetic(dev)
 
     cfg = generate_config("resnet", "PascalVOC")
     log(f"[main path] serving: ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, "
@@ -1413,11 +1455,14 @@ def main() -> int:
     stream_bwd_p3 = stream_bwd_timing(p3_bwd, "P3")
     fpn_roi = roi_fwd_timing(at_scale(fpn_cap.roi, 1.0 / 16), "FPN P4")
     fpn_bwd = roi_bwd_timing(at_scale(fpn_cap.roi_bwd, 1.0 / 16), "FPN P4")
-    log("[timing] the resident kernels 2 and 3 on the same P2 tensors (the other design)")
+    log("[timing] the resident kernels 2 and 3 on the same P2 tensors, and kernel 2 on P3's "
+        "(the other tap rule)")
     resident_p2 = roi_fwd_timing(p2 + (None,), "P2, resident kernel 2")
     resident_bwd_p2 = roi_bwd_timing(p2_bwd + (None,), "P2, resident kernel 3")
+    resident_p3 = roi_fwd_timing(p3 + (None,), "P3, resident kernel 2")
     log(f"  P2: streamed forward {stream_p2['ms']:.4f} ms vs resident {resident_p2['ms']:.4f} ms; "
-        f"streamed backward {stream_bwd_p2['ms']:.4f} ms vs resident {resident_bwd_p2['ms']:.4f} ms")
+        f"streamed backward {stream_bwd_p2['ms']:.4f} ms vs resident {resident_bwd_p2['ms']:.4f} ms; "
+        f"P3: streamed forward {stream_p3['ms']:.4f} ms vs resident {resident_p3['ms']:.4f} ms")
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
@@ -1457,9 +1502,9 @@ def main() -> int:
             "ptxas": redesigned["roi_align_fwd"],
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
-            "max_abs_err": roi_err, **train_roi, "library_ms": None,
-            **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
-            **_prefixed("p2", resident_p2),
+            "max_abs_err": roi_err, f"s{RUNTIME_S}_max_abs_err": s5_err, **train_roi,
+            "library_ms": None, **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
+            **_prefixed("p2", resident_p2), **_prefixed("p3", resident_p3),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -1468,15 +1513,19 @@ def main() -> int:
             "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
             "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
             "bitwise_repeatable": bwd_diff.repeatable,
+            f"s{RUNTIME_S}_scaled_err": s5_bwd.scaled_err,
+            f"s{RUNTIME_S}_bitwise_repeatable": s5_bwd.repeatable,
             **train_bwd, "library_ms": None,
             **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
         },
         {
             "name": "roi_align_stream_fwd", "route": "cuda",
             "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
-            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100",
+            "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100", "design": "PR 6",
+            "ptxas": redesigned["roi_align_stream_fwd"],
             "launches": fpn_launches["roi_align_stream_fwd"],
-            "max_abs_err": stream_diff.fwd_err, **stream_p2, "library_ms": None,
+            "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
+            **stream_p2, "library_ms": None,
             **_prefixed("p3", stream_p3),
         },
         {
@@ -1486,7 +1535,10 @@ def main() -> int:
             "ptxas": redesigned["roi_align_stream_bwd"],
             "launches": fpn_launches["roi_align_stream_bwd"],
             "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
-            "bitwise_repeatable": stream_diff.repeatable, **stream_bwd_p2, "library_ms": None,
+            "bitwise_repeatable": stream_diff.repeatable,
+            f"s{RUNTIME_S}_scaled_err": s5_stream.bwd_scaled,
+            f"s{RUNTIME_S}_bitwise_repeatable": s5_stream.repeatable,
+            **stream_bwd_p2, "library_ms": None,
             **_prefixed("p3", stream_bwd_p3),
         },
     ]}), flush=True)

@@ -18,28 +18,17 @@
 // _feat_limits).  roi_align_taps.cuh puts every sample at the same position
 // in all four ROIAlign kernels.
 //
-// Kernel 2, forward, separable.  One block per (roi, 128-channel slice,
-// image) computes the roi's taps once into shared memory; after that one
-// barrier each of its 14 warps works alone on one output row (every 14th
-// for taller pools), a lane on one float4 of channels.  A warp walks its
-// row's bins in order, holding in registers the y lerps (one per sample
-// row) at the last sample's two columns: the samples' columns never move
-// left, so a column is either one of those two or new, and a new one costs
-// 2 loads a sample row.  A roi narrower than its 2 * s * pw sample columns
-// (most of them at stride 16) loads each column once a row instead of
-// 4 s^2 loads per output.  The output is written with streaming stores
-// (st.global.cs), so the 482 MB of the serving call evict less of the two
-// 16.8 MB maps from the 50 MB L2.  The arithmetic and its order are the
-// gather twin's: along y at both x taps, then along x, then the sum over the
-// samples (sample rows outer), divided by s * s; so the kernel agrees with
-// the plain version bit for bit.  Timed on the card against it, each of
+// Kernel 2, forward: roi_align_fwd.cuh's separable template under
+// ResidentTaps (one block per roi, channel slice and image; a warp on an
+// output row, holding the y lerps of the last two columns in registers;
+// streaming stores, so the 482 MB of the serving call evict less of the two
+// 16.8 MB maps from the 50 MB L2).  Timed on the card against it, each of
 // these was as fast or slower: 7 warps a block, a register cap of 58
 // (spills), warps splitting a row's bins instead of rows, and reusing a
 // sample row's feature row loaded by the row above; default-policy stores
-// about 1% slower.
-// Bound on the H100: the output writes, B*R*PH*PW*C*4 bytes (241 MB per
-// image on the serving path, 72 us at 3.35 TB/s); ~40 flops per output,
-// half that time at the f32 rate.
+// about 1% slower.  Bound on the H100: the output writes, B*R*PH*PW*C*4
+// bytes (241 MB per image on the serving path, 72 us at 3.35 TB/s); ~40
+// flops per output, half that time at the f32 rate.
 //
 // Kernel 3, backward, the adjoint of kernel 2, deterministic and without
 // atomics: the table and tile kernels of roi_align_table.cuh (kernel 5's
@@ -60,117 +49,10 @@
 
 #include <cuda_runtime.h>
 
+#include "roi_align_fwd.cuh"
 #include "roi_align_table.cuh"
 
 namespace {
-
-constexpr int kMaxS = 4;       // forward: sample ratios 1..kMaxS
-constexpr int kRowWarps = 14;  // forward: warps a block, one output row each
-
-// Warp w on output rows w, w + kRowWarps, ...; at most 73 registers, so
-// that two blocks (28 warps) share an SM.
-template <int S>
-__global__ void __launch_bounds__(kLanes * kRowWarps, 2)
-roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ rois,
-                     const float* __restrict__ valid_hw, int h, int w, int c4, int r_count,
-                     int ph_count, int pw_count, float scale, float4* __restrict__ out) {
-  const int r = blockIdx.x, b = blockIdx.z;
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int c = blockIdx.y * kLanes + lane;  // this thread's float4 channel
-  extern __shared__ Tap taps[];
-  Tap* xt = taps;                 // [pw_count * S]
-  Tap* yt = taps + pw_count * S;  // [ph_count * S]
-  float lim_hf, lim_wf;
-  tap_limits(valid_hw, b, scale, h, w, &lim_hf, &lim_wf);
-  roi_taps(scaled_roi(rois, b, r, r_count, scale), lim_hf, lim_wf, h, w, ph_count, pw_count,
-           S, xt, yt, warp * kLanes + lane, kLanes * kRowWarps);
-  __syncthreads();
-  if (c >= c4) return;  // past the only barrier
-
-  const float4* fb = feat + (size_t)b * h * w * c4 + c;
-  float4* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
-  const float count = (float)(S * S);
-  for (int ph = warp; ph < ph_count; ph += kRowWarps) {
-    // the sample rows' feature rows, as float4 offsets into the image
-    int row_lo[S], row_hi[S];
-    float wy_lo[S], wy_hi[S];
-#pragma unroll
-    for (int iy = 0; iy < S; ++iy) {
-      const Tap ty = yt[ph * S + iy];
-      row_lo[iy] = ty.lo * w * c4;
-      row_hi[iy] = ty.hi * w * c4;
-      wy_lo[iy] = ty.w_lo;
-      wy_hi[iy] = ty.w_hi;
-    }
-    // the y lerps of each sample row at the last sample's two columns
-    int col_lo = -1, col_hi = -1;
-    float4 at_lo[S], at_hi[S];
-    for (int pw = 0; pw < pw_count; ++pw) {
-      float4 xl[S][S];  // the x lerp of sample (iy, ix)
-#pragma unroll
-      for (int ix = 0; ix < S; ++ix) {
-        const Tap tx = xt[pw * S + ix];  // the same for every lane: no divergence
-        float4 lo[S], hi[S];
-        if (tx.lo == col_hi) {
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) lo[iy] = at_hi[iy];
-        } else if (tx.lo == col_lo) {
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) lo[iy] = at_lo[iy];
-        } else {
-          const int x = tx.lo * c4;
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) {
-            lo[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
-          }
-        }
-        if (tx.hi == tx.lo) {
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) hi[iy] = lo[iy];
-        } else if (tx.hi == col_hi) {
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) hi[iy] = at_hi[iy];
-        } else {
-          const int x = tx.hi * c4;
-#pragma unroll
-          for (int iy = 0; iy < S; ++iy) {
-            hi[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
-          }
-        }
-        col_lo = tx.lo;
-        col_hi = tx.hi;
-#pragma unroll
-        for (int iy = 0; iy < S; ++iy) {
-          at_lo[iy] = lo[iy];
-          at_hi[iy] = hi[iy];
-          xl[iy][ix] = lerp4(lo[iy], tx.w_lo, hi[iy], tx.w_hi);
-        }
-      }
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int iy = 0; iy < S; ++iy) {
-#pragma unroll
-        for (int ix = 0; ix < S; ++ix) acc = add4(acc, xl[iy][ix]);
-      }
-      __stcs(ob + ((size_t)ph * pw_count + pw) * c4,
-             make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
-    }
-  }
-}
-
-template <int S>
-int launch_fwd(const float* feat, const float* rois, const float* valid_hw, int b, int h,
-               int w, int c, int r, int ph, int pw, float scale, float* out,
-               cudaStream_t stream) {
-  if (b == 0 || r == 0 || c == 0) return 0;
-  const int c4 = c / 4;
-  const dim3 grid(r, (c4 + kLanes - 1) / kLanes, b);
-  const size_t smem = sizeof(Tap) * (size_t)(pw + ph) * S;
-  roi_align_fwd_kernel<S><<<grid, dim3(kLanes, kRowWarps), smem, stream>>>(
-          reinterpret_cast<const float4*>(feat), rois, valid_hw, h, w, c4, r, ph, pw, scale,
-          reinterpret_cast<float4*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // A measuring aid on no path: n float4 stores of zeros, streaming.
 __global__ void store_floor_kernel(float4* __restrict__ out, size_t n) {
@@ -184,24 +66,14 @@ __global__ void store_floor_kernel(float4* __restrict__ out, size_t n) {
 }  // namespace
 
 // feat (B, H, W, C) f32 with C % 4 == 0, rois (B, R, 4) f32, valid_hw (B, 2)
-// f32 or NULL, s in 1..4, out (B, R, PH, PW, C) f32; launches on `stream`,
+// f32 or NULL, s >= 1, out (B, R, PH, PW, C) f32; launches on `stream`,
 // returns a cudaError_t.
 extern "C" int roi_align_fwd(const float* feat, const float* rois, const float* valid_hw,
                              int b, int h, int w, int c, int r, int ph, int pw, int s,
                              float scale, float* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD(S) \
-  case S: return launch_fwd<S>(feat, rois, valid_hw, b, h, w, c, r, ph, pw, scale, out, st);
-  switch (s) {
-    FWD(1)
-    FWD(2)
-    FWD(3)
-    FWD(4)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FWD
+  return roi_align_fwd_launch<ResidentTaps>(feat, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                            scale, out, static_cast<cudaStream_t>(stream));
 }
-static_assert(kMaxS == 4, "roi_align_fwd dispatches s = 1..4");
 
 // n_floats (a multiple of 4) zeros into out: the store floor of a forward
 // that writes as many bytes, for tools/kernel_bench.py.

@@ -46,49 +46,8 @@
 
 namespace {
 
-constexpr int kLanes = 32;  // float4 lanes: one warp spans 128 channels
 constexpr int kWarps = 8;   // warps of a tile block
 constexpr int kBatch = 8;   // loads of g in flight a warp
-
-struct Roi {
-  float x1, y1, x2, y2;
-};
-
-__device__ __forceinline__ Roi scaled_roi(const float* __restrict__ rois, int b,
-                                          int r, int r_count, float scale) {
-  const float* roi = rois + ((size_t)b * r_count + r) * 4;
-  return Roi{roi[0] * scale, roi[1] * scale, roi[2] * scale, roi[3] * scale};
-}
-
-// The clamp limits of image b: the canvas (valid_hw == NULL) or
-// min(ceil(valid * scale), extent), the gather path's _feat_limits.
-__device__ __forceinline__ void tap_limits(const float* __restrict__ valid_hw, int b,
-                                           float scale, int h, int w, float* lim_hf,
-                                           float* lim_wf) {
-  *lim_hf = (float)h;
-  *lim_wf = (float)w;
-  if (valid_hw != nullptr) {
-    *lim_hf = fminf(ceilf(valid_hw[b * 2 + 0] * scale), (float)h);
-    *lim_wf = fminf(ceilf(valid_hw[b * 2 + 1] * scale), (float)w);
-  }
-}
-
-// The roi's x taps xt[pw * s] and y taps yt[ph * s], into shared memory
-// (the caller syncs); samples clamp to [0, lim - 1].
-__device__ __forceinline__ void roi_taps(const Roi& q, float lim_hf, float lim_wf, int h,
-                                         int w, int ph_count, int pw_count, int s, Tap* xt,
-                                         Tap* yt, int tid, int nthreads) {
-  const float bin_w = fmaxf(q.x2 - q.x1, 1.0f) / (float)pw_count;
-  const float bin_h = fmaxf(q.y2 - q.y1, 1.0f) / (float)ph_count;
-  const int nx = pw_count * s, ny = ph_count * s;
-  for (int t = tid; t < nx + ny; t += nthreads) {
-    if (t < nx) {
-      xt[t] = sample_tap(q.x1, bin_w, t, s, lim_wf, (int)lim_wf, w);
-    } else {
-      yt[t - nx] = sample_tap(q.y1, bin_h, t - nx, s, lim_hf, (int)lim_hf, h);
-    }
-  }
-}
 
 // One entry of a roi's table: the summed weight of a bin's samples on a cell.
 struct Entry {
@@ -157,16 +116,6 @@ __device__ int merge_entries(const Tap* t, int n, int s, Entry* out) {
   out[m - 1] = cur;
   return m;
 }
-
-// The tap rules, as types, so that a profile names the kernel of each rule.
-// Kernel 5's: canvas clamp, an inverted roi adds nothing.
-struct StreamTaps {
-  static constexpr bool kResident = false;
-};
-// Kernel 3's: the valid_hw clamp when given, every roi taps.
-struct ResidentTaps {
-  static constexpr bool kResident = true;
-};
 
 constexpr int kTableThreads = 64;
 
@@ -407,14 +356,6 @@ roi_align_tile_bwd_kernel(const float4* __restrict__ g, const char* __restrict__
     }
     cluster.sync();  // no block leaves while another reads its shared memory
   }
-}
-
-// Shared memory above the default 48 KB must be opted into per kernel.
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 // Bytes of the scratch table_bwd takes: one table per (image, roi).

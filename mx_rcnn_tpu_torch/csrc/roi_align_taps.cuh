@@ -1,6 +1,8 @@
-// Bilinear sample taps and float4 arithmetic shared by the ROIAlign kernels
-// (roi_align.cu: kernels 2 and 3; roi_align_stream.cu: kernels 4 and 5), so
-// every kernel puts its samples at bit-identical positions.
+// Bilinear sample taps, the two tap rules and float4 arithmetic shared by
+// the ROIAlign kernels (roi_align.cu: kernels 2 and 3; roi_align_stream.cu:
+// kernels 4 and 5; the forward template roi_align_fwd.cuh and the backward's
+// roi_align_table.cuh), so every kernel puts its samples at bit-identical
+// positions.
 //
 // A roi edge c1 (scaled to the map) and a bin size give sample k of an axis
 // at c1 + (k + 0.5) / s * bin, clamped to [0, lim - 1]; its lower tap is the
@@ -43,6 +45,68 @@ __device__ __forceinline__ float4 scale4(float4 a, float k) {
 __device__ __forceinline__ float4 lerp4(float4 a, float wa, float4 b, float wb) {
   return make_float4(a.x * wa + b.x * wb, a.y * wa + b.y * wb,
                      a.z * wa + b.z * wb, a.w * wa + b.w * wb);
+}
+
+constexpr int kLanes = 32;  // float4 lanes: one warp spans 128 channels
+
+struct Roi {
+  float x1, y1, x2, y2;
+};
+
+__device__ __forceinline__ Roi scaled_roi(const float* __restrict__ rois, int b,
+                                          int r, int r_count, float scale) {
+  const float* roi = rois + ((size_t)b * r_count + r) * 4;
+  return Roi{roi[0] * scale, roi[1] * scale, roi[2] * scale, roi[3] * scale};
+}
+
+// The clamp limits of image b: the canvas (valid_hw == NULL) or
+// min(ceil(valid * scale), extent), the gather path's _feat_limits.
+__device__ __forceinline__ void tap_limits(const float* __restrict__ valid_hw, int b,
+                                           float scale, int h, int w, float* lim_hf,
+                                           float* lim_wf) {
+  *lim_hf = (float)h;
+  *lim_wf = (float)w;
+  if (valid_hw != nullptr) {
+    *lim_hf = fminf(ceilf(valid_hw[b * 2 + 0] * scale), (float)h);
+    *lim_wf = fminf(ceilf(valid_hw[b * 2 + 1] * scale), (float)w);
+  }
+}
+
+// The roi's x taps xt[pw * s] and y taps yt[ph * s], into shared memory
+// (the caller syncs); samples clamp to [0, lim - 1].
+__device__ __forceinline__ void roi_taps(const Roi& q, float lim_hf, float lim_wf, int h,
+                                         int w, int ph_count, int pw_count, int s, Tap* xt,
+                                         Tap* yt, int tid, int nthreads) {
+  const float bin_w = fmaxf(q.x2 - q.x1, 1.0f) / (float)pw_count;
+  const float bin_h = fmaxf(q.y2 - q.y1, 1.0f) / (float)ph_count;
+  const int nx = pw_count * s, ny = ph_count * s;
+  for (int t = tid; t < nx + ny; t += nthreads) {
+    if (t < nx) {
+      xt[t] = sample_tap(q.x1, bin_w, t, s, lim_wf, (int)lim_wf, w);
+    } else {
+      yt[t - nx] = sample_tap(q.y1, bin_h, t - nx, s, lim_hf, (int)lim_hf, h);
+    }
+  }
+}
+
+// The tap rules, as types, so that a profile names the kernel of each rule.
+// Kernels 4 and 5's: canvas clamp, an inverted roi (scaled x2 < x1) pools to
+// zeros and adds nothing.
+struct StreamTaps {
+  static constexpr bool kResident = false;
+};
+// Kernels 2 and 3's: the valid_hw clamp when given, every roi taps (width
+// and height floored at 1).
+struct ResidentTaps {
+  static constexpr bool kResident = true;
+};
+
+// Shared memory above the default 48 KB must be opted into per kernel.
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 }  // namespace

@@ -2,10 +2,11 @@
 ``mx_rcnn_tpu/ops/roi_align.py`` and of ``ops/pallas/roi_align.py``).
 
 :func:`roi_align` is the batched, differentiable forward: CUDA tensors go
-through :class:`RoIAlignFunction`, whose forward launches kernel 2 and whose
-backward launches kernel 3 (both in ``csrc/roi_align.cu``; the backward is
-deterministic, and takes a scratch for its per-roi tables,
-:func:`bwd_scratch`); CPU tensors run
+through :class:`RoIAlignFunction`, whose forward launches kernel 2 (the
+template of ``csrc/roi_align_fwd.cuh`` under the resident tap rule, any
+sample ratio and pooled size) and whose backward launches kernel 3 (both
+exported by ``csrc/roi_align.cu``; the backward is deterministic, and takes
+a scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_plain`, which torch autograd differentiates.  With
 ``valid_hw`` the samples clamp to the valid feature extent (the gather path
 ``roi_align`` of the JAX package, which the eval forward takes); without it
@@ -40,9 +41,6 @@ _IN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
 library = CudaLibrary("roi_align.cu")
 kernel = CudaKernel(library, "roi_align_fwd", _IN_ARGS + (ctypes.c_void_p,) * 2)
 bwd_kernel = CudaKernel(library, "roi_align_bwd", _IN_ARGS + (ctypes.c_void_p,) * 3)
-
-# sample ratios kernel 2 is built for
-MAX_SAMPLE_RATIO = 4
 
 
 def table_scratch(lib: CudaLibrary, function: str, b, h, w, r, pooled, sample_ratio, device):
@@ -191,10 +189,10 @@ def _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
     feat = kernel_input("feat", feat, torch.float32, 4)
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat.shape
-    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or not 1 <= sample_ratio <= MAX_SAMPLE_RATIO:
+    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or sample_ratio < 1:
         raise ValueError(
             f"feat {tuple(feat.shape)} (C % 4 == 0) / rois {tuple(rois.shape)} / "
-            f"sample_ratio {sample_ratio} (1..{MAX_SAMPLE_RATIO})"
+            f"sample_ratio {sample_ratio} (>= 1)"
         )
     valid_hw = _kernel_valid_hw(valid_hw, b)
     r = rois.shape[1]

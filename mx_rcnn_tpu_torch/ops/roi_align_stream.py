@@ -6,12 +6,13 @@ train step; ``ops/roi_align.py::extract_roi_features_batched``).
 It is :func:`~mx_rcnn_tpu_torch.ops.roi_align.roi_align_plain` clamped to the
 canvas, with one rule of its own: a roi whose scaled ``x2 < x1`` (the TPU
 kernels' filler) pools to zeros and gets no gradient.  CUDA tensors go
-through :class:`RoIAlignStreamFunction`, whose forward launches kernel 4 and
-whose backward launches kernel 5 (both in ``csrc/roi_align_stream.cu``; the
-backward is deterministic, and takes a scratch for its per-roi tables,
-:func:`bwd_scratch`); CPU tensors run :func:`roi_align_stream_plain`,
-which torch autograd differentiates, and :func:`roi_align_stream_bwd_plain`
-is the backward's plain version.
+through :class:`RoIAlignStreamFunction`, whose forward launches kernel 4 (the
+template of ``csrc/roi_align_fwd.cuh`` under the streamed tap rule, kernel
+2's code) and whose backward launches kernel 5 (both exported by
+``csrc/roi_align_stream.cu``; the backward is deterministic, and takes a
+scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
+:func:`roi_align_stream_plain`, which torch autograd differentiates, and
+:func:`roi_align_stream_bwd_plain` is the backward's plain version.
 """
 
 from __future__ import annotations
@@ -43,9 +44,6 @@ bwd_kernel = CudaKernel(
     library, "roi_align_stream_bwd",
     (ctypes.c_void_p, ctypes.c_void_p) + _SHAPE_ARGS + (ctypes.c_void_p,) * 3,
 )
-
-# kernel 4 gives each of its 8 warps at most 4 output columns
-MAX_POOLED_W = 32
 
 
 def valid_rois(rois: torch.Tensor, spatial_scale: float) -> torch.Tensor:
@@ -98,10 +96,10 @@ def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat.shape
     ph, pw = pooled
-    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or pw > MAX_POOLED_W:
+    if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or sample_ratio < 1:
         raise ValueError(
             f"feat {tuple(feat.shape)} (C % 4 == 0) / rois {tuple(rois.shape)} / "
-            f"pooled {tuple(pooled)} (width <= {MAX_POOLED_W})"
+            f"sample_ratio {sample_ratio} (>= 1)"
         )
     r = rois.shape[1]
     out = torch.empty((b, r, ph, pw, c), dtype=torch.float32, device=feat.device)

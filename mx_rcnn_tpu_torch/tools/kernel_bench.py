@@ -1,7 +1,7 @@
 """Time the hand-written kernels on the card, CUDA kernel by CUDA kernel, on
 seeded synthetic inputs at the train and serving shapes: NMS (kernel 1), the
 resident ROIAlign forward and backward (kernels 2 and 3) and the streamed
-ones (kernels 4 and 5).
+ones (kernels 4 and 5), and kernel 2 on kernel 4's tensors.
 
     python -m mx_rcnn_tpu_torch.tools.kernel_bench
 
@@ -17,15 +17,20 @@ the same boxes with every row invalid, which leaves pass 1 whole and pass 2
 no survivor to carry; for kernel 2 a store-only kernel of the same output
 bytes (the card's practical floor for the function; it runs on no path);
 for kernel 3 the wrapper launched eagerly as well.  The ptxas lines
-(registers, spills) of every library come first; the last line is one JSON
-object of every number.
+(registers, spills) of every library come first, then a digest of each
+kernel's SASS (``cuobjdump``: equal digests in two checkouts mean the
+same machine code); the last line is one JSON object of every number.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -224,6 +229,26 @@ def ptxas_lines(lib) -> list:
             if "Used" in line or "spill" in line or "Compiling entry" in line]
 
 
+def sass_digests(lib) -> dict:
+    """{kernel's mangled name past its file's anonymous namespace: "sha256
+    prefix of its SASS instructions, N instructions"} from ``cuobjdump``
+    (empty where the toolkit lacks it): two checkouts' digests of a kernel
+    are equal when its machine code is."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    dump = subprocess.run([tool, "-sass", str(lib.library_path())], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", dump)[1:]:
+        name, body = func.split("\n", 1)
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", name.strip())
+        ins = [m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s*([^;]*?)\s*;", body)]
+        digest = hashlib.sha256("\n".join(" ".join(i.split()) for i in ins).encode()).hexdigest()
+        out[name] = f"{digest[:12]}, {len(ins)} instructions"
+    return out
+
+
 def roi_fwd_bench(label, shape, rois, valid_hw, scale, reps, dev) -> dict:
     """Kernel 2 at one case: the wrapper, and the store floor of its output
     bytes."""
@@ -275,6 +300,20 @@ def roi_bwd_bench(label, shape, rois, valid_hw, scale, reps, dev) -> dict:
     return res
 
 
+def stream_fwd_bench(label, feat, rois, scale, reps) -> dict:
+    """Kernel 4 at one case: the wrapper, and kernel 2's wrapper on the same
+    tensors (the resident tap rule: no zeros for the inverted rois, so its
+    output is not compared)."""
+    fwd = lambda: stream_mod._roi_align_stream_cuda(feat, rois, (14, 14), scale, 2)  # noqa: E731
+    res = {"ms": graph_ms(fwd, reps), "kernels_ms": kernel_ms(fwd)}
+    resident = lambda: roi_mod.roi_align(feat, rois, (14, 14), scale, 2)  # noqa: E731
+    res["resident_kernel2_ms"] = graph_ms(resident, reps)
+    print(f"  roi_align_stream_fwd {label}: {res['ms']:.4f} ms (graph); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items())
+          + f"; kernel 2 on the same tensors {res['resident_kernel2_ms']:.4f}", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="calls in each timed CUDA graph")
@@ -287,13 +326,16 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[card] {smi} | package {nms_mod.__file__}", flush=True)
-    result = {"card": smi, "package": nms_mod.__file__, "ptxas": {}, "nms": {}, "roi_fwd": {},
-              "roi_bwd": {}, "stream_fwd": {}, "stream_bwd": {}}
+    result = {"card": smi, "package": nms_mod.__file__, "ptxas": {}, "sass": {}, "nms": {},
+              "roi_fwd": {}, "roi_bwd": {}, "stream_fwd": {}, "stream_bwd": {}}
     for lib in (nms_mod.library, roi_mod.library, stream_mod.library):
         lib.lib()
         result["ptxas"][lib.source.name] = ptxas_lines(lib)
         for line in result["ptxas"][lib.source.name]:
             print(f"  {lib.source.name}: {line}", flush=True)
+        result["sass"][lib.source.name] = sass_digests(lib)
+        for name, digest in result["sass"][lib.source.name].items():
+            print(f"  {lib.source.name} SASS {name[:90]}: {digest}", flush=True)
     rng = np.random.RandomState(args.seed)
     for label, boxes, valid, thresh, max_keep in nms_cases(rng, dev):
         call = lambda: nms_mod.nms_mask_sorted(boxes, valid, thresh, max_keep)  # noqa: E731
@@ -310,11 +352,7 @@ def main(argv=None) -> int:
                                                      args.reps, dev)
     for label, g, rois, shape, scale in stream_cases(rng, dev):
         feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
-        fwd = lambda: stream_mod._roi_align_stream_cuda(feat, rois, (14, 14), scale, 2)  # noqa: E731
-        ms, per = graph_ms(fwd, args.reps), kernel_ms(fwd)
-        result["stream_fwd"][label] = {"ms": ms, "kernels_ms": per}
-        print(f"  roi_align_stream_fwd {label}: {ms:.4f} ms (graph); "
-              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+        result["stream_fwd"][label] = stream_fwd_bench(label, feat, rois, scale, args.reps)
         call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, (14, 14), scale, 2)  # noqa: E731
         ms = graph_ms(call, args.reps)
         per = kernel_ms(call)

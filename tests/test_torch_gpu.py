@@ -389,3 +389,79 @@ def test_roi_align_stream_bwd_kernel_writes_every_element(card):
     ref = tstream.roi_align_stream_bwd_plain(g, rois, (b, h, w, c), pooled, 0.25, 2)
     mag = tstream.roi_align_stream_bwd_plain(g.abs(), rois, (b, h, w, c), pooled, 0.25, 2)
     assert float(((dfeat - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("pooled", [(7, 7), (14, 14), (7, 40)])
+def test_roi_align_stream_kernel_is_exact(card, pooled):
+    """Kernel 4 (the forward template under the streamed tap rule) against
+    its plain version, bit for bit: max |Δ| = 0 (the kernel adds in the
+    plain version's order), at a pooled width past the old limit of 32 too.
+    The rois include the whole canvas, sub-cell, past the border,
+    degenerate, inverted and off the map; the inverted ones come back
+    exactly zero."""
+    rng = np.random.RandomState(14)
+    b, h, w, c = 2, 45, 61, 260
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card)
+    rois = _stream_rois(rng, b, 40, h, w, 0.25).to(card)
+    before = tstream.fwd_kernel.launches
+    got = tstream.roi_align_stream(feat, rois, pooled, 0.25, 2)
+    assert tstream.fwd_kernel.launches == before + 1
+    ref = tstream.roi_align_stream_plain(feat, rois, pooled, 0.25, 2)
+    assert float((got - ref).abs().max()) == 0.0
+    inverted = ~tstream.valid_rois(rois, 0.25)
+    assert int(inverted.sum()) == 2
+    assert torch.equal(got[inverted], torch.zeros_like(got[inverted]))
+
+
+@pytest.mark.parametrize("s", [5, 6])
+@pytest.mark.parametrize("kernel", ["2, canvas", "2, valid_hw", "4"])
+def test_roi_align_forward_kernels_at_large_sample_ratios(card, kernel, s):
+    """Kernels 2 (with and without valid_hw) and 4 at s > 4, the forward
+    template's run-time instance, against their plain versions: max |Δ| ≤
+    1e-5."""
+    rng = np.random.RandomState(15)
+    b, h, w, c = 2, 30, 40, 260
+    feat = torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(card)
+    if kernel == "4":
+        rois = _stream_rois(rng, b, 24, h, w, 0.25).to(card)
+        got = tstream.roi_align_stream(feat, rois, (7, 7), 0.25, s)
+        ref = tstream.roi_align_stream_plain(feat, rois, (7, 7), 0.25, s)
+        assert not got[~tstream.valid_rois(rois, 0.25)].any()
+    else:
+        rois = _edge_rois(rng, b, 24, h * 16.0, w * 16.0).to(card)
+        valid_hw = torch.tensor([[300.0, 500.0], [h * 16.0, 150.0]], device=card) \
+            if kernel == "2, valid_hw" else None
+        got = troi.roi_align(feat, rois, (7, 7), 1.0 / 16, s, valid_hw)
+        ref = troi.roi_align_plain(feat, rois, (7, 7), 1.0 / 16, s, valid_hw)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kernel", [3, 5])
+def test_roi_align_backward_kernels_at_s5(card, kernel):
+    """Kernels 3 and 5 (their tables take any s) at s = 5 against the plain
+    scatter-add, |Δ| ≤ 1e-4 · max(1, Σ|terms|), and bit-identical across
+    two launches."""
+    rng = np.random.RandomState(16)
+    b, h, w, c, pooled = 2, 30, 40, 260, (7, 7)
+    if kernel == 3:
+        rois = _edge_rois(rng, b, 24, h * 16.0, w * 16.0).to(card)
+        run = lambda g: troi._roi_align_bwd_cuda(g, rois, (b, h, w, c), pooled, 1.0 / 16, 5, None)  # noqa: E731
+        plain = lambda g: troi.roi_align_bwd_plain(g, rois, (b, h, w, c), pooled, 1.0 / 16, 5)  # noqa: E731
+    else:
+        rois = _stream_rois(rng, b, 24, h, w, 0.25).to(card)
+        run = lambda g: tstream._roi_align_stream_bwd_cuda(g, rois, (b, h, w, c), pooled, 0.25, 5)  # noqa: E731
+        plain = lambda g: tstream.roi_align_stream_bwd_plain(g, rois, (b, h, w, c), pooled, 0.25, 5)  # noqa: E731
+    g = torch.from_numpy(rng.randn(b, 24, *pooled, c).astype(np.float32)).to(card)
+    got, again = run(g), run(g)
+    ref, mag = plain(g), plain(g.abs())
+    assert float(((got - ref).abs() / mag.clamp_min(1.0)).max()) <= 1e-4
+    assert torch.equal(got, again)
+
+
+def test_roi_align_forward_kernels_refuse_a_zero_sample_ratio(card):
+    feat = torch.zeros((1, 4, 4, 8), device=card)
+    rois = torch.zeros((1, 2, 4), device=card)
+    with pytest.raises(ValueError):
+        troi.roi_align(feat, rois, (7, 7), 1.0 / 16, 0)
+    with pytest.raises(ValueError):
+        tstream.roi_align_stream(feat, rois, (7, 7), 0.25, 0)
