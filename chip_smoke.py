@@ -47,7 +47,9 @@
    request runs on the card and on the CPU (plain versions) and the two
    must agree;
 6. trains the same model (full width, BATCH_ROIS 128, 12000 → 2000
-   proposals) for 10 steps through ``core/fit.py::fit`` on 8 synthetic
+   proposals) for 10 steps through ``core/fit.py::fit`` (its defaults: a
+   prefetching loader, the device feed on a copy stream, every step under
+   the divergence guard) on 8 synthetic
    480 × 640 images (600 × 800 in the 608 × 1024 bucket: a 38 × 64 × 1024
    feature map), then ResNet-50 FPN (``generate_config("resnet_fpn",
    "PascalVOC")``: P2..P6, 12000 → 2000 proposals from the levels' top-k
@@ -66,7 +68,19 @@
    (forward / backward / optimizer, device time by layer); one small step
    of each (128 × 128) runs on the card and on the CPU with the same weights
    and sampling draws, and the two must agree;
-7. times each kernel on captured tensors: NMS and kernel 2 at the serving
+7. ``[pipeline]``: from each path's calibrated weights, 10 steps of ``fit``
+   in each of three loop settings, serial (no prefetch, no pool, feed depth
+   1, aux every step), ``fit``'s defaults (prefetch 2, feed depth 2) and the
+   card CLI's (aux every 8 steps, an assembly pool of N workers chosen from
+   the host's cores), and the serial one again, under cuDNN's deterministic
+   mode: the batch digests, the losses and the final parameters must be
+   identical, and the kernels must launch their count per dispatched step;
+   FPN then runs with ``MX_RCNN_FAULTS=nan_loss@5`` at aux_interval 4 and
+   1: one batch skipped, one window rollback, and the same final parameters.
+   Printed: loop images/s, the step thread's wait for a batch, feed and
+   pool occupancy, the aux sink's fetches and stalls, the guard snapshot's
+   cost, host syncs in one step (``set_sync_debug_mode``) and nproc;
+8. times each kernel on captured tensors: NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
@@ -74,7 +88,7 @@
    from a CUDA graph of the wrapper (``ms``), the eager wrapper
    (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
    bound for the work this data needs;
-8. prints one JSON line with each kernel's launches, max error, times and
+9. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -88,24 +102,29 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
-from mx_rcnn_tpu_torch.core.fit import batch_to_device, fit
+from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.core.metrics import METRIC_NAMES
+from mx_rcnn_tpu_torch.core.pipeline import PipelinedLoop, batch_to_device
 from mx_rcnn_tpu_torch.core.tester import Predictor
 from mx_rcnn_tpu_torch.core.train import (
+    create_train_state,
     is_frozen_path,
     make_lr_schedule,
     make_optimizer,
-    make_train_step,
+    train_step,
 )
 from mx_rcnn_tpu_torch.data.loader import _orientation_bucket, make_batch
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
@@ -119,6 +138,7 @@ from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve.runner import detect_single, prepare_request
 from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
+from mx_rcnn_tpu_torch.utils import faults
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -936,10 +956,12 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
 
 
 def train_path(cfg, dev, groups, per_step):
-    """TRAIN_STEPS steps of ``fit`` at full width on synthetic records;
-    each kernel must launch ``per_step`` times a step.  Returns the captured
-    kernel inputs, the launch counts of the run, the model, the roidb and
-    the step statistics."""
+    """TRAIN_STEPS steps of ``fit`` (its defaults: a prefetch thread, a
+    device feed of depth 2, the aux checked every step) at full width on
+    synthetic records; each kernel must launch ``per_step`` times a step
+    dispatched.  Returns the captured kernel inputs, the launch counts of
+    the run, the model, the roidb, the step statistics and the calibrated
+    weights the run started from (on the host)."""
     roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
     model = make_model(cfg)
     calibrate_bn(model, train_batch(cfg, roidb, 0, dev))
@@ -952,10 +974,13 @@ def train_path(cfg, dev, groups, per_step):
         out = fit(model, cfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS,
                   frequent=TRAIN_STEPS, device=dev)
     launches = read_launches()
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-    log(f"  launches in the train path: {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"the train path's kernel launches {launches} are not {want}")
+    want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
+    log(f"  launches in the train path: {launches} (expected {want}, {out['dispatched_steps']} "
+        f"steps dispatched); pipeline {out['pipeline']}")
+    if launches != want or out["dispatched_steps"] != TRAIN_STEPS:
+        raise AssertionError(f"the train path dispatched {out['dispatched_steps']} steps (not "
+                             f"{TRAIN_STEPS}: a step was retried) or launched {launches}, "
+                             f"not {want}")
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     captured_mib = sum(t.numel() * t.element_size()
                        for c in (cap.roi, cap.roi_bwd, cap.stream, cap.stream_bwd)
@@ -969,7 +994,7 @@ def train_path(cfg, dev, groups, per_step):
             + " ".join(f"{k}={h[k]:.5f}" for k in METRIC_NAMES)
             + f" fg_rois={int(h['num_fg_rois'])} valid_props={int(h['num_valid_props'])}"
             f" fg_anchors={int(h['num_fg_anchors'])} step_ms={h['step_ms']:.3f}"
-            f" load_ms={h['load_ms']:.3f}")
+            f" wait_ms={h['wait_ms']:.3f}")
     bad = sorted({k for h in hist for k in METRIC_NAMES + ("loss",) if not math.isfinite(h[k])})
     if bad:
         raise AssertionError(f"non-finite losses in the train path: {bad}")
@@ -1000,17 +1025,244 @@ def train_path(cfg, dev, groups, per_step):
         "steps": len(hist), "timed_steps": len(timed),
         "step_ms_median": statistics.median(timed), "step_ms": timed,
         "images_per_s": cfg.TRAIN.BATCH_IMAGES * 1e3 / statistics.median(timed),
-        "load_ms_median": statistics.median(h["load_ms"] for h in hist[TRAIN_WARMUP:]),
+        "wait_ms_median": statistics.median(h["wait_ms"] for h in hist[TRAIN_WARMUP:]),
+        "loop_images_per_s": loop_images_per_s(cfg, out),
         "first_step_ms": hist[0]["step_ms"],
         "peak_mib": peak_mib, "captured_mib": captured_mib,
     }
-    log(f"  train step (host batch to metrics on the host, {len(timed)} steps after "
-        f"{TRAIN_WARMUP} warm-up): median {stats['step_ms_median']:.3f} ms, "
-        f"{stats['images_per_s']:.3f} images/s; host batch assembly median "
-        f"{stats['load_ms_median']:.3f} ms; first step {stats['first_step_ms']:.3f} ms")
+    log(f"  train step (batch in hand to metrics on the host, guard snapshot included, "
+        f"{len(timed)} steps after {TRAIN_WARMUP} warm-up): median "
+        f"{stats['step_ms_median']:.3f} ms ({stats['images_per_s']:.3f} images/s); the step "
+        f"thread's wait for a batch, median {stats['wait_ms_median']:.3f} ms; loop "
+        f"{stats['loop_images_per_s']:.3f} images/s; first step {stats['first_step_ms']:.3f} ms")
     log(f"  max_memory_allocated: {peak_mib:.1f} MiB (of which {captured_mib:.1f} MiB are "
         f"this script's copies of kernel inputs)")
-    return cap, launches, model, roidb, stats
+    return cap, launches, model, roidb, stats, before
+
+
+def loop_images_per_s(cfg, out) -> float:
+    """Images over the steps after TRAIN_WARMUP, by the host clock from the
+    request of the first timed batch to the end of ``fit`` (after its last
+    flush and a synchronisation)."""
+    clock = out["clock"]
+    n = len(clock["step_start"]) - TRAIN_WARMUP
+    return cfg.TRAIN.BATCH_IMAGES * n / (clock["end"] - clock["step_start"][TRAIN_WARMUP])
+
+
+# ---------------------------------------------------------- pipeline phase
+def assembly_workers_for(nproc: int) -> int:
+    """The card CLI run's assembly pool: half the host's cores, at most 4
+    (the step's own thread and the feed's take two more)."""
+    return max(1, min(4, nproc // 2))
+
+
+def pipeline_settings(workers: int):
+    """The [pipeline] phase's three loop settings, as ``fit`` knobs."""
+    return (
+        ("serial", {"prefetch": 0, "assembly_workers": 0, "feed_depth": 1, "aux_interval": 1}),
+        ("fit defaults", {"prefetch": 2, "assembly_workers": 0, "feed_depth": 2,
+                          "aux_interval": 1}),
+        ("card CLI defaults", {"prefetch": 2, "assembly_workers": workers, "feed_depth": 2,
+                               "aux_interval": 8}),
+    )
+
+
+def _summed(stats_list):
+    out = {}
+    for st in stats_list:
+        for k, v in st.items():
+            if isinstance(v, (int, float)) and k not in ("occupancy", "depth", "workers"):
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def pipeline_run(model, weights, cfg, roidb, dev, per_step, knobs, tmp, label):
+    """``fit`` for TRAIN_STEPS steps from ``weights`` with ``knobs``; the
+    kernels must launch ``per_step`` times each dispatched step (replays and
+    retries included).  Returns the digests, stream indices, losses, final
+    parameters and the loop's figures."""
+    model.load_state_dict(weights)
+    log_path = os.path.join(tmp, f"{label.replace(' ', '_')}.log")
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fit(model, cfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS, frequent=TRAIN_STEPS,
+              device=dev, stream_log=log_path, **knobs)
+    launches = read_launches()
+    want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} are not {want} "
+                             f"({out['dispatched_steps']} steps dispatched)")
+    with open(log_path) as f:
+        digests = [line.split()[2] for line in f]
+    hist = out["history"]
+    timed = [h for h in hist if h["index"] >= TRAIN_WARMUP]
+    feed, pool = _summed(out["feed"]), out["loader"].get("assembly", {})
+    pipe = out["pipeline"]
+    fig = {
+        "images_per_s": loop_images_per_s(cfg, out),
+        "wait_ms_median": statistics.median(h["wait_ms"] for h in timed),
+        "wait_ms_mean": statistics.fmean(h["wait_ms"] for h in timed),
+        "feed_occupancy": feed["staged_hits"] / feed["fed"],
+        "feed_starved_after_first": feed["feed_starved_after_first"],
+        "pool_occupancy": pool["ready_hits"] / pool["yielded"] if pool else None,
+        "pool_starved_after_first": pool.get("starved_after_first"),
+        "pool_wait_s": pool.get("wait_s"),
+        "fetches": pipe["fetches"], "fetch_stalls": pipe["fetch_stalls"],
+        "fetch_stall_ms": pipe["fetch_stall_ms"], "dispatched_steps": out["dispatched_steps"],
+    }
+    if knobs["aux_interval"] <= 1:
+        fig["step_ms_median"] = statistics.median(h["step_ms"] for h in timed)
+    starts = out["clock"]["step_start"] + [out["clock"]["end"]]
+    fig["interval_ms"] = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    fig["wait_ms"] = [h["wait_ms"] for h in hist]
+    log(f"  {label} {knobs}: {fig['images_per_s']:.3f} images/s over {len(timed)} steps; "
+        f"wait for a batch median {fig['wait_ms_median']:.3f} ms (mean "
+        f"{fig['wait_ms_mean']:.3f}); feed occupancy {fig['feed_occupancy']:.3f} "
+        f"({fig['feed_starved_after_first']} starved after the first); pool occupancy "
+        f"{fig['pool_occupancy']}; sink {fig['fetches']} fetches, {fig['fetch_stalls']} stalls "
+        f"({fig['fetch_stall_ms']} ms); launches {launches}; pipeline {pipe}; ms from each "
+        f"batch request to the next (the last to the end) {[round(t, 1) for t in fig['interval_ms']]}"
+        f"; waits {[round(t, 1) for t in fig['wait_ms']]}")
+    return {"digests": digests, "index": [h["index"] for h in hist],
+            "losses": [h["loss"] for h in hist], "pipeline": pipe,
+            "params": [p.detach().clone() for p in model.parameters()], "fig": fig}
+
+
+def training_diff(a, b):
+    """(same batches, same losses, same parameters bit for bit, the
+    largest parameter difference)."""
+    worst = max(float((x - y).abs().max()) for x, y in zip(a["params"], b["params"]))
+    return (a["digests"] == b["digests"], a["index"] == b["index"] and a["losses"] == b["losses"],
+            worst == 0.0 and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])),
+            worst)
+
+
+def snapshot_cost(model, weights, cfg, roidb, dev):
+    """The guard's snapshot of a full-width train state on the card: device
+    time of ``TrainState.snapshot`` into reused buffers and of ``restore``
+    (CUDA events over 20 calls), the host's time to issue one, the bytes
+    copied and their bound (read once, written once, at HBM rate)."""
+    model.load_state_dict(weights)
+    state = create_train_state(model, make_optimizer(cfg, model, make_lr_schedule(cfg, 8)))
+    train_step(state, train_batch(cfg, roidb, 0, dev), 7)  # momentum buffers exist
+    snap = state.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        state.snapshot(snap)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    ms = cuda_ms(lambda: state.snapshot(snap), reps=20)
+    restore_ms = cuda_ms(snap.restore, reps=20)
+    nbytes = sum(t.numel() * t.element_size() for t in snap.params + snap.momenta if t is not None)
+    out = {"snapshot_ms": ms, "restore_ms": restore_ms, "issue_host_ms": host_ms,
+           "mib": nbytes / 2**20, "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+           "tensors": len(snap.params)}
+    log(f"  snapshot of {out['tensors']} trainable tensors + momentum ({out['mib']:.1f} MiB): "
+        f"{ms:.4f} ms on the card (bound {out['bound_ms']:.4f}), restore {restore_ms:.4f} ms, "
+        f"{host_ms:.4f} ms of host time to issue")
+    return out
+
+
+def host_syncs_per_step(model, weights, cfg, roidb, dev, k):
+    """Host synchronisations in one ``PipelinedLoop.step`` at ``aux_interval``
+    k (a mid-window step when k > 1), counted with
+    ``torch.cuda.set_sync_debug_mode("warn")``, and their source lines."""
+    model.load_state_dict(weights)
+    state = create_train_state(model, make_optimizer(cfg, model, make_lr_schedule(cfg, 8)))
+    loop = PipelinedLoop(train_step, aux_interval=k)
+    batches = [train_batch(cfg, roidb, i, dev) for i in range(2)]
+    loop.step(state, batches[0], 7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loop.step(state, batches[1], 7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    lines = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            lines[where] = lines.get(where, 0) + 1
+    return sum(lines.values()), lines
+
+
+PIPELINE_IMAGES = 16
+
+
+def pipeline_phase(name, cfg, weights, dev, per_step, workers):
+    """The [pipeline] phase for one path: the serial, fit-default and card
+    CLI-default loops from the same calibrated weights (and the serial loop
+    once more, the run-to-run reference) on the same batches, then the
+    card-side recovery check on FPN.  Gates: identical digests, launches per
+    dispatched step, and identical losses and parameters across the runs.
+    The runs draw from PIPELINE_IMAGES synthetic records, so their steps lie
+    in one epoch, each image rendered once, as in a long run's epoch (an
+    epoch boundary restarts the feed and the loader's stream)."""
+    roidb = SyntheticDataset(num_images=PIPELINE_IMAGES, image_size=(480, 640)).gt_roidb()
+    model = make_model(cfg)
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {label: pipeline_run(model, weights, cfg, roidb, dev, per_step, knobs, tmp, label)
+                for label, knobs in pipeline_settings(workers)}
+        runs["serial again"] = pipeline_run(model, weights, cfg, roidb, dev, per_step,
+                                            pipeline_settings(workers)[0][1], tmp, "serial again")
+        ref = runs["serial"]
+        for label, run in runs.items():
+            same_batches, same_losses, same_params, worst = training_diff(ref, run)
+            log(f"  {name} {label} vs serial: same digests {same_batches}, same losses "
+                f"{same_losses}, parameters bit-identical {same_params} (max |d| {worst:.3g})")
+            if not (same_batches and same_losses and same_params):
+                raise AssertionError(f"{name}: the {label} loop did not train as the serial one")
+            figures[label] = run["fig"]
+        if name == "FPN":
+            figures["recovery"] = recovery_check(model, weights, cfg, roidb, dev, per_step, tmp)
+    figures["snapshot"] = snapshot_cost(model, weights, cfg, roidb, dev)
+    figures["host_syncs"] = {}
+    for k in (1, 8):
+        n, lines = host_syncs_per_step(model, weights, cfg, roidb, dev, k)
+        top = sorted(lines.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  host syncs in one step at aux_interval {k}: {n}; by line {top}")
+        figures["host_syncs"][k] = {"count": n, "top": top}
+    return figures
+
+
+def recovery_check(model, weights, cfg, roidb, dev, per_step, tmp):
+    """``nan_loss@5`` on the card: caught 4 steps late (aux_interval 4), the
+    window rolled back and step 4 replayed, step 5 retried and skipped,
+    steps 6 and 7 dispatched again; the run must end with the parameters of
+    the guarded aux_interval 1 run under the same fault, and the launches
+    must count every replayed and retried step.  The fault is cleared after,
+    so no later phase sees it."""
+    knobs = {"prefetch": 2, "assembly_workers": 0, "feed_depth": 2}
+    os.environ["MX_RCNN_FAULTS"] = "nan_loss@5"
+    try:
+        faults.reset()
+        late = pipeline_run(model, weights, cfg, roidb, dev, per_step,
+                            {**knobs, "aux_interval": 4}, tmp, "nan_loss@5 K=4")
+        faults.reset()
+        guarded = pipeline_run(model, weights, cfg, roidb, dev, per_step,
+                               {**knobs, "aux_interval": 1}, tmp, "nan_loss@5 K=1")
+    finally:
+        del os.environ["MX_RCNN_FAULTS"]
+        faults.reset()
+    want_index = [i for i in range(TRAIN_STEPS) if i != 5]
+    same_batches, same_losses, same_params, worst = training_diff(guarded, late)
+    p = late["pipeline"]
+    log(f"  nan_loss@5 at K=4: ready indices {late['index']}, skipped {p['skipped_batches']}, "
+        f"window rollbacks {p['window_rollbacks']}, replayed {p['replayed_steps']}, retried "
+        f"{p['retried_steps']}, dispatched {late['fig']['dispatched_steps']} (K=1: "
+        f"{guarded['fig']['dispatched_steps']}); vs the guarded K=1 run: same digests "
+        f"{same_batches}, same losses {same_losses}, parameters bit-identical {same_params} "
+        f"(max |d| {worst:.3g})")
+    if (p["skipped_batches"] != 1 or p["window_rollbacks"] != 1 or late["index"] != want_index
+            or guarded["index"] != want_index or not (same_batches and same_losses and same_params)
+            or late["fig"]["dispatched_steps"] != TRAIN_STEPS + 6
+            or guarded["fig"]["dispatched_steps"] != TRAIN_STEPS + 2):
+        raise AssertionError("the card-side recovery from nan_loss@5 failed its checks")
+    return {"K4": p, "K1": guarded["pipeline"], "dispatched": {
+        "K4": late["fig"]["dispatched_steps"], "K1": guarded["fig"]["dispatched_steps"]}}
 
 
 def _train_layer_of(kernel_name: str) -> str:
@@ -1049,9 +1301,8 @@ def profile_train_step(model, cfg, roidb, dev):
     torch.profiler with a sync after it: its wall time, its device busy
     time and the device time by layer."""
     opt = make_optimizer(cfg, model, make_lr_schedule(cfg, len(roidb)))
-    step = make_train_step(model, opt, rng=99)
     batch = train_batch(cfg, roidb, 0, dev)
-    step(batch)
+    train_step(create_train_state(model, opt), batch, 99)
     torch.cuda.synchronize()
 
     def forward():
@@ -1416,7 +1667,7 @@ def main() -> int:
     log(f"[train] ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, BATCH_IMAGES "
         f"{t.BATCH_IMAGES}, BATCH_ROIS {t.BATCH_ROIS}, {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} "
         f"proposals, {TRAIN_STEPS} steps of fit on synthetic 480x640 images")
-    train_cap, launches, model, roidb, train_stats = train_path(
+    train_cap, launches, model, roidb, train_stats, c4_weights = train_path(
         cfg, dev, TRAINED_GROUPS, C4_LAUNCHES_PER_STEP)
     log("[train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff, stream_diff))
@@ -1430,13 +1681,32 @@ def main() -> int:
         f"{fn.FPN_FEAT_STRIDES}, pooled {fn.POOLED_SIZE}), {fcfg.dataset.NUM_CLASSES} classes, "
         f"BATCH_ROIS {ft.BATCH_ROIS}, {ft.RPN_PRE_NMS_TOP_N}->{ft.RPN_POST_NMS_TOP_N} proposals, "
         f"{TRAIN_STEPS} steps of fit on synthetic 480x640 images")
-    fpn_cap, fpn_launches, fpn_model, fpn_roidb, fpn_stats = train_path(
+    fpn_cap, fpn_launches, fpn_model, fpn_roidb, fpn_stats, fpn_weights = train_path(
         fcfg, dev, FPN_TRAINED_GROUPS, FPN_LAUNCHES_PER_STEP)
     log("[fpn train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, fpn_cap, bwd_diff, stream_diff))
     log("[fpn train] full-width gradient vs finite differences of the loss")
     fpn_stats["fd_worst"] = gradient_matches_finite_differences(
         fpn_model, fcfg, fpn_roidb, dev, FPN_TRAINED_GROUPS)
+
+    nproc, affinity = os.cpu_count(), len(os.sched_getaffinity(0))
+    workers = assembly_workers_for(affinity)
+    log(f"[pipeline] nproc {nproc} (this process may run on {affinity}); the card CLI run's "
+        f"assembly workers N = {workers}; cuDNN deterministic, no autotuning; {TRAIN_STEPS} "
+        f"steps a run on {PIPELINE_IMAGES} synthetic 480x640 images, from the calibrated "
+        f"weights each path's [train] run started from")
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        pipeline_stats = {"nproc": nproc, "affinity": affinity, "assembly_workers": workers}
+        log("[pipeline] C4")
+        pipeline_stats["C4"] = pipeline_phase("C4", cfg, c4_weights, dev, C4_LAUNCHES_PER_STEP,
+                                              workers)
+        log("[pipeline] FPN")
+        pipeline_stats["FPN"] = pipeline_phase("FPN", fcfg, fpn_weights, dev,
+                                               FPN_LAUNCHES_PER_STEP, workers)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
 
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
@@ -1483,6 +1753,7 @@ def main() -> int:
 
     log(f"[train] stats {json.dumps(train_stats)}")
     log(f"[fpn train] stats {json.dumps(fpn_stats)}")
+    log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

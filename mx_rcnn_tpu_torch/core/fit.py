@@ -1,13 +1,14 @@
-"""The training loop: loader → train step → metrics (port of the core of
-``mx_rcnn_tpu/core/fit.py``).
-
-Synchronous: the next batch is assembled on the host after the step's
-metrics came back.  Divergence recovery, the device feed, checkpoints and
-resume are not ported yet.
+"""The training loop (port of ``mx_rcnn_tpu/core/fit.py``): a prefetching
+or pooled :class:`TrainLoader` → :class:`DeviceFeed` (batch N+1 copied to
+the card on its own stream while step N runs) → :class:`PipelinedLoop`
+(every step guarded against a NaN or spiking loss, the aux check
+``aux_interval`` steps late) → metrics.  Checkpoints and resume are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
 import time
@@ -19,21 +20,52 @@ from torch import nn
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.metrics import MetricTracker, Speedometer
+from mx_rcnn_tpu_torch.core.pipeline import DeviceFeed, PipelinedLoop, make_place_fn
+from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy, StepWatchdog
 from mx_rcnn_tpu_torch.core.tester import resolve_device
-from mx_rcnn_tpu_torch.core.train import make_lr_schedule, make_optimizer, make_train_step
+from mx_rcnn_tpu_torch.core.train import (
+    create_train_state,
+    make_lr_schedule,
+    make_optimizer,
+    train_step,
+)
 from mx_rcnn_tpu_torch.data.loader import TrainLoader
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
 
 logger = logging.getLogger(__name__)
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
-    """Host batch → device tensors; ``sample_seeds`` stay on the host (they
-    seed the samplers' generators)."""
-    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "sample_seeds"}
-    if "sample_seeds" in batch:
-        out["sample_seeds"] = [int(s) for s in batch["sample_seeds"]]
-    return out
+def batch_digest(batch: Dict[str, np.ndarray]) -> str:
+    """Order-stable sha256 over a host batch's keys and array bytes: one
+    digest line per consumed batch shows that two runs trained on the same
+    data, in order, with no gaps and no repeats."""
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        arr = np.asarray(batch[k])
+        h.update(k.encode())
+        h.update(f"{arr.dtype}{arr.shape}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+class _Digested:
+    """``(digest, batch)`` pairs of a host batch stream (digest None unless
+    asked for: it is taken on the feed's worker, off the step's thread);
+    ``close`` closes the stream."""
+
+    def __init__(self, batches, digest: bool):
+        self._batches = batches
+        self._digest = digest
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._batches)
+        return (batch_digest(batch) if self._digest else None), batch
+
+    def close(self) -> None:
+        self._batches.close()
 
 
 def fit(
@@ -47,47 +79,147 @@ def fit(
     frequent: int = 20,
     device=None,
     init_params: Optional[Dict] = None,
+    guard_policy: Optional[DivergencePolicy] = None,
+    step_timeout: float = 0.0,
+    snapshot_every: int = 1,
+    aux_interval: int = 1,
+    feed_depth: int = 2,
+    prefetch: int = 2,
+    assembly_workers: Optional[int] = None,
+    loader_failure_budget: Optional[int] = None,
+    prefix: Optional[str] = None,
+    resume: bool = False,
+    stream_log: Optional[str] = None,
 ) -> Dict:
     """Train ``model`` in place on ``device`` (default: the card, which must
-    be present) and return ``{"steps": n, "history": [...]}``: one dict per
-    step with the aux metrics, ``loss``, ``load_ms`` (host batch assembly)
-    and ``step_ms`` (host clock from the host batch to the metrics back on
-    the host, so it ends in a synchronisation).
+    be present).  The model starts from its own weights or, with
+    ``init_params``, from a Flax parameter tree (numpy leaves).
 
-    The model starts from its own weights (``init_weights``) or, with
-    ``init_params``, from a Flax parameter tree (numpy leaves)."""
+    Every step runs under a :class:`PipelinedLoop` (``guard_policy``
+    overrides the divergence defaults; ``snapshot_every`` is the guard's
+    snapshot period): a NaN/Inf or spiking loss is retried with LR backoff,
+    then rolled back and the poison batch skipped.  ``step_timeout`` > 0
+    arms a watchdog that aborts a hung step with exit code 75.  Batches come
+    from a :class:`TrainLoader` (``prefetch`` batches ahead on a thread, or
+    ``assembly_workers`` pool workers; None → ``MX_RCNN_ASSEMBLY_WORKERS``;
+    ``loader_failure_budget``) through a :class:`DeviceFeed` of depth
+    ``feed_depth``.  ``aux_interval`` > 1 defers the aux fetch K steps
+    (flushed at each epoch end).  ``stream_log`` appends one ``epoch batch
+    digest`` line per consumed batch.  ``prefix`` and ``resume``
+    (checkpoints) are not ported and raise.
+
+    Returns ``{"steps": consumed batches, "history": [...], ...}``: one
+    history dict per verified step, in stream order, with the aux metrics,
+    ``loss``, ``index`` (its stream position), ``wait_ms`` (the step
+    thread's wait for the batch) and, at ``aux_interval`` 1, ``step_ms``
+    (host clock from the batch in hand to its metrics on the host);
+    ``dispatched_steps`` (step calls, replays and retries included);
+    ``pipeline`` (the loop's ``stats()``), ``loader`` (its ``stats()``: the
+    fault counters and, when pooled, the assembly pool's), ``feed`` (each
+    epoch's feed ``stats()``); ``clock`` (``step_start``: host clock at each
+    batch request; ``end``: after the last flush, on a card after a
+    synchronisation)."""
+    if prefix is not None or resume:
+        raise NotImplementedError("checkpoints (prefix, resume) are not ported")
     dev = resolve_device(device)
     if init_params is not None:
         flax_to_torch(init_params, model)
     # channels_last: the NHWC images and pooled rois enter the convs as views
     model.to(dev, memory_format=torch.channels_last).train()
-    loader = TrainLoader(roidb, cfg, cfg.TRAIN.BATCH_IMAGES, shuffle=cfg.TRAIN.SHUFFLE, seed=seed)
+    loader = TrainLoader(
+        roidb, cfg, cfg.TRAIN.BATCH_IMAGES, shuffle=cfg.TRAIN.SHUFFLE, seed=seed,
+        prefetch=prefetch, failure_budget=loader_failure_budget,
+        assembly_workers=assembly_workers,
+    )
     optimizer = make_optimizer(cfg, model, make_lr_schedule(cfg, max(len(loader), 1)))
-    step = make_train_step(model, optimizer, rng=seed + 123)
+    state = create_train_state(model, optimizer)
+    rng = seed + 123
+    dispatched = 0
+
+    def step_fn(state, batch, rng, lr_scale=None):
+        nonlocal dispatched
+        dispatched += 1
+        return train_step(state, batch, rng, lr_scale)
+
+    pipeline = PipelinedLoop(
+        step_fn, policy=guard_policy, snapshot_every=snapshot_every,
+        watchdog=StepWatchdog(step_timeout) if step_timeout > 0 else None,
+        aux_interval=aux_interval,
+    )
+    place = make_place_fn(dev)
     tracker = MetricTracker()
     speedo = Speedometer(cfg.TRAIN.BATCH_IMAGES, frequent)
-
     history: List[Dict[str, float]] = []
-    for epoch in range(epochs):
-        batches = iter(loader)
-        while not (max_steps and len(history) >= max_steps):
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            t1 = time.perf_counter()
-            _, aux = step(batch_to_device(batch, dev))
-            # one device → host copy for all metrics
-            vals = dict(zip(aux, torch.stack([v.float() for v in aux.values()]).tolist()))
-            t2 = time.perf_counter()
-            vals.update(load_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3)
+    timing: Dict[int, Dict[str, float]] = {}
+    step_start: List[float] = []
+    feed_stats = []
+
+    def deliver(ready):
+        for idx, aux in ready:
+            vals = {k: float(v) for k, v in aux.items()}
+            vals.update(index=idx, **timing.pop(idx, {}))
             history.append(vals)
             tracker.update(vals)
-            speedo(epoch, len(history), tracker)
-        if max_steps and len(history) >= max_steps:
-            break
-    if history:
-        logger.info("fit done: %d steps, last loss %.4f", len(history), history[-1]["loss"])
-        if not math.isfinite(history[-1]["loss"]):
-            logger.warning("fit finished with a non-finite loss")
-    return {"steps": len(history), "history": history}
+
+    log_f = open(stream_log, "a") if stream_log else None
+    total_steps = 0
+    try:
+        for epoch in range(epochs):
+            batches = iter(loader)
+            feed = DeviceFeed(_Digested(batches, log_f is not None),
+                              place_fn=lambda item: (item[0], place(item[1])),
+                              depth=feed_depth, device=dev)
+            try:
+                pos = 0
+                while True:
+                    t0 = time.perf_counter()
+                    item = next(feed, None)
+                    if item is None:
+                        break
+                    t1 = time.perf_counter()
+                    step_start.append(t0)
+                    digest, batch = item
+                    if log_f is not None:
+                        log_f.write(f"{epoch} {pos} {digest}\n")
+                        log_f.flush()
+                    idx = pipeline.next_index
+                    timing[idx] = {"wait_ms": (t1 - t0) * 1e3}
+                    state, ready, _ok = pipeline.step(state, batch, rng)
+                    if aux_interval <= 1:
+                        timing[idx]["step_ms"] = (time.perf_counter() - t1) * 1e3
+                    deliver(ready)
+                    total_steps += 1
+                    pos += 1
+                    speedo(epoch, total_steps, tracker)
+                    if max_steps and total_steps >= max_steps:
+                        break
+            finally:
+                feed.close()
+                feed_stats.append(feed.stats())
+            state, ready, _ok = pipeline.flush(state)
+            deliver(ready)
+            if max_steps and total_steps >= max_steps:
+                break
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        end = time.perf_counter()  # before the assembly processes shut down
+    finally:
+        loader_stats = loader.stats()
+        loader.close()
+        if log_f is not None:
+            log_f.close()
+    last_loss = pipeline.last_loss if total_steps else float("nan")
+    logger.info("fit done: %d steps, last loss %.4f", total_steps, last_loss)
+    if pipeline.skipped_batches or loader.record_failures:
+        logger.warning(
+            "fit skipped %d poison batch(es) after rollback (%d retried steps); %d record(s) "
+            "failed to load", pipeline.skipped_batches, pipeline.retried_steps,
+            loader.record_failures,
+        )
+    if total_steps and not math.isfinite(last_loss):
+        logger.warning("fit finished with a non-finite loss")
+    return {
+        "steps": total_steps, "history": history, "dispatched_steps": dispatched,
+        "pipeline": pipeline.stats(), "loader": loader_stats, "feed": feed_stats,
+        "clock": {"step_start": step_start, "end": end},
+    }

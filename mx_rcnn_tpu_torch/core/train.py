@@ -1,5 +1,5 @@
 """Trainer pieces: parameter freezing, MXNet-semantics SGD, the piecewise
-learning-rate schedule and the train step (port of
+learning-rate schedule, the train state and the train step (port of
 ``mx_rcnn_tpu/core/train.py``).
 
 Optimizer semantics follow MXNet SGD, as the JAX package's optax chain:
@@ -10,7 +10,7 @@ the gradient before the momentum, momentum 0.9 without dampening, then
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -79,10 +79,18 @@ class MXNetSGD:
         self.sgd.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, lr_scale: Optional[float] = None) -> None:
+        """One update; ``lr_scale`` multiplies this update's learning rate
+        only (the guarded loop's LR backoff on a retry).  The JAX step scales
+        the update ``−lr·trace`` after the momentum trace, so scaling the
+        group's lr for one ``sgd.step()`` is the same arithmetic, and the
+        momentum buffers are untouched by it."""
         torch.nn.utils.clip_grad_value_(self.params, self.clip)
+        lr = self.schedule(self.count)
+        if lr_scale is not None:
+            lr = lr * lr_scale
         for group in self.sgd.param_groups:
-            group["lr"] = self.schedule(self.count)
+            group["lr"] = lr
         self.sgd.step()
         self.count += 1
 
@@ -114,26 +122,118 @@ def make_optimizer(
     return MXNetSGD(trainable, lr_schedule, t.MOMENTUM, t.WD, t.CLIP_GRADIENT)
 
 
-def make_train_step(model: nn.Module, optimizer: MXNetSGD, rng: int = 0):
-    """``step(batch, draws=None) → (loss, aux)``: forward in train mode,
-    backward, one optimizer update.  ``batch`` holds device tensors
+class TrainSnapshot:
+    """An owned copy of everything a step changes: the trainable
+    parameters, every momentum buffer (``None`` before a parameter's first
+    update) and the update count, which the samplers' seed folds in.  The
+    copies stay on the parameters' device."""
+
+    def __init__(self, state: "TrainState"):
+        self.state = state
+        self.params = [torch.empty_like(p) for p in state.optimizer.params]
+        self.momenta: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        self.count = 0
+
+    @torch.no_grad()
+    def fill(self) -> "TrainSnapshot":
+        """Copy the live state in: one ``_foreach_copy_`` for the parameters
+        and one for the momentum buffers, queued on the current stream (no
+        synchronisation; a later step on the stream runs after them)."""
+        opt = self.state.optimizer
+        torch._foreach_copy_(self.params, opt.params)
+        dst, src = [], []
+        for i, p in enumerate(opt.params):
+            buf = opt.sgd.state[p].get("momentum_buffer")
+            if buf is None:
+                self.momenta[i] = None
+                continue
+            if self.momenta[i] is None:
+                self.momenta[i] = torch.empty_like(buf)
+            dst.append(self.momenta[i])
+            src.append(buf)
+        if dst:
+            torch._foreach_copy_(dst, src)
+        self.count = opt.count
+        return self
+
+    @torch.no_grad()
+    def restore(self) -> "TrainState":
+        """Write the snapshot back into its live state and return the state:
+        a replay from here draws the same samples as the first run did."""
+        opt = self.state.optimizer
+        torch._foreach_copy_(opt.params, self.params)
+        dst, src = [], []
+        for p, snap in zip(opt.params, self.momenta):
+            st = opt.sgd.state[p]
+            if snap is None:
+                st.pop("momentum_buffer", None)
+            elif st.get("momentum_buffer") is None:
+                st["momentum_buffer"] = snap.clone()
+            else:
+                dst.append(st["momentum_buffer"])
+                src.append(snap)
+        if dst:
+            torch._foreach_copy_(dst, src)
+        opt.count = self.count
+        return self.state
+
+    def host(self) -> Dict:
+        """The snapshot as a host tree (a watchdog dump reads this)."""
+        names = self.state.names
+        return {
+            "params": {n: t.detach().cpu() for n, t in zip(names, self.params)},
+            "momentum": {n: None if t is None else t.detach().cpu()
+                         for n, t in zip(names, self.momenta)},
+            "count": self.count,
+        }
+
+
+class TrainState:
+    """The port's train state (the role of ``create_train_state``'s
+    ``TrainState``): the model and its optimizer, mutated in place by
+    :func:`train_step`.  ``snapshot(into)`` gives an owned copy of what a
+    step changes, into ``into``'s buffers when it is a snapshot of this
+    state (no new allocation, no synchronisation)."""
+
+    def __init__(self, model: nn.Module, optimizer: MXNetSGD):
+        self.model = model
+        self.optimizer = optimizer
+        ids = {id(p) for p in optimizer.params}
+        self.names = [n for n, p in model.named_parameters() if id(p) in ids]
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+    def snapshot(self, into: Optional[TrainSnapshot] = None) -> TrainSnapshot:
+        if into is None or into.state is not self:
+            into = TrainSnapshot(self)
+        return into.fill()
+
+
+def create_train_state(model: nn.Module, optimizer: MXNetSGD) -> TrainState:
+    return TrainState(model, optimizer)
+
+
+def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[float] = None,
+               draws: Optional[Dict[str, torch.Tensor]] = None):
+    """One train step, the JAX step's contract: ``(state, aux)``, the state
+    updated in place.  Forward in train mode, backward, one optimizer update
+    (``lr_scale`` scales this update only).  ``batch`` holds device tensors
     ``images``, ``im_info``, ``gt_boxes``, ``gt_valid`` and, optionally,
     host ``sample_seeds``; the samplers' seed is ``fold_in(rng, update
     count)``, as the JAX step folds its step into the sampling key, unless
     ``draws`` hands them their uniforms.  ``aux`` gains ``loss``; its values
     stay on the device."""
-
-    def step(batch: Dict, draws: Optional[Dict[str, torch.Tensor]] = None):
-        optimizer.zero_grad()
-        loss, aux = model(
-            batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-            train=True, sample_seeds=batch.get("sample_seeds"),
-            rng=fold_in(rng, optimizer.count), draws=draws,
-        )
-        loss.backward()
-        optimizer.step()
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["loss"] = loss.detach()
-        return loss.detach(), aux
-
-    return step
+    model, optimizer = state.model, state.optimizer
+    optimizer.zero_grad()
+    loss, aux = model(
+        batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+        train=True, sample_seeds=batch.get("sample_seeds"),
+        rng=fold_in(rng, optimizer.count), draws=draws,
+    )
+    loss.backward()
+    optimizer.step(lr_scale)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["loss"] = loss.detach()
+    return state, aux

@@ -7,9 +7,14 @@ the same names).
 
 ``--network resnet_fpn`` trains ResNet-50 FPN (box-only) through the same
 loop.  Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
-on the CPU instead.  The log, the Speedometer lines included, goes to
-standard output.  Only synthetic data is ported (``--synthetic N``), and
-the weights are seeded random (``--seed``): no checkpoint is written yet.
+on the CPU instead.  Every step runs through ``fit``'s pipeline: the device
+feed (``--feed_depth``), the deferred aux check (``--aux_interval``) and the
+divergence guard (``--spike_factor``, ``--max_bad_batches``,
+``--snapshot_every``, ``--step_timeout``), over a loader with a failure
+budget (``--loader_failure_budget``; ``MX_RCNN_ASSEMBLY_WORKERS`` sizes its
+assembly pool).  The log, the Speedometer lines included, goes to standard
+output.  Only synthetic data is ported (``--synthetic N``), and the weights
+are seeded random (``--seed``): no checkpoint is written yet.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.core.fit import fit
+from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy
 from mx_rcnn_tpu_torch.data.imdb import IMDB, filter_roidb
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.models import build_model
@@ -45,6 +51,29 @@ def parse_args(argv=None):
     p.add_argument("--cpu", type=int, default=0, metavar="N",
                    help="run on the CPU (the plain versions of the kernels) instead of the "
                         "card; N > 1 devices needs data parallel, which is not ported")
+    # resilience (core/resilience.py): divergence recovery + hang watchdog
+    p.add_argument("--step_timeout", type=float, default=0.0, metavar="SECS",
+                   help="wall-clock watchdog per train step: a step that exceeds this exits "
+                        "with code 75 instead of hanging (0 = off)")
+    p.add_argument("--snapshot_every", type=int, default=10, metavar="N",
+                   help="refresh the guarded loop's rollback snapshot every N accepted steps "
+                        "(1 = exact rollback)")
+    p.add_argument("--spike_factor", type=float, default=20.0,
+                   help="treat a step as diverged when its loss exceeds this multiple of the "
+                        "running EMA")
+    p.add_argument("--max_bad_batches", type=int, default=8,
+                   help="abort (TrainingDiverged) after this many batches are skipped via "
+                        "rollback")
+    p.add_argument("--loader_failure_budget", type=int, default=None,
+                   help="abort after this many records fail to load (default: max(32, 1%% of "
+                        "the roidb))")
+    # step pipeline (core/pipeline.py): device feed + K-late aux fetch
+    p.add_argument("--feed_depth", type=int, default=2, metavar="N",
+                   help="device-feed depth: batches staged on the device ahead of the step")
+    p.add_argument("--aux_interval", type=int, default=0, metavar="K",
+                   help="fetch train aux every K steps instead of every step (divergence "
+                        "checks run K late against the retained window snapshot); 0 = auto: "
+                        "1 on the CPU, 8 on the card")
     return p.parse_args(argv)
 
 
@@ -72,6 +101,11 @@ def train_net(args) -> Dict:
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,
         frequent=args.frequent, device="cpu" if args.cpu else None,
+        guard_policy=DivergencePolicy(spike_factor=args.spike_factor,
+                                      max_bad_batches=args.max_bad_batches),
+        step_timeout=args.step_timeout, snapshot_every=args.snapshot_every,
+        aux_interval=args.aux_interval or (1 if args.cpu else 8),
+        feed_depth=args.feed_depth, loader_failure_budget=args.loader_failure_budget,
     )
 
 

@@ -523,12 +523,13 @@ def test_train_step_updated_params_match(one_step):
 
 
 def test_port_train_step_equals_the_manual_step(one_step):
-    """``make_train_step`` runs the same forward, backward and update."""
+    """``train_step`` runs the same forward, backward and update."""
     p = one_step["port"]
     model = copy.deepcopy(p["pristine"])
     opt = ttrain.make_optimizer(p["cfg"], model, ttrain.make_lr_schedule(p["cfg"], 10))
-    loss, aux = ttrain.make_train_step(model, opt)(p["batch"], draws=p["draws"])
-    assert float(loss) == float(p["loss"]) and float(aux["loss"]) == float(p["loss"])
+    state, aux = ttrain.train_step(ttrain.create_train_state(model, opt), p["batch"], 0,
+                                   draws=p["draws"])
+    assert state.model is model and float(aux["loss"]) == float(p["loss"])
     # the CPU convolutions' backward splits its sums over threads, so a
     # second run may round the last bit differently
     for (n, a), (_, b) in zip(model.named_parameters(), p["model"].named_parameters()):
@@ -538,7 +539,7 @@ def test_port_train_step_equals_the_manual_step(one_step):
 
 
 def test_train_trajectory_matches_jax_over_three_steps(one_step):
-    """Three steps of the port's ``make_train_step`` against JAX's from the
+    """Three steps of the port's ``train_step`` against JAX's from the
     same weights, each step with JAX's draws for it: the momentum trace
     carried across steps, the learning rate at each update count and the
     per-step sampling keys.  Losses within 1e-4 relative, as for one step,
@@ -549,12 +550,13 @@ def test_train_trajectory_matches_jax_over_three_steps(one_step):
     j, p = one_step["jax"], one_step["port"]
     model = copy.deepcopy(p["pristine"])
     opt = ttrain.make_optimizer(p["cfg"], model, ttrain.make_lr_schedule(p["cfg"], 10))
-    step = ttrain.make_train_step(model, opt)
+    port_state = ttrain.create_train_state(model, opt)
     state = create_train_state(j["params"], j["tx"])
     losses = []
     for k in range(3):
         state, j_aux = j["step"](state, j["batch"], j["rng"])
-        loss, aux = step(p["batch"], draws=j["draws_of"](k))
+        _, aux = ttrain.train_step(port_state, p["batch"], 0, draws=j["draws_of"](k))
+        loss = aux["loss"]
         np.testing.assert_allclose(float(loss), float(j_aux["loss"]), rtol=1e-4, err_msg=f"step {k}")
         losses.append(float(loss))
         for name in ("num_fg_rois", "num_valid_props", "num_fg_anchors"):
@@ -591,7 +593,7 @@ def test_fit_trains_from_bridged_params_on_the_cpu():
     out = fit(model, cfg, roidb, epochs=2, max_steps=2, device="cpu", init_params=params_np)
     assert out["steps"] == 2 and len(out["history"]) == 2
     for h in out["history"]:
-        assert set(h) >= {"loss", "RPNAcc", "RCNNL1Loss", "num_fg_rois", "step_ms", "load_ms"}
+        assert set(h) >= {"loss", "RPNAcc", "RCNNL1Loss", "num_fg_rois", "step_ms", "wait_ms"}
         assert np.isfinite(h["loss"])
     got = dict(_leaves(torch_to_flax(model)))
     for path, a in _leaves(params_np):
