@@ -80,7 +80,22 @@
    Printed: loop images/s, the step thread's wait for a batch, feed and
    pool occupancy, the aux sink's fetches and stalls, the guard snapshot's
    cost, host syncs in one step (``set_sync_debug_mode``) and nproc;
-8. times each kernel on captured tensors: NMS and kernel 2 at the serving
+8. ``[eval]``: ``pred_eval`` over 32 synthetic VOC-sized (375 × 500) images
+   with the calibrated C4 weights the ``[train]`` run started from, in five
+   settings: serial (batch 1, no feed, one forward in flight), the JAX
+   package's defaults (feed depth 2, two in flight), batches of 2 from a
+   pool of N assembly processes with 2 completion threads (the async and
+   the threads dispatch modes), and the host decode + C NMS branch
+   (``DEVICE_POSTPROCESS`` off).  Gates: serial and the defaults give
+   bit-identical detections and equal mAP, image 0's equal
+   ``detect_single``'s on the same pixels, the batched settings and the host
+   branch keep the same detections within the bars, NMS and kernel 2 launch
+   in every setting and equal their plain versions on the eval path's
+   tensors, the host NMS loaded its C library, and a small eval agrees
+   between the card and the CPU.  Printed: images/s per setting, the
+   dispatch thread's wait per batch, the feed's and the completion pool's
+   counters, host syncs per forward, launches per image, peak memory;
+9. times each kernel on captured tensors: NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
@@ -88,7 +103,7 @@
    from a CUDA graph of the wrapper (``ms``), the eager wrapper
    (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
    bound for the work this data needs;
-9. prints one JSON line with each kernel's launches, max error, times and
+10. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -118,7 +133,8 @@ from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.core.metrics import METRIC_NAMES
 from mx_rcnn_tpu_torch.core.pipeline import PipelinedLoop, batch_to_device
-from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.core import tester as tester_mod
+from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval
 from mx_rcnn_tpu_torch.core.train import (
     create_train_state,
     is_frozen_path,
@@ -126,17 +142,25 @@ from mx_rcnn_tpu_torch.core.train import (
     make_optimizer,
     train_step,
 )
-from mx_rcnn_tpu_torch.data.loader import _orientation_bucket, make_batch
+from mx_rcnn_tpu_torch.data.loader import (
+    TestLoader,
+    _orientation_bucket,
+    build_test_batch,
+    load_record_image,
+    make_batch,
+)
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
+from mx_rcnn_tpu_torch.native import hostops
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
-from mx_rcnn_tpu_torch.serve.runner import detect_single, prepare_request
+from mx_rcnn_tpu_torch.serve import runner as runner_mod
+from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepare_request
 from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
 from mx_rcnn_tpu_torch.utils import faults
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
@@ -1469,6 +1493,374 @@ def train_step_agrees(dev, cfg, gts, label):
         raise AssertionError("the small train step sampled no fg rois or anchors")
 
 
+# -------------------------------------------------------------- eval phase
+EVAL_IMAGES = 32
+# VOC's most common image size: 600 x 800 after the resize, in the 608 x 1024
+# bucket
+EVAL_HW = (375, 500)
+# detections of two settings whose forwards differ (a batch of 2, the host
+# decode): the bars of tests/test_postprocess.py and of the JAX comparison
+EVAL_SCORE_TOL = 1e-5
+EVAL_BOX_TOL = 1e-3
+MAP_TOL = 1e-6
+
+
+class _TimedImdb:
+    """An imdb that notes when ``pred_eval`` hands it the detections: the
+    end of the loop's drain."""
+
+    def __init__(self, imdb):
+        self.imdb, self.num_classes = imdb, imdb.num_classes
+        self.t_end = None
+
+    def evaluate_detections(self, all_boxes):
+        self.t_end = time.perf_counter()
+        return self.imdb.evaluate_detections(all_boxes)
+
+
+def eval_settings(workers: int):
+    """The [eval] phase's settings: (label, test_batch, pred_eval knobs,
+    pipelined knobs, DEVICE_POSTPROCESS)."""
+    return (
+        ("serial", 1, {"postprocess_workers": 0},
+         {"in_flight": 1, "feed_depth": 0, "mode": "async"}, True),
+        ("JAX defaults", 1, {"postprocess_workers": 0}, {}, True),
+        ("JAX defaults, threads", 1, {"postprocess_workers": 0}, {"mode": "threads"}, True),
+        ("batched async", 2, {"assembly_workers": workers, "postprocess_workers": 2},
+         {"mode": "async"}, True),
+        ("batched threads", 2, {"assembly_workers": workers, "postprocess_workers": 2},
+         {"mode": "threads"}, True),
+        ("host branch", 1, {"postprocess_workers": 2}, {}, False),
+        ("host branch, ties ascending", 1, {"postprocess_workers": 2}, {}, False),
+    )
+
+
+def nms_ties_ascending(dets: np.ndarray, thresh: float) -> list:
+    """``nms_numpy`` with equal scores taken in ascending index order, as
+    the device's stable sort takes them (the host C NMS, like the
+    reference's, takes them in descending order)."""
+    if dets.size == 0:
+        return []
+    x1, y1, x2, y2, scores = dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3], dets[:, 4]
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    while order.size > 0:
+        i = order[0]
+        keep.append(int(i))
+        w = np.maximum(0.0, np.minimum(x2[i], x2[order[1:]]) - np.maximum(x1[i], x1[order[1:]]) + 1)
+        h = np.maximum(0.0, np.minimum(y2[i], y2[order[1:]]) - np.maximum(y1[i], y1[order[1:]]) + 1)
+        inter = w * h
+        ovr = inter / (areas[i] + areas[order[1:]] - inter)
+        order = order[np.where(ovr <= thresh)[0] + 1]
+    return keep
+
+
+def eval_run(predictor, cfg, roidb, imdb, batch, knobs, loop_knobs, label):
+    """``pred_eval`` over ``roidb`` with the loop's ``loop_knobs`` (its
+    in_flight, feed_depth and mode); images/s over the images after the
+    first result, by the host clock from that result to the end of the
+    drain.  Returns (all_boxes, results, figures, launches)."""
+    orig = tester_mod.pipelined
+    first = {}
+
+    def timed(*a, **k):
+        for item in orig(*a, **{**k, **loop_knobs}):
+            if not first:
+                first["t"], first["n"] = time.perf_counter(), len(item[1]["images"])
+            yield item
+
+    timed_imdb = _TimedImdb(imdb)
+    stats = {}
+    tester_mod.pipelined = timed
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        all_boxes, results = pred_eval(predictor, TestLoader(roidb, cfg, batch_size=batch),
+                                       timed_imdb, cfg, stats_out=stats, **knobs)
+    finally:
+        tester_mod.pipelined = orig
+    launches = read_launches()
+    n = len(roidb) - first["n"]
+    feed = stats["feed"]
+    fig = {
+        "images_per_s": n / (timed_imdb.t_end - first["t"]), "timed_images": n,
+        "wait_ms_median": statistics.median(feed["wait_ms"]),
+        "wait_ms_mean": statistics.fmean(feed["wait_ms"]),
+        "wait_ms": [round(w, 3) for w in feed["wait_ms"]],
+        "feed": {k: v for k, v in feed.items() if k != "wait_ms"},
+        "completion": stats["completion"],
+        "launches_per_image": {k: v / len(roidb) for k, v in launches.items() if v},
+        "mAP": results["mAP"],
+    }
+    log(f"  {label}: test_batch {batch}, {knobs}, loop {loop_knobs}, DEVICE_POSTPROCESS "
+        f"{cfg.TEST.DEVICE_POSTPROCESS}: {fig['images_per_s']:.3f} images/s over {n} images; "
+        f"the dispatch thread's wait per batch median {fig['wait_ms_median']:.3f} ms (mean "
+        f"{fig['wait_ms_mean']:.3f}); loop {fig['feed']}; completion {fig['completion']}; "
+        f"launches {launches} ({fig['launches_per_image']} per image); mAP {results['mAP']:.6f}")
+    if min(launches["nms"], launches["roi_align_fwd"]) <= 0:
+        raise AssertionError(f"{label}: a kernel of the eval path never launched: {launches}")
+    return all_boxes, results, fig, launches
+
+
+def _kept_diff(a, b, cfg):
+    """The detections of one (image, class) kept in ``a`` and not in ``b``,
+    each with its score's gap to the threshold and its largest IoU with a
+    higher-scored detection of ``a`` against the NMS bar."""
+    out = []
+    for d in a:
+        if len(b) and np.abs(b - d).max(axis=1).min() <= EVAL_BOX_TOL:
+            continue
+        higher = a[a[:, 4] > d[4]]
+        iou = 0.0
+        if len(higher):
+            iw = np.minimum(higher[:, 2], d[2]) - np.maximum(higher[:, 0], d[0]) + 1
+            ih = np.minimum(higher[:, 3], d[3]) - np.maximum(higher[:, 1], d[1]) + 1
+            inter = np.maximum(iw, 0) * np.maximum(ih, 0)
+            area = lambda x: (x[..., 2] - x[..., 0] + 1) * (x[..., 3] - x[..., 1] + 1)
+            iou = float((inter / (area(higher) + area(d) - inter)).max())
+        out.append({"score_minus_thresh": float(d[4]) - cfg.TEST.SCORE_THRESH,
+                    "iou_minus_nms": iou - cfg.TEST.NMS})
+    return out
+
+
+def _by_score(x):
+    return x[np.argsort(-x[:, 4], kind="stable")]
+
+
+def _close(x, y, rtol=0.0) -> bool:
+    """Same count, scores within EVAL_SCORE_TOL (and ``rtol``), boxes
+    within EVAL_BOX_TOL px (and 10 ``rtol``), each sorted by score."""
+    if x.shape != y.shape:
+        return False
+    x, y = _by_score(x), _by_score(y)
+    return bool(np.allclose(x[:, 4], y[:, 4], rtol=rtol, atol=EVAL_SCORE_TOL)
+                and np.allclose(x[:, :4], y[:, :4], rtol=rtol * 10, atol=EVAL_BOX_TOL))
+
+
+def same_detections(a, b, cfg, label, rtol=0.0):
+    """Every (image, class) of ``a`` and ``b`` :func:`_close`; prints the
+    image, class and the gaps to the threshold and to the NMS bar of every
+    keep that differs, and raises.  Returns whether they are
+    bit-identical."""
+    bad, score_err, box_err, identical = [], 0.0, 0.0, True
+    for j in range(1, len(a)):
+        for i in range(len(a[j])):
+            x, y = a[j][i], b[j][i]
+            if x.shape != y.shape:
+                bad.append((i, j, len(x), len(y), _kept_diff(x, y, cfg), _kept_diff(y, x, cfg)))
+                continue
+            identical &= bool(np.array_equal(x, y))
+            if len(x):
+                xs, ys = _by_score(x), _by_score(y)
+                score_err = max(score_err, float(np.abs(xs[:, 4] - ys[:, 4]).max()))
+                box_err = max(box_err, float(np.abs(xs[:, :4] - ys[:, :4]).max()))
+            if not _close(x, y, rtol):
+                bad.append((i, j, "values"))
+    log(f"  {label}: bit-identical {identical}, max score |d| {score_err:.3g}, max box |d| "
+        f"{box_err:.3g} px, differing (image, class): {bad[:10]}")
+    if bad:
+        raise AssertionError(f"{label}: the detections differ beyond the bars: {bad[:10]}")
+    return identical
+
+
+def host_syncs_per_forward(predictor, batch, dev):
+    """Host synchronisations in one ``predict_async`` (the forward and the
+    device postprocess) on a batch staged on the card, and in reading its
+    batched host copy, counted with ``torch.cuda.set_sync_debug_mode``."""
+    from mx_rcnn_tpu_torch.core.pipeline import batch_to_device
+    from mx_rcnn_tpu_torch.core.tester import PendingFetch
+
+    staged = batch_to_device(batch, dev)
+    PendingFetch(predictor.predict_async(staged)).result()
+    counts = {}
+    for what in ("forward", "fetch"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if what == "forward":
+                    out = predictor.predict_async(staged)
+                else:
+                    PendingFetch(out).result()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        lines = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                lines[where] = lines.get(where, 0) + 1
+        counts[what] = {"count": sum(lines.values()), "by_line": lines}
+    log(f"  host syncs in one forward on a staged batch: {counts['forward']}; in reading its "
+        f"host copy: {counts['fetch']}")
+    return counts
+
+
+def eval_profile(predictor, cfg, roidb, dev):
+    """Wall and device-busy time of one eval forward (the device
+    postprocess and the host copy included) on a staged batch of 1 and of
+    2 images (torch.profiler), and the busy time per image."""
+    from mx_rcnn_tpu_torch.core.pipeline import batch_to_device
+
+    out = {}
+    bucket = _orientation_bucket(roidb[0], cfg.SHAPE_BUCKETS)
+    for n in (1, 2):
+        staged = batch_to_device(build_test_batch(roidb, cfg, bucket, list(range(n)))[2], dev)
+        predictor.predict(staged)
+        _, wall_ms, events = _profiled(lambda: predictor.predict(staged))
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        out[n] = {"wall_ms": wall_ms, "busy_ms": busy, "busy_ms_per_image": busy / n}
+        log(f"  one eval forward of {n} image(s): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"({busy / n:.3f} ms an image; profiler on)")
+    return out
+
+
+def eval_phase(cfg, weights, dev, workers):
+    """``pred_eval`` at full width on EVAL_IMAGES synthetic VOC-sized
+    images from the calibrated C4 weights, in each of ``eval_settings``;
+    gates: serial and the JAX defaults bit-identical, image 0 as
+    ``detect_single`` gives it, the batched settings at the bars, the host
+    branch at the bars once its NMS takes tied scores in the device's
+    order, equal mAP where the detections are equal, both kernels launched
+    in every setting and equal to their plain versions on the eval path's
+    tensors.  Returns the figures, the captured kernel inputs and the
+    JAX-defaults run's launches."""
+    if hostops.backend() != "c":
+        raise AssertionError("the host NMS did not load its C library on this machine")
+    imdb = SyntheticDataset(num_images=EVAL_IMAGES, num_classes=NUM_CLASSES, image_size=EVAL_HW)
+    roidb = imdb.gt_roidb()
+    model = make_model(cfg)
+    model.load_state_dict(weights)
+    predictor = Predictor(model, device=dev)
+    host_cfg = cfg.replace(TEST=dataclasses.replace(cfg.TEST, DEVICE_POSTPROCESS=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, figures = {}, {}
+    settings = eval_settings(workers)
+    timed = [st for st in settings if st[0] != "host branch, ties ascending"]
+    # two passes, the second in reverse order: one pass of 32 images per
+    # setting does not resolve the settings' order on a shared host
+    for pass_no, order in ((1, settings), (2, timed[::-1])):
+        log(f"  pass {pass_no}")
+        for label, batch, knobs, loop_knobs, device_pp in order:
+            args = (predictor, cfg if device_pp else host_cfg, roidb, imdb, batch, knobs,
+                    loop_knobs, label)
+            if pass_no == 2:
+                figures[label]["pass 2"] = eval_run(*args)[2]
+            elif label == "JAX defaults":
+                with Capture(keep=2) as cap:
+                    runs[label] = eval_run(*args)
+            elif label == "host branch, ties ascending":
+                orig = runner_mod.nms_host
+                runner_mod.nms_host = nms_ties_ascending
+                try:
+                    runs[label] = eval_run(*args)
+                finally:
+                    runner_mod.nms_host = orig
+            else:
+                runs[label] = eval_run(*args)
+            if pass_no == 1:
+                figures[label] = runs[label][2]
+    log("  images/s by setting, pass 1 / pass 2: " + "; ".join(
+        f"{label} {figures[label]['images_per_s']:.3f} / {figures[label]['pass 2']['images_per_s']:.3f}"
+        for label, *_ in timed))
+    figures["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"  max_memory_allocated over the eval runs: {figures['peak_mib']:.1f} MiB")
+
+    # image 0 through detect_single, on the same rendered pixels
+    serial = runs["serial"][0]
+    pp = make_test_postprocess(cfg, NUM_CLASSES, cfg.TEST.SCORE_THRESH, cfg.TEST.DET_PER_CLASS)
+    single = Predictor(model, pp, device=dev)
+    dets, _ = cap_detections(
+        detect_single(single, load_record_image(roidb[0]), cfg, NUM_CLASSES),
+        cfg.TEST.MAX_PER_IMAGE)
+    worst = max((float(np.abs(dets[j] - serial[j][0]).max()) if len(dets[j]) else 0.0)
+                if dets[j].shape == serial[j][0].shape else math.inf
+                for j in range(1, NUM_CLASSES))
+    log(f"  image 0: pred_eval vs detect_single on the same pixels, max |d| {worst}")
+    figures["host_syncs"] = host_syncs_per_forward(single, next(iter(TestLoader(roidb, cfg)))[1],
+                                                   dev)
+    figures["profile"] = eval_profile(single, cfg, roidb, dev)
+
+    kept = sum(len(serial[j][i]) for j in range(1, NUM_CLASSES) for i in range(EVAL_IMAGES))
+    maps = {label: run[1]["mAP"] for label, run in runs.items()}
+    log(f"  serial: {kept} detections kept over {EVAL_IMAGES} images; results "
+        f"{runs['serial'][1]}; mAP by setting: {maps}")
+    for label in runs:
+        if label in ("serial", "host branch"):
+            continue
+        identical = same_detections(
+            serial, runs[label][0], cfg, f"{label} vs serial",
+            rtol=EVAL_SCORE_TOL if label.startswith("host") else 0.0)
+        if label.startswith("JAX defaults") and not identical:
+            raise AssertionError(f"{label}: other detections than the serial loop's")
+        if identical and abs(maps[label] - maps["serial"]) > MAP_TOL:
+            raise AssertionError(f"{label}: equal detections, mAP {maps}")
+    # the C NMS takes tied scores in the reference's (descending index)
+    # order: where a class's scores tie (a saturated softmax), it may keep
+    # other boxes than the device.  The same run with the device's tie
+    # order was held to the device's detections above, so these pairs
+    # differ by that order alone
+    tie_pairs = tie_order_pairs(serial, runs["host branch"][0])
+    figures["host_branch_tie_order_pairs"] = tie_pairs
+    log(f"  host branch (C NMS, ties in descending index order) vs serial: (image, class) pairs "
+        f"that differ only by the order of tied scores: {tie_pairs}")
+    if kept == 0:
+        raise AssertionError("the eval path kept no detection")
+    if worst != 0.0:
+        raise AssertionError(f"pred_eval and detect_single disagree on image 0: {worst}")
+    return figures, cap, runs["JAX defaults"][3]
+
+
+def tie_order_pairs(device, host):
+    """(image, class, device keeps, host keeps) of every pair where the host
+    branch's detections differ from the device's beyond the bars."""
+    return [(i, j, len(device[j][i]), len(host[j][i]))
+            for j in range(1, len(device)) for i in range(len(device[j]))
+            if not _close(device[j][i], host[j][i], rtol=EVAL_SCORE_TOL)]
+
+
+def small_eval_agrees(dev):
+    """A small eval (``small_c4_cfg`` at 128 x 128, 4 synthetic images) on
+    the card and on the CPU with the same weights: the same keep counts,
+    scores within 1e-4, boxes within 1e-2 px (small_request_agrees' bars),
+    mAP within MAP_TOL."""
+    cfg = small_c4_cfg()
+    cfg = cfg.replace(
+        SHAPE_BUCKETS=((128, 128),),
+        dataset=dataclasses.replace(cfg.dataset, SCALES=((128, 128),)),
+        TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=200, RPN_POST_NMS_TOP_N=32),
+    )
+    imdb = SyntheticDataset(num_images=4, num_classes=NUM_CLASSES, image_size=(128, 128),
+                            max_boxes=2)
+    roidb = imdb.gt_roidb()
+    model = make_model(cfg, seed=5)
+    out = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        out[name] = pred_eval(Predictor(copy.deepcopy(model), device=d), TestLoader(roidb, cfg),
+                              imdb, cfg)
+    (card, card_res), (cpu, cpu_res) = out["card"], out["cpu"]
+    counts_equal = all(card[j][i].shape == cpu[j][i].shape
+                       for j in range(1, NUM_CLASSES) for i in range(4))
+    score_err = box_err = 0.0
+    if counts_equal:
+        for j in range(1, NUM_CLASSES):
+            for i in range(4):
+                x, y = card[j][i], cpu[j][i]
+                x, y = x[np.argsort(-x[:, 4], kind="stable")], y[np.argsort(-y[:, 4], kind="stable")]
+                if len(x):
+                    score_err = max(score_err, float(np.abs(x[:, 4] - y[:, 4]).max()))
+                    box_err = max(box_err, float(np.abs(x[:, :4] - y[:, :4]).max()))
+    kept = sum(len(cpu[j][i]) for j in range(1, NUM_CLASSES) for i in range(4))
+    log(f"  small eval card vs CPU: {kept} detections on the CPU, same keep counts "
+        f"{counts_equal}, max score |d| {score_err:.3g}, max box |d| {box_err:.3g} px, mAP "
+        f"{card_res['mAP']:.6f} vs {cpu_res['mAP']:.6f}")
+    if (not counts_equal or score_err > 1e-4 or box_err > 1e-2 or kept == 0
+            or abs(card_res["mAP"] - cpu_res["mAP"]) > MAP_TOL):
+        raise AssertionError("the small eval disagrees between the card and the CPU")
+
+
 # ------------------------------------------------------------------ timing
 def nms_timing(entry, label):
     boxes, valid, thresh, max_keep = entry
@@ -1708,6 +2100,16 @@ def main() -> int:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
 
+    te = cfg.TEST
+    log(f"[eval] ResNet-{cfg.network.depth} C4 pred_eval from the calibrated weights the [train] "
+        f"run started from: {EVAL_IMAGES} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} images, "
+        f"{cfg.dataset.NUM_CLASSES} classes, buckets {cfg.SHAPE_BUCKETS}, "
+        f"{te.RPN_PRE_NMS_TOP_N}->{te.RPN_POST_NMS_TOP_N} proposals, UINT8_TRANSFER "
+        f"{te.UINT8_TRANSFER}, MAX_PER_IMAGE {te.MAX_PER_IMAGE}; assembly workers N = {workers}")
+    eval_stats, eval_cap, eval_launches = eval_phase(cfg, c4_weights, dev, workers)
+    log("[eval] kernels vs plain on the captured tensors")
+    roi_err = max(roi_err, hold_captured(nms_diff, eval_cap, bwd_diff, stream_diff))
+
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
     classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
@@ -1750,10 +2152,13 @@ def main() -> int:
     log("[fpn train reference] small FPN train step, card vs CPU")
     train_step_agrees(dev, small_fpn_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
                                              [50.0, 60.0, 120.0, 110.0, 2.0]], "FPN")
+    log("[eval reference] small eval, card vs CPU")
+    small_eval_agrees(dev)
 
     log(f"[train] stats {json.dumps(train_stats)}")
     log(f"[fpn train] stats {json.dumps(fpn_stats)}")
     log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
+    log(f"[eval] stats {json.dumps(eval_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -1761,6 +2166,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40", "design": "PR 4",
             "ptxas": redesigned["nms"],
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
+            "eval_launches": eval_launches["nms"],
             "serve_launches": serve_launches["nms"],
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
             **train_nms, "library_ms": None,
@@ -1772,6 +2178,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88", "design": "PR 5",
             "ptxas": redesigned["roi_align_fwd"],
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
+            "eval_launches": eval_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
             "max_abs_err": roi_err, f"s{RUNTIME_S}_max_abs_err": s5_err, **train_roi,
             "library_ms": None, **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
@@ -1782,6 +2189,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148", "design": "PR 5",
             "ptxas": redesigned["roi_align_bwd"],
             "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
+            "eval_launches": eval_launches["roi_align_bwd"],
             "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
             "bitwise_repeatable": bwd_diff.repeatable,
             f"s{RUNTIME_S}_scaled_err": s5_bwd.scaled_err,
@@ -1795,6 +2203,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100", "design": "PR 6",
             "ptxas": redesigned["roi_align_stream_fwd"],
             "launches": fpn_launches["roi_align_stream_fwd"],
+            "eval_launches": eval_launches["roi_align_stream_fwd"],
             "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
             **stream_p2, "library_ms": None,
             **_prefixed("p3", stream_p3),
@@ -1805,6 +2214,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164", "design": "PR 4",
             "ptxas": redesigned["roi_align_stream_bwd"],
             "launches": fpn_launches["roi_align_stream_bwd"],
+            "eval_launches": eval_launches["roi_align_stream_bwd"],
             "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
             "bitwise_repeatable": stream_diff.repeatable,
             f"s{RUNTIME_S}_scaled_err": s5_stream.bwd_scaled,

@@ -1,18 +1,25 @@
-"""Dataset base and the roidb record format (the part of
-``mx_rcnn_tpu/data/imdb.py`` the synthetic training path uses).
+"""Dataset base and the roidb record format (port of
+``mx_rcnn_tpu/data/imdb.py``).
 
 A roidb record holds ``image`` (a path or ``synthetic://<i>``), ``height``,
 ``width``, ``boxes`` (n, 4) float32 inclusive pixel corners, ``gt_classes``
-(n,) int32 and ``flipped``.
+(n,) int32 and ``flipped``.  An IMDB has a name, a root path whose
+``cache/`` holds pickled roidbs (``{name}_{tag}.pkl``), classes, an image
+index and ``evaluate_detections(detections)`` with ``detections[cls][img]``
+an (n, 5) [x1, y1, x2, y2, score] array.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Dict, List
 
 
 class IMDB:
-    def __init__(self):
+    def __init__(self, name: str, root_path: str):
+        self.name = name
+        self.root_path = root_path
         self.classes: List[str] = []
         self.image_set_index: List = []
 
@@ -20,7 +27,33 @@ class IMDB:
     def num_classes(self) -> int:
         return len(self.classes)
 
+    @property
+    def num_images(self) -> int:
+        return len(self.image_set_index)
+
+    @property
+    def cache_path(self) -> str:
+        path = os.path.join(self.root_path, "cache")
+        os.makedirs(path, exist_ok=True)
+        return path
+
     def gt_roidb(self) -> List[Dict]:
+        raise NotImplementedError
+
+    def load_cached(self, tag: str, build_fn):
+        """``build_fn()``, pickled to ``cache/{name}_{tag}.pkl`` and read
+        from there when the file exists."""
+        cache_file = os.path.join(self.cache_path, f"{self.name}_{tag}.pkl")
+        if os.path.exists(cache_file):
+            with open(cache_file, "rb") as f:
+                return pickle.load(f)
+        data = build_fn()
+        with open(cache_file, "wb") as f:
+            pickle.dump(data, f, pickle.HIGHEST_PROTOCOL)
+        return data
+
+    def evaluate_detections(self, detections, **kwargs):
+        """``detections[cls][img]`` = (n, 5) [x1, y1, x2, y2, score]."""
         raise NotImplementedError
 
     @staticmethod
@@ -43,3 +76,11 @@ class IMDB:
 def filter_roidb(roidb: List[Dict]) -> List[Dict]:
     """Drop records without any gt box."""
     return [r for r in roidb if len(r["boxes"]) > 0]
+
+
+def merge_roidbs(roidbs: List[List[Dict]]) -> List[Dict]:
+    """Concatenate the roidbs of several image sets (07+12 training)."""
+    out: List[Dict] = []
+    for r in roidbs:
+        out.extend(r)
+    return out

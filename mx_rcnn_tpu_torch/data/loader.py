@@ -1,4 +1,4 @@
-"""Train batches: roidb → padded numpy batches (port of the train side of
+"""Train and test batches: roidb → padded numpy batches (port of
 ``mx_rcnn_tpu/data/loader.py``).
 
 Images are resized into shape buckets and gt boxes padded to MAX_GT_BOXES;
@@ -11,7 +11,10 @@ The loader assembles ahead of the consumer: a prefetch thread
 (:class:`PrefetchIterator`) or an ordered pool of assembly processes
 (``data/assembler.py``), whose streams are bit-identical to the serial one.
 A record that fails to load is retried, then its slot is filled with the
-batch's first good record, within a failure budget.  This module imports no
+batch's first good record, within a failure budget.  :class:`TestLoader`
+yields eval batches (uint8 images under TEST.UINT8_TRANSFER, with each
+image's pre-resize ``orig_hw``), one image at a time or same-bucket batches
+from a prefetch thread or the same kind of pool.  This module imports no
 torch, so an assembly process starts quickly.
 """
 
@@ -107,10 +110,12 @@ def _render_key(rec: Dict) -> Tuple:
             int(rec["height"]), int(rec["width"]))
 
 
-def _prepared_key(rec: Dict, scales, bucket, means, stds) -> Tuple:
+def _prepared_key(rec: Dict, scales, bucket, uint8: bool, means, stds) -> Tuple:
+    """The record and every input of the prep math (a uint8 canvas is not
+    normalized, so the pixel statistics are not part of its key)."""
     base = _render_key(rec) if "synthetic_seed" in rec else (rec["image"], bool(rec.get("flipped")))
-    norm = (tuple(np.ravel(means).tolist()), tuple(np.ravel(stds).tolist()))
-    return base + (tuple(scales), tuple(bucket), norm)
+    norm = None if uint8 else (tuple(np.ravel(means).tolist()), tuple(np.ravel(stds).tolist()))
+    return base + (tuple(scales), tuple(bucket), uint8, norm)
 
 
 def load_record_image(rec: Dict) -> np.ndarray:
@@ -125,7 +130,10 @@ def load_record_image(rec: Dict) -> np.ndarray:
             im = synthetic_image(rec, rec["synthetic_seed"])
             _RENDER_CACHE.put(key, im)
         return im
-    raise NotImplementedError(f"{rec['image']}: only synthetic records are ported")
+    raise NotImplementedError(
+        f"{rec['image']}: reading image files needs a decoder, which the port does not "
+        f"have (ROADMAP queue 1 item 7); only synthetic records are ported"
+    )
 
 
 def make_batch(
@@ -134,17 +142,20 @@ def make_batch(
     bucket: Tuple[int, int],
     seeds: Optional[Sequence[int]] = None,
     images: Optional[Sequence[np.ndarray]] = None,
+    uint8_images: bool = False,
 ) -> Dict[str, np.ndarray]:
-    """One padded train batch: normalized images in ``bucket``, im_info,
-    gt boxes scaled by the resize factor and padded to MAX_GT_BOXES, and,
-    with ``seeds``, the per-image sampling seeds.  ``images`` gives the
-    records' pixels (the loader's guarded loads); without it they load
-    here, through the prepared-canvas cache when it is on."""
+    """One padded batch: normalized images in ``bucket`` (or, with
+    ``uint8_images``, the resized pixels quantized to uint8, which the model
+    normalizes on the device: TEST.UINT8_TRANSFER), im_info, gt boxes scaled
+    by the resize factor and padded to MAX_GT_BOXES, and, with ``seeds``,
+    the per-image sampling seeds.  ``images`` gives the records' pixels (the
+    loader's guarded loads); without it they load here, through the
+    prepared-canvas cache when it is on."""
     target, max_size = cfg.dataset.SCALES[0]
     g = cfg.dataset.MAX_GT_BOXES
     n = len(records)
     bh, bw = bucket
-    out_images = np.zeros((n, bh, bw, 3), np.float32)
+    out_images = np.zeros((n, bh, bw, 3), np.uint8 if uint8_images else np.float32)
     im_info = np.zeros((n, 3), np.float32)
     gt_boxes = np.zeros((n, g, 5), np.float32)
     gt_valid = np.zeros((n, g), bool)
@@ -153,13 +164,14 @@ def make_batch(
         # substituted slots, whose pixels no longer match the record's key
         key = prepared = None
         if images is None and _PREPARED_CACHE.max_entries > 0:
-            key = _prepared_key(rec, (target, max_size), bucket, cfg.network.PIXEL_MEANS,
-                                cfg.network.PIXEL_STDS)
+            key = _prepared_key(rec, (target, max_size), bucket, uint8_images,
+                                cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS)
             prepared = _PREPARED_CACHE.get(key)
         if prepared is None:
             im = images[i] if images is not None else load_record_image(rec)
             prepared = prepare_image(
                 im, target, max_size, cfg.network.PIXEL_MEANS, cfg.network.PIXEL_STDS, [bucket],
+                uint8_out=uint8_images,
             )
             if key is not None:
                 _PREPARED_CACHE.put(key, prepared)
@@ -531,3 +543,121 @@ class TrainLoader:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter may be tearing down
             pass
+
+
+# ------------------------------------------------------------------ TestLoader
+def build_test_batch(
+    roidb: List[Dict], cfg: Config, bucket: Tuple[int, int], chunk: List[int],
+) -> Tuple[List[int], List[Dict], Dict[str, np.ndarray]]:
+    """One eval batch of the records ``chunk`` in ``bucket``, a pure
+    function of its arguments: ``(chunk, records, batch)``, the batch with
+    uint8 images under TEST.UINT8_TRANSFER and ``orig_hw`` (n, 2), each
+    image's pre-resize (height, width)."""
+    recs = [roidb[i] for i in chunk]
+    batch = make_batch(recs, cfg, bucket, uint8_images=cfg.TEST.UINT8_TRANSFER)
+    batch["orig_hw"] = np.asarray([[r["height"], r["width"]] for r in recs], np.float32)
+    return chunk, recs, batch
+
+
+def _init_test_worker(roidb: List[Dict], cfg: Config) -> None:
+    _WORKER_STATE.update(roidb=roidb, cfg=cfg)
+
+
+def _assemble_test(task):
+    bucket, chunk = task
+    return build_test_batch(_WORKER_STATE["roidb"], _WORKER_STATE["cfg"], bucket, chunk)
+
+
+class _PooledTestStream:
+    """Closeable iterator over pool-assembled eval batches, the
+    ``assembly_workers > 0`` twin of :class:`PrefetchIterator`; it owns its
+    pool and shuts it down at the end of the stream or at :meth:`close`.
+    ``stats()`` gives the pool's counters."""
+
+    def __init__(self, pool: AssemblyPool, results):
+        self._pool = pool
+        self._results = results
+
+    def __iter__(self) -> "_PooledTestStream":
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._results)
+        except StopIteration:
+            self._pool.close()
+            raise
+
+    def stats(self) -> Dict:
+        return self._pool.stats()
+
+    def close(self, timeout: float = 5.0) -> None:
+        self._results.close()
+        self._pool.close()
+
+    def __enter__(self) -> "_PooledTestStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class TestLoader:
+    """Inference batches over a roidb, each with its record, so eval can
+    undo the resize.  ``for rec, batch in loader`` yields one image at a
+    time (on the consumer's thread); :meth:`iter_batched` yields
+    ``(dataset_indices, records, batch)`` of up to ``batch_size``
+    same-orientation-bucket images, the ragged tail of each bucket group at
+    its own smaller size.  ``proposal_count`` > 0 (Fast R-CNN test mode,
+    dumped proposals) raises: it is ROADMAP queue 1 item 14."""
+
+    def __init__(self, roidb: List[Dict], cfg: Config, proposal_count: int = 0,
+                 batch_size: int = 1):
+        if proposal_count:
+            raise NotImplementedError(
+                "proposal_count > 0 (Fast R-CNN test batches) is not ported: "
+                "ROADMAP queue 1 item 14"
+            )
+        self.roidb = roidb
+        self.cfg = cfg
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        return len(self.roidb)
+
+    def __iter__(self):
+        for i, rec in enumerate(self.roidb):
+            bucket = _orientation_bucket(rec, self.cfg.SHAPE_BUCKETS)
+            _, _, batch = build_test_batch(self.roidb, self.cfg, bucket, [i])
+            yield rec, batch
+
+    def _plan(self) -> List[Tuple[Tuple[int, int], List[int]]]:
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, rec in enumerate(self.roidb):
+            groups.setdefault(_orientation_bucket(rec, self.cfg.SHAPE_BUCKETS), []).append(i)
+        return [
+            (bucket, idxs[s : s + self.batch_size])
+            for bucket, idxs in groups.items()
+            for s in range(0, len(idxs), self.batch_size)
+        ]
+
+    def iter_batched(self, prefetch: int = 2, assembly_workers: Optional[int] = None):
+        """``(dataset_indices, records, batch)`` assembled ahead of the
+        consumer: by one prefetch thread (``prefetch`` batches queued; 0 =
+        on the consumer's thread) or, with ``assembly_workers`` > 0 (None →
+        ``MX_RCNN_ASSEMBLY_WORKERS``), by an ordered pool of that many
+        processes, started here and shut down with the stream.  The same
+        batches in the same order either way; the returned stream is
+        closeable."""
+        plan = self._plan()
+        workers = (
+            default_assembly_workers() if assembly_workers is None
+            else max(0, int(assembly_workers))
+        )
+        if workers > 0:
+            pool = AssemblyPool(workers, name="test-assembly", initializer=_init_test_worker,
+                                initargs=(self.roidb, self.cfg))
+            return _PooledTestStream(
+                pool, pool.imap(_assemble_test, plan, window=max(prefetch, workers + 2)))
+        source = (build_test_batch(self.roidb, self.cfg, bucket, chunk) for bucket, chunk in plan)
+        return PrefetchIterator(source, prefetch)

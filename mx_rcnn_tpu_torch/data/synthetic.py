@@ -3,7 +3,7 @@ box-only path of ``mx_rcnn_tpu/data/synthetic.py``).
 
 Images are colored rectangles on noise, so a detector can learn them; the
 boxes are the rectangles.  Records and pixels equal the JAX package's for the
-same arguments.
+same arguments, and ``evaluate_detections`` scores box mAP against them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Dict, List
 import numpy as np
 
 from mx_rcnn_tpu_torch.data.imdb import IMDB
+from mx_rcnn_tpu_torch.eval.voc_eval import voc_eval
 
 
 def class_color(cls: int) -> np.ndarray:
@@ -53,7 +54,7 @@ class SyntheticDataset(IMDB):
         max_boxes: int = 4,
         seed: int = 0,
     ):
-        super().__init__()
+        super().__init__(f"synthetic_{num_images}", root_path="/tmp")
         self.classes = ["__background__"] + [f"class{i}" for i in range(1, num_classes)]
         self.image_set_index = list(range(num_images))
         self.seed = seed
@@ -84,3 +85,29 @@ class SyntheticDataset(IMDB):
                 "synthetic_seed": self.seed + 1000 + i,
             })
         return roidb
+
+    def evaluate_detections(self, detections, all_masks=None, **kw):
+        """VOC-style box mAP against the synthetic gt (integral metric):
+        ``{"class<j>": AP, ..., "mAP": mean}``.  Classes absent from the gt
+        have no AP and are skipped; a class with gt and no detections scores
+        0.  ``all_masks`` (the segm protocol) raises: the mask family is
+        ROADMAP queue 1 item 13."""
+        if all_masks is not None:
+            raise NotImplementedError(
+                "segm evaluation (all_masks) is not ported: ROADMAP queue 1 item 13"
+            )
+        roidb = self.gt_roidb()
+        annots = {
+            i: {"boxes": r["boxes"], "gt_classes": r["gt_classes"]}
+            for i, r in enumerate(roidb)
+        }
+        aps = {}
+        for cls_idx in range(1, self.num_classes):
+            if not any((r["gt_classes"] == cls_idx).any() for r in roidb):
+                continue
+            dets_by_img = {i: detections[cls_idx][i] for i in range(len(roidb))}
+            _, _, ap = voc_eval(dets_by_img, annots, cls_idx, 0.5, False)
+            aps[f"class{cls_idx}"] = ap
+        vals = list(aps.values())
+        aps["mAP"] = float(np.mean(vals)) if vals else 0.0
+        return aps

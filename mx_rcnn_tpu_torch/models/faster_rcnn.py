@@ -164,6 +164,10 @@ class FasterRCNN(nn.Module):
         self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512)
         self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        # constants of the graph, built once per (device, shape): a copy from
+        # host memory in every forward would make the host wait for the card
+        # (JAX folds them into the executable)
+        self._constants: Dict = {}
 
     def forward(
         self,
@@ -182,11 +186,21 @@ class FasterRCNN(nn.Module):
         return self.test_forward(images, im_info)
 
     def _anchors(self, fh: int, fw: int, device) -> torch.Tensor:
-        net = self.cfg.network
-        return torch.from_numpy(
-            shifted_anchors(fh, fw, net.RPN_FEAT_STRIDE, ratios=net.ANCHOR_RATIOS,
-                            scales=net.ANCHOR_SCALES)
-        ).to(device)
+        key = ("anchors", fh, fw, torch.device(device))
+        if key not in self._constants:
+            net = self.cfg.network
+            self._constants[key] = torch.from_numpy(
+                shifted_anchors(fh, fw, net.RPN_FEAT_STRIDE, ratios=net.ANCHOR_RATIOS,
+                                scales=net.ANCHOR_SCALES)
+            ).to(device)
+        return self._constants[key]
+
+    def _bbox_denorm(self, device):
+        key = ("bbox_denorm", torch.device(device))
+        if key not in self._constants:
+            self._constants[key] = bbox_denorm_vectors(
+                self.cfg, self.cfg.dataset.NUM_CLASSES, device)
+        return self._constants[key]
 
     # ------------------------------------------------------------------ train
     def train_forward(
@@ -283,7 +297,7 @@ class FasterRCNN(nn.Module):
         trunk = self.top_head(pooled.reshape((b * r,) + pooled.shape[2:]).permute(0, 3, 1, 2))
         cls_logits, bbox_deltas = self.rcnn(trunk)
         k = cfg.dataset.NUM_CLASSES
-        means, stds = bbox_denorm_vectors(cfg, k, images.device)
+        means, stds = self._bbox_denorm(images.device)
         bbox_deltas = bbox_deltas * stds + means
         return {
             "rois": props.rois,                                   # (B, R, 4)

@@ -9,6 +9,7 @@ Every BN is frozen: an affine ``x·mul + add`` from stored moments, eps 2e-5.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -43,14 +44,28 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, bias: bool = False) 
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=bias)
 
 
+_PIXEL_STATS: Dict = {}
+
+
+def _pixel_stats(means, stds, device):
+    """(means, 1 / stds) on ``device``, built once per (stats, device): a
+    copy from host memory in every forward would make the host wait for the
+    card."""
+    key = (means, stds, device)
+    if key not in _PIXEL_STATS:
+        m = torch.tensor(means, dtype=torch.float32, device=device)
+        _PIXEL_STATS[key] = (m, 1.0 / torch.tensor(stds, dtype=torch.float32, device=device))
+    return _PIXEL_STATS[key]
+
+
 def normalize_images(images: torch.Tensor, im_info: torch.Tensor, cfg) -> torch.Tensor:
     """(B, H, W, 3) uint8 RGB → normalized float32 with the bucket padding
     re-zeroed from ``im_info``; float batches pass through untouched."""
     if images.dtype != torch.uint8:
         return images
     dev = images.device
-    means = torch.tensor(cfg.network.PIXEL_MEANS, dtype=torch.float32, device=dev)
-    inv_stds = 1.0 / torch.tensor(cfg.network.PIXEL_STDS, dtype=torch.float32, device=dev)
+    means, inv_stds = _pixel_stats(tuple(cfg.network.PIXEL_MEANS), tuple(cfg.network.PIXEL_STDS),
+                                   dev)
     out = (images.float() - means) * inv_stds
     bh, bw = images.shape[1], images.shape[2]
     rows = torch.arange(bh, dtype=torch.float32, device=dev)[None, :, None, None]

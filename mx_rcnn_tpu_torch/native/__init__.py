@@ -1,0 +1,1 @@
+"""native of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,139 @@
+"""Evaluation CLI: mAP of a detector on VOC or synthetic data (port of
+``mx_rcnn_tpu/tools/test.py``, the routes this slice supports, under the same
+flags).
+
+    python -m mx_rcnn_tpu_torch.tools.test --network resnet --dataset PascalVOC \\
+        --synthetic 32 --params params.pkl
+
+Builds the test graph, loads ``--params`` (a pickle of a Flax parameter
+tree with numpy leaves, bridged by ``utils/bridge.py::flax_to_torch``),
+applies the run's ``run_meta.json`` beside it, runs ``pred_eval`` over the
+test set and logs each class's AP and the mAP to standard output.  Runs on
+the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels on the
+CPU.  The ResNet C4 networks are ported; checkpoints (``--prefix`` /
+``--epoch`` without ``--params``, ROADMAP queue 1 item 8) and ``--vis``
+(item 7) are not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from typing import Dict
+
+import numpy as np
+import torch
+
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval, resolve_device
+from mx_rcnn_tpu_torch.data.loader import TestLoader
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
+from mx_rcnn_tpu_torch.utils.load_data import get_imdb
+
+logger = logging.getLogger(__name__)
+
+# networks the port cannot build yet, and the ROADMAP queue 1 item of each
+_UNPORTED = {"vgg": "item 11", "resnet_fpn": "item 12", "mask_resnet_fpn": "items 12 and 13"}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate Faster R-CNN (PyTorch port)")
+    p.add_argument("--network", default="resnet",
+                   choices=["vgg", "resnet", "resnet50", "resnet152", "resnet_fpn",
+                            "mask_resnet_fpn"])
+    p.add_argument("--dataset", default="PascalVOC",
+                   choices=["PascalVOC", "PascalVOC0712", "coco"])
+    p.add_argument("--image_set", default=None, help="defaults to the test split")
+    p.add_argument("--prefix", default="model/e2e")
+    p.add_argument("--epoch", type=int, default=None, help="default: latest")
+    p.add_argument("--thresh", type=float, default=None)
+    p.add_argument("--synthetic", type=int, default=0)
+    p.add_argument("--max_images", type=int, default=0)
+    p.add_argument("--params", default=None,
+                   help="params pickle: a Flax parameter tree with numpy leaves")
+    p.add_argument("--dump", default=None, help="save the all_boxes pickle")
+    p.add_argument("--vis", default=None, metavar="DIR",
+                   help="render detection overlays into DIR (not ported)")
+    p.add_argument("--test_batch", type=int, default=1,
+                   help="images per device forward (same-bucket batching)")
+    p.add_argument("--cpu", type=int, default=0, metavar="N",
+                   help="run on the CPU (the plain versions of the kernels) instead of the "
+                        "card; N > 1 devices is not ported")
+    return p.parse_args(argv)
+
+
+def load_flax_params(path: str) -> Dict:
+    """The params pickle at ``path``, whose leaves must be numpy arrays: a
+    pickle of ``jax.Array`` leaves needs JAX to read, which the port does
+    not import (write it after ``jax.device_get``)."""
+    from mx_rcnn_tpu_torch.utils.combine_model import load_params
+
+    hint = (f"{path}: the params pickle holds jax.Array leaves; write it with numpy "
+            f"leaves (jax.device_get the tree first)")
+    try:
+        params = load_params(path)
+    except ImportError as e:
+        if "jax" in str(e):
+            raise ValueError(hint) from e
+        raise
+
+    def check(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                check(v)
+            elif not isinstance(v, np.ndarray):
+                raise ValueError(hint if type(v).__module__.startswith("jax")
+                                 else f"{path}: a leaf is {type(v).__name__}, not a numpy array")
+
+    check(params)
+    return params
+
+
+def test_rcnn(args) -> Dict:
+    from mx_rcnn_tpu_torch.utils.run_meta import apply_run_meta, load_run_meta
+
+    if args.cpu > 1:
+        raise NotImplementedError(f"--cpu {args.cpu}: data parallel is not ported")
+    if args.network in _UNPORTED:
+        raise NotImplementedError(f"--network {args.network} is not ported: ROADMAP queue 1 "
+                                  f"{_UNPORTED[args.network]}")
+    if args.vis:
+        raise NotImplementedError("--vis needs an image writer: ROADMAP queue 1 item 7")
+    if not args.params:
+        raise NotImplementedError(
+            "checkpoints (--prefix/--epoch) are not ported: ROADMAP queue 1 item 8; "
+            "pass --params")
+    device = resolve_device("cpu" if args.cpu else None)
+    cfg = generate_config(args.network, args.dataset)
+    meta = load_run_meta(args.params)
+    if meta:
+        cfg = apply_run_meta(cfg, meta)
+        logger.info("applied run_meta overrides: %s", meta)
+    imdb = get_imdb(cfg, args.image_set or cfg.dataset.test_image_set, args.synthetic)[0]
+    roidb = imdb.gt_roidb()
+    if args.max_images:
+        # truncate the imdb's index too: evaluate_detections iterates it
+        roidb = roidb[: args.max_images]
+        imdb.image_set_index = imdb.image_set_index[: args.max_images]
+
+    model = flax_to_torch(load_flax_params(args.params), build_model(cfg))
+    logger.info("loaded params pickle %s", args.params)
+    predictor = Predictor(model, device=device)
+    loader = TestLoader(roidb, cfg, batch_size=args.test_batch)
+    _, results = pred_eval(predictor, loader, imdb, cfg, thresh=args.thresh, dump_path=args.dump)
+    for k, v in results.items():
+        logger.info("%s: %.4f", k, v)
+    return results
+
+
+def main(argv=None) -> Dict:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return test_rcnn(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,57 @@
+"""Dataset factory and gt roidb assembly (port of ``get_imdb`` and
+``load_gt_roidb`` in ``mx_rcnn_tpu/utils/load_data.py``).
+
+Synthetic data and Pascal VOC are ported; COCO's reader is not (ROADMAP
+queue 1 item 8), nor are the proposal roidbs of alternate training (item
+14).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from mx_rcnn_tpu_torch.config import Config
+from mx_rcnn_tpu_torch.data.imdb import IMDB, filter_roidb, merge_roidbs
+
+
+def get_imdb(cfg: Config, image_set: Optional[str] = None, synthetic_size: int = 0) -> List[IMDB]:
+    """The dataset(s) the config names; '+'-joined image sets (07+12
+    training) give several imdbs, whose roidbs are merged."""
+    ds = cfg.dataset
+    if synthetic_size:
+        if cfg.network.USE_MASK:
+            raise NotImplementedError(
+                "synthetic polygon (mask) records are not ported: ROADMAP queue 1 item 13"
+            )
+        from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+
+        return [SyntheticDataset(num_images=synthetic_size, num_classes=ds.NUM_CLASSES)]
+    image_set = image_set or ds.image_set
+    imdbs = []
+    for split in image_set.split("+"):
+        if ds.name == "PascalVOC":
+            from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
+
+            imdbs.append(PascalVOC(split, ds.root_path, ds.dataset_path))
+        elif ds.name == "coco":
+            raise NotImplementedError(
+                "the COCO reader is not ported: ROADMAP queue 1 item 8"
+            )
+        else:
+            raise ValueError(f"unknown dataset {ds.name!r}")
+    return imdbs
+
+
+def load_gt_roidb(
+    cfg: Config,
+    image_set: Optional[str] = None,
+    flip: bool = False,
+    synthetic_size: int = 0,
+):
+    """(imdbs, the gt roidb across their image sets, optionally with
+    flipped copies, filtered of images without a gt box)."""
+    imdbs = get_imdb(cfg, image_set, synthetic_size)
+    roidb = merge_roidbs([imdb.gt_roidb() for imdb in imdbs])
+    if flip:
+        roidb = IMDB.append_flipped_images(roidb)
+    return imdbs, filter_roidb(roidb)

@@ -1,7 +1,7 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
-package cannot be imported (it serves a request and trains a step through
-its CLI), and ``chip_smoke.py`` refuses to report without a card or outside
-the repository."""
+package cannot be imported (it serves a request, trains a step through its
+CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py`` refuses
+to report without a card or outside the repository."""
 
 import json
 import os
@@ -93,6 +93,37 @@ assert all(math.isfinite(v) for v in out["history"][0].values()), out
 print("ok")
 """)
     assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_evaluates_without_jax(tmp_path):
+    """``tools/test.py`` on 2 synthetic images on the CPU, from a params
+    pickle written by the bridge, with the host C NMS."""
+    r = run_blocked(f"""
+import dataclasses, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.test as cli
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.native import hostops
+from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
+from mx_rcnn_tpu_torch.utils.combine_model import save_params
+def tiny(network, dataset):
+    cfg = generate_config("resnet50", dataset)
+    return cfg.replace(dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                       SHAPE_BUCKETS=((96, 128), (128, 96)),
+                       TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100,
+                                                RPN_POST_NMS_TOP_N=16))
+cli.generate_config = tiny
+path = {str(tmp_path / "params.pkl")!r}
+save_params(path, torch_to_flax(build_model(tiny("resnet", "PascalVOC"))))
+out = cli.main(["--cpu", "1", "--synthetic", "2", "--params", path])
+assert 0.0 <= out["mAP"] <= 1.0, out
+assert hostops.backend() == "c"
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert "mAP:" in r.stdout
     assert r.stdout.split()[-1] == "ok"
 
 

@@ -224,7 +224,8 @@ def test_detect_single_serves_a_request(bridged):
     assert req.bucket == (128, 160) and req.image.dtype == np.uint8
     out = pred.predict({"images": req.image[None], "im_info": req.im_info[None],
                         "orig_hw": np.asarray([req.orig_hw], np.float32)})
-    for a, b in zip(dets[1:], detections_from_output(out, NUM_CLASSES)[1:]):
+    got, _ = detections_from_output(out, req.im_info, req.orig_hw, cfg, NUM_CLASSES)
+    for a, b in zip(dets[1:], got[1:]):
         np.testing.assert_array_equal(a, b)
 
 
