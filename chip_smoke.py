@@ -95,15 +95,36 @@
    between the card and the CPU.  Printed: images/s per setting, the
    dispatch thread's wait per batch, the feed's and the completion pool's
    counters, host syncs per forward, launches per image, peak memory;
-9. times each kernel on captured tensors: NMS and kernel 2 at the serving
+9. ``[fpn serve]`` and ``[mask serve]``: ResNet-50 FPN
+   (``generate_config("resnet_fpn", "coco")``) and Mask R-CNN ResNet-101 FPN
+   (``"mask_resnet_fpn"``) at full width (81 classes, the 256-channel neck,
+   14 × 14 pooling, the 28 × 28 mask head), seeded weights calibrated on the
+   first request by inference forwards, serve six synthetic COCO-like
+   requests in both buckets and a same-bucket batch of 2: FPN through
+   ``detect_single``, the mask model through the Predictor with the device
+   canvas paste, ``detections_from_output``, the cap and
+   ``rles_for_detections``.  The launch counts of the run must be NMS 2 and
+   kernel 2 4 (FPN) or 8 (mask) a forward; the kernels are held against
+   their plain versions on the captured tensors, every device canvas of the
+   batch bitwise against ``paste_mask_canvas``; printed: request latency,
+   peak memory, the paste's ms and memory, host syncs in one forward on a
+   staged batch (must be 0) and one profiled request.  ``[mask eval]``:
+   ``pred_eval`` of the mask model over 32 synthetic 480 × 640 masked
+   images, serial and the JAX package's defaults, which must give
+   bit-identical detections and RLEs and equal box mAP and segm stats;
+   images/s.  A small request of each runs on the card and on the CPU and
+   the two must agree;
+10. times each kernel on captured tensors: NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
    kernel 2 at P3): its device time
    from a CUDA graph of the wrapper (``ms``), the eager wrapper
    (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
-   bound for the work this data needs;
-10. prints one JSON line with each kernel's launches, max error, times and
+   bound for the work this data needs; and NMS (the levels' union, the
+   classes) and kernel 2 (P2..P5, and the mask branch's P2) at the FPN and
+   mask serving shapes;
+11. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -150,6 +171,7 @@ from mx_rcnn_tpu_torch.data.loader import (
     make_batch,
 )
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from mx_rcnn_tpu_torch.eval.segm import paste_mask_canvas, rles_for_detections
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
@@ -194,8 +216,25 @@ REQUEST_HW = [(375, 500), (500, 375), (480, 640), (640, 480), (333, 500), (500, 
 DEVICE = "cuda"
 
 
+# (tag, start) of each phase: a line "[tag] ..." after lines of another tag
+# starts one
+PHASES = []
+
+
 def log(msg: str) -> None:
+    if msg.startswith("[") and "]" in msg:
+        tag = msg[1:msg.index("]")]
+        if not PHASES or PHASES[-1][0] != tag:
+            PHASES.append((tag, time.monotonic()))
     print(msg, flush=True)
+
+
+def phase_seconds(end: float) -> dict:
+    """Seconds spent in each phase, summed over its runs of lines."""
+    out = {}
+    for (tag, t0), (_, t1) in zip(PHASES, PHASES[1:] + [("", end)]):
+        out[tag] = round(out.get(tag, 0.0) + t1 - t0, 1)
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -782,10 +821,12 @@ def time_nms(boxes, valid, thresh, max_keep):
     return times + bound_ms(*nms_work(boxes, valid, keep, thresh, max_keep))
 
 
-def small_request_agrees(cfg, dev):
+def small_request_agrees(cfg, dev, num_classes=NUM_CLASSES):
     """A small request through the card (kernels) and the CPU (plain
     versions) with the same weights: the forward outputs and the
-    detections must agree."""
+    detections must agree.  An FPN model's weights are calibrated on the
+    request first (BN moments and unit scales, as for serving); a mask
+    model's mask logits, selected masks and pasted canvases are held too."""
     small = cfg.replace(
         dataset=dataclasses.replace(cfg.dataset, SCALES=((192, 320),)),
         SHAPE_BUCKETS=((192, 320), (320, 192)),
@@ -802,7 +843,13 @@ def small_request_agrees(cfg, dev):
         "orig_hw": np.asarray([r.orig_hw for r in reqs], np.float32),
     }
     raw = {k: v for k, v in batch.items() if k != "orig_hw"}
-    pp = make_test_postprocess(small, NUM_CLASSES, small.TEST.SCORE_THRESH, small.TEST.DET_PER_CLASS)
+    if small.network.USE_FPN:
+        staged = batch_to_device(raw, dev)
+        calibrate_bn(model, staged)
+        calibrate_scales(model, staged)
+    mask = small.network.USE_MASK
+    pp = make_test_postprocess(small, num_classes, small.TEST.SCORE_THRESH,
+                               small.TEST.DET_PER_CLASS, paste=mask)
     outs = {}
     for name, d in (("card", dev), ("cpu", "cpu")):
         pred = Predictor(copy.deepcopy(model), pp, device=d)
@@ -811,21 +858,88 @@ def small_request_agrees(cfg, dev):
     if not np.array_equal(fg["roi_valid"], fc["roi_valid"]):
         raise AssertionError("card and CPU keep different proposals")
     v = fc["roi_valid"]
-    errs = {
-        "rois": float(np.abs(fg["rois"][v] - fc["rois"][v]).max()),
-        "cls_prob": float(np.abs(fg["cls_prob"][v] - fc["cls_prob"][v]).max()),
-        "bbox_deltas": float(np.abs(fg["bbox_deltas"][v] - fc["bbox_deltas"][v]).max()),
-    }
+    keys = ("rois", "cls_prob", "bbox_deltas") + (("mask_logits",) if mask else ())
+    errs = {k: float(np.abs(fg[k][v] - fc[k][v]).max()) for k in keys}
     same_dets = bool(np.array_equal(dg["det_valid"], dc["det_valid"]))
     m = dc["det_valid"]
+    canvas = {}
     if same_dets:
-        errs["det_boxes"] = float(np.abs(dg["det_boxes"][m] - dc["det_boxes"][m]).max())
-        errs["det_scores"] = float(np.abs(dg["det_scores"][m] - dc["det_scores"][m]).max())
+        # each class's kept rows by nearest box: two rows whose scores tie
+        # within rounding may take each other's slot
+        box_err = score_err = 0.0
+        for b, c in zip(*np.nonzero(m.any(-1))):
+            d, near = _nearest(dg["det_boxes"][b, c][m[b, c]], dc["det_boxes"][b, c][m[b, c]])
+            box_err = max(box_err, float(d.max()))
+            score_err = max(score_err, float(np.abs(
+                dg["det_scores"][b, c][m[b, c]] - dc["det_scores"][b, c][m[b, c]][near]).max()))
+        errs["det_boxes"], errs["det_scores"] = box_err, score_err
+        if mask:
+            canvas = _mask_entries_agree(dg, dc, errs)
     log(f"  small request card vs CPU: valid rois {int(v.sum())}, detections {int(m.sum())}, "
-        f"same keep masks {same_dets}, max|d| {errs}")
-    limits = {"rois": 1e-2, "cls_prob": 1e-4, "bbox_deltas": 1e-3, "det_boxes": 1e-2, "det_scores": 1e-4}
+        f"same keep masks {same_dets}, max|d| {errs}" + (f", masks {canvas}" if mask else ""))
+    limits = {"rois": 1e-2, "cls_prob": 1e-4, "bbox_deltas": 1e-3, "det_boxes": 1e-2,
+              "det_scores": 1e-4, "mask_logits": 1e-3, "det_masks": 1e-3}
     if not same_dets or any(errs[k] > limits[k] for k in errs):
         raise AssertionError(f"card and CPU disagree beyond {limits}")
+    # a canvas pixel flips only where its fixed-point value sits on 0, which
+    # logits a rounding step apart can straddle
+    if canvas and (canvas["differing"] > 1e-3 * max(canvas["set_pixels"], 1)
+                   or canvas["unmatched_off_the_cut"]):
+        raise AssertionError(f"card and CPU masks differ: {canvas}")
+
+
+def _nearest(a, b):
+    """For each row of the (n, 4) boxes ``a``: the largest coordinate gap
+    to its nearest row of ``b``, and that row."""
+    if not len(a):
+        return np.zeros(0), np.zeros(0, int)
+    d = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+    return d.min(1), d.argmin(1)
+
+
+def _mask_entries_agree(dg, dc, errs):
+    """The device-selected masks of the card (``dg``) against the CPU's
+    (``dc``): each image's entries matched by class and nearest box.  An
+    entry without a match must score within 1e-4 of the image's cut (its
+    lowest selected score: two near-tied candidates may swap across it).
+    Sets ``errs["det_masks"]`` (matched logits) and returns the canvases'
+    set and differing pixels over the matched pairs."""
+    max_out = dg["det_boxes"].shape[2]
+    out = {"set_pixels": 0, "differing": 0, "matched": 0, "unmatched_at_the_cut": 0,
+           "unmatched_off_the_cut": 0}
+    err = 0.0
+    for b in range(dg["det_masks"].shape[0]):
+        sides = []
+        for o in (dg, dc):
+            idx = o["det_mask_idx"][b][o["det_mask_valid"][b]]
+            flat = o["det_boxes"][b].reshape(-1, 4)
+            sides.append((idx, idx // max_out, flat[idx], o["det_scores"][b].reshape(-1)[idx],
+                          np.nonzero(o["det_mask_valid"][b])[0]))
+        (gi, gcls, gbox, gsc, gpos), (ci, ccls, cbox, csc, cpos) = sides
+        cut = min(gsc.min(), csc.min())
+        used = set()
+        for t in range(len(gi)):
+            same = np.nonzero(ccls == gcls[t])[0]
+            d = np.abs(cbox[same] - gbox[t]).max(-1) if len(same) else np.zeros(0)
+            if len(d) and d.min() <= 1e-2:
+                u = int(same[d.argmin()])
+                used.add(u)
+                err = max(err, float(np.abs(dg["det_masks"][b, gpos[t]]
+                                            - dc["det_masks"][b, cpos[u]]).max()))
+                if "det_canvas" in dg:
+                    a, c = dg["det_canvas"][b, gpos[t]], dc["det_canvas"][b, cpos[u]]
+                    out["set_pixels"] += int(c.sum())
+                    out["differing"] += int((a != c).sum())
+                out["matched"] += 1
+            elif gsc[t] - cut <= 1e-4:
+                out["unmatched_at_the_cut"] += 1
+            else:
+                out["unmatched_off_the_cut"] += 1
+        for u in set(range(len(ci))) - used:
+            key = "unmatched_at_the_cut" if csc[u] - cut <= 1e-4 else "unmatched_off_the_cut"
+            out[key] += 1
+    errs["det_masks"] = err
+    return out
 
 
 # ------------------------------------------------------------ train path
@@ -847,9 +961,20 @@ def train_batch(cfg, roidb, i, dev):
         make_batch([rec], cfg, _orientation_bucket(rec, cfg.SHAPE_BUCKETS), seeds=[i]), dev)
 
 
+def _calibration_forward(model, batch):
+    """One forward on ``batch``: the train forward when it carries gt boxes,
+    else the inference forward (a mask model has no train forward yet)."""
+    with torch.no_grad():
+        if "gt_boxes" in batch:
+            model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                  train=True, sample_seeds=batch["sample_seeds"])
+        else:
+            model(batch["images"], batch["im_info"])
+
+
 def calibrate_bn(model, batch):
     """Set every frozen BN's moments to the per-channel mean and variance of
-    its input in one train forward on ``batch`` (a pre-hook sets them before
+    its input in one forward on ``batch`` (a pre-hook sets them before
     the layer runs, so each later layer sees calibrated inputs).  This gives
     the random network the unit-scale activations a pretrained backbone's BN
     moments give: with identity moments, seeded random convolutions on raw
@@ -867,33 +992,29 @@ def calibrate_bn(model, batch):
     hooks = [m.register_forward_pre_hook(set_moments) for m in model.modules()
              if isinstance(m, FrozenBatchNorm)]
     try:
-        with torch.no_grad():
-            model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                  train=True, sample_seeds=batch["sample_seeds"])
+        _calibration_forward(model, batch)
     finally:
         for h in hooks:
             h.remove()
-    log(f"  BN moments set from one forward on a training image: {len(hooks)} layers")
+    log(f"  BN moments set from one forward on an image: {len(hooks)} layers")
 
 
 def calibrate_scales(model, batch):
-    """Rescale each layer that no frozen BN follows, the FPN neck's convs and
-    its 2-fc head (none in C4), so that its output has unit standard
-    deviation on ``batch``: layer by layer in forward order, one train
-    forward each (LSUV, Mishkin & Matas 2016).  ``calibrate_bn`` gives the
+    """Rescale each layer that no frozen BN follows, the FPN neck's convs,
+    its 2-fc head and the mask head's layers (none in C4), so that its
+    output has unit standard deviation on ``batch``: layer by layer in
+    forward order, one forward each (LSUV, Mishkin & Matas 2016).  ``calibrate_bn`` gives the
     backbone unit-scale activations; without this the random neck and head
     leave the pooled features and the head's outputs far above unit scale,
     each clipped SGD step moves the 50176-input ``fc1`` outputs by far more
     than their scale, and the losses run away within a few steps."""
     layers = [(n, m) for n, m in model.named_modules()
-              if n.startswith("neck.") or n in ("top_head.fc1", "top_head.fc2")]
+              if n.startswith(("neck.", "mask_head.")) or n in ("top_head.fc1", "top_head.fc2")]
     for name, layer in layers:
         seen = []
         hook = layer.register_forward_hook(lambda m, i, o: seen.append(float(o.std())))
         try:
-            with torch.no_grad():
-                model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                      train=True, sample_seeds=batch["sample_seeds"])
+            _calibration_forward(model, batch)
         finally:
             hook.remove()
         with torch.no_grad():
@@ -901,7 +1022,7 @@ def calibrate_scales(model, batch):
             if layer.bias is not None:
                 layer.bias.div_(seen[0])
     if layers:
-        log(f"  unit output scale set from one forward each on a training image: {len(layers)} "
+        log(f"  unit output scale set from one forward each on an image: {len(layers)} "
             f"layers ({', '.join(n for n, _ in layers)})")
 
 
@@ -1506,16 +1627,19 @@ MAP_TOL = 1e-6
 
 
 class _TimedImdb:
-    """An imdb that notes when ``pred_eval`` hands it the detections: the
-    end of the loop's drain."""
+    """An imdb that notes when ``pred_eval`` hands it the detections (the
+    end of the loop's drain) and keeps a mask model's RLEs."""
 
     def __init__(self, imdb):
         self.imdb, self.num_classes = imdb, imdb.num_classes
-        self.t_end = None
+        self.t_end = self.all_masks = None
 
-    def evaluate_detections(self, all_boxes):
+    def evaluate_detections(self, all_boxes, all_masks=None):
         self.t_end = time.perf_counter()
-        return self.imdb.evaluate_detections(all_boxes)
+        if all_masks is None:
+            return self.imdb.evaluate_detections(all_boxes)
+        self.all_masks = all_masks
+        return self.imdb.evaluate_detections(all_boxes, all_masks=all_masks)
 
 
 def eval_settings(workers: int):
@@ -1560,7 +1684,7 @@ def eval_run(predictor, cfg, roidb, imdb, batch, knobs, loop_knobs, label):
     """``pred_eval`` over ``roidb`` with the loop's ``loop_knobs`` (its
     in_flight, feed_depth and mode); images/s over the images after the
     first result, by the host clock from that result to the end of the
-    drain.  Returns (all_boxes, results, figures, launches)."""
+    drain.  Returns (all_boxes, results, figures, launches, all_masks)."""
     orig = tester_mod.pipelined
     first = {}
 
@@ -1600,7 +1724,7 @@ def eval_run(predictor, cfg, roidb, imdb, batch, knobs, loop_knobs, label):
         f"launches {launches} ({fig['launches_per_image']} per image); mAP {results['mAP']:.6f}")
     if min(launches["nms"], launches["roi_align_fwd"]) <= 0:
         raise AssertionError(f"{label}: a kernel of the eval path never launched: {launches}")
-    return all_boxes, results, fig, launches
+    return all_boxes, results, fig, launches, timed_imdb.all_masks
 
 
 def _kept_diff(a, b, cfg):
@@ -1861,6 +1985,249 @@ def small_eval_agrees(dev):
         raise AssertionError("the small eval disagrees between the card and the CPU")
 
 
+# ------------------------------------------------- FPN and mask inference
+COCO_CLASSES = 81
+# kernel launches of one FPN / Mask R-CNN inference forward with the device
+# postprocess: NMS over the levels' union and over the classes; kernel 2 on
+# P2..P5 for the box head, and again at 14 x 14 for the mask head
+FPN_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd": 4}
+MASK_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd": 8}
+MASK_EVAL_IMAGES = 32
+# COCO's most common image size: 608 x 810 after the resize, in the
+# 608 x 1024 bucket
+MASK_EVAL_HW = (480, 640)
+
+
+def masked_images(hws, seed: int = 30):
+    """Synthetic COCO-like images (polygon shapes of 80 classes on noise)
+    of the given sizes, one record each."""
+    out = []
+    for i, hw in enumerate(hws):
+        rec = SyntheticDataset(num_images=1, num_classes=COCO_CLASSES, image_size=hw,
+                               seed=seed + i, with_masks=True).gt_roidb()[0]
+        out.append(load_record_image(rec))
+    return out
+
+
+def serve_masks(predictor, im, cfg):
+    """One mask request: prepare, forward with the device postprocess (and
+    paste), per-class detections capped at MAX_PER_IMAGE with their mask
+    probabilities, and an image-space RLE for each.  → (dets, rles, the
+    host outputs, the batch)."""
+    req = prepare_request(im, cfg, BucketLadder(cfg.SHAPE_BUCKETS))
+    batch = {"images": req.image[None], "im_info": req.im_info[None],
+             "orig_hw": np.asarray([req.orig_hw], np.float32)}
+    out = predictor.predict(batch)
+    dets, probs = runner_mod.detections_from_output(
+        out, batch["im_info"][0], req.orig_hw, cfg, COCO_CLASSES)
+    dets, probs = cap_detections(dets, cfg.TEST.MAX_PER_IMAGE, probs)
+    h, w = req.orig_hw
+    rles = {j: rles_for_detections(probs[j], dets[j], h, w) for j in range(1, COCO_CLASSES)}
+    return dets, rles, out, batch
+
+
+def canvas_matches_host_paste(out, batch):
+    """Every valid survivor's device canvas (``det_canvas``) bitwise against
+    ``eval/segm.py::paste_mask_canvas`` on the same logits and box; returns
+    (survivors checked, pixels set)."""
+    checked = pixels = 0
+    hc, wc = batch["images"].shape[1:3]
+    for b in range(out["det_canvas"].shape[0]):
+        flat = out["det_boxes"][b].reshape(-1, 4)
+        for p in np.where(out["det_mask_valid"][b])[0]:
+            box = flat[out["det_mask_idx"][b, p]] * batch["im_info"][b, 2]
+            expect = paste_mask_canvas(out["det_masks"][b, p], box, hc, wc)
+            if out["det_canvas"][b, p].tobytes() != expect.tobytes():
+                raise AssertionError(f"device canvas of image {b} survivor {p} differs from "
+                                     f"paste_mask_canvas")
+            checked += 1
+            pixels += int(expect.sum())
+    return checked, pixels
+
+
+def paste_cost(model, cfg, batch, dev):
+    """Device ms and memory of the canvas paste at the batch's bucket: the
+    mask postprocess with and without ``paste`` on the same raw outputs
+    (CUDA events), and the peak memory the paste adds."""
+    staged = batch_to_device(batch, dev)
+    with torch.inference_mode():
+        raw = Predictor(model, device=dev).predict_async(staged)
+        hw = tuple(staged["images"].shape[1:3])
+        args = (raw, staged["im_info"], staged["orig_hw"])
+        te = cfg.TEST
+        plain = make_test_postprocess(cfg, COCO_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS)
+        paste = make_test_postprocess(cfg, COCO_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS,
+                                      paste=True)
+        no_paste_ms = cuda_ms(lambda: plain(*args), reps=5)
+        with_paste_ms = cuda_ms(lambda: paste(*args, hw), reps=5)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        paste(*args, hw)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2**20
+    fig = {"batch": int(staged["images"].shape[0]), "canvas_hw": list(hw),
+           "postprocess_ms": no_paste_ms, "postprocess_with_paste_ms": with_paste_ms,
+           "paste_ms": with_paste_ms - no_paste_ms, "paste_peak_extra_mib": extra,
+           "canvas_mib": staged["images"].shape[0] * cfg.TEST.MAX_PER_IMAGE * hw[0] * hw[1] / 2**20}
+    log(f"  canvas paste at {hw}, batch {fig['batch']}: postprocess {no_paste_ms:.3f} ms, with "
+        f"paste {with_paste_ms:.3f} ms (paste {fig['paste_ms']:.3f} ms); canvas "
+        f"{fig['canvas_mib']:.1f} MiB uint8, peak memory over the forward's +{extra:.1f} MiB")
+    return fig
+
+
+def infer_serve_phase(label, cfg, dev, per_forward):
+    """Serve the six REQUEST_HW synthetic COCO-like requests (both buckets)
+    and a same-bucket batch of 2 through the FPN or Mask R-CNN model at full
+    width, from seeded weights calibrated on the first request (BN moments
+    and unit scales from one inference forward).  A box model serves with
+    ``detect_single``; a mask model through the Predictor with the canvas
+    paste, ``detections_from_output``, the cap and ``rles_for_detections``.
+    Gates: the launches of the run (reset just before, read just after) are
+    ``per_forward`` × 7 forwards, finite detections of the right shapes, and
+    for the mask model every device canvas of the batch bitwise equal to
+    ``paste_mask_canvas``.  Returns (capture, launches, figures, predictor,
+    one request image, the calibrated weights)."""
+    mask = cfg.network.USE_MASK
+    model = make_model(cfg)
+    images = masked_images(REQUEST_HW)
+    ladder = BucketLadder(cfg.SHAPE_BUCKETS)
+    reqs = [prepare_request(im, cfg, ladder) for im in images]
+    buckets = sorted({r.bucket for r in reqs})
+    if len(buckets) != 2:
+        raise AssertionError(f"requests must cover both buckets, got {buckets}")
+    calib = batch_to_device({"images": reqs[0].image[None], "im_info": reqs[0].im_info[None]}, dev)
+    calibrate_bn(model, calib)
+    calibrate_scales(model, calib)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    te = cfg.TEST
+    pp = make_test_postprocess(cfg, COCO_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS, paste=mask)
+    predictor = Predictor(model, pp, device=dev)
+
+    def serve(im):
+        if mask:
+            return serve_masks(predictor, im, cfg)[0]
+        return detect_single(predictor, im, cfg, COCO_CLASSES)
+
+    pair = [i for i, r in enumerate(reqs) if r.bucket == buckets[0]][:2]
+    batch = {
+        "images": np.stack([reqs[i].image for i in pair]),
+        "im_info": np.stack([reqs[i].im_info for i in pair]),
+        "orig_hw": np.asarray([reqs[i].orig_hw for i in pair], np.float32),
+    }
+    # warm-up, one request per bucket and the batch (cuDNN and allocator
+    # first use); the peak memory is read over it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in buckets:
+        serve(images[[r.bucket for r in reqs].index(b)])
+    predictor.predict(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    reset_launches()
+    with Capture() as cap:
+        all_dets = [serve(im) for im in images]
+        out = predictor.predict(batch)
+    launches = read_launches()
+    expected = {k: per_forward.get(k, 0) * 7 for k in KERNELS}
+    log(f"  launches in the {label} path (6 requests, a batch of 2): {launches}")
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches}, reckoned {expected}")
+    for dets in all_dets:
+        for d in dets[1:]:
+            if d.ndim != 2 or d.shape[1] != 5 or not np.isfinite(d).all():
+                raise AssertionError("non-finite or misshapen detections")
+    if out["det_boxes"].shape != (2, COCO_CLASSES - 1, te.DET_PER_CLASS, 4):
+        raise AssertionError(f"det_boxes shape {out['det_boxes'].shape}")
+    if not np.isfinite(out["det_boxes"]).all() or not out["det_valid"].any():
+        raise AssertionError("batch detections are non-finite or empty")
+
+    times, fwd_times, rle_counts = [], [], []
+    for im in images:
+        t0 = time.perf_counter()
+        if mask:
+            _, rles, _, _ = serve_masks(predictor, im, cfg)
+            rle_counts.append(sum(len(v) for v in rles.values()))
+        else:
+            serve(im)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    predictor.predict(batch)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    fig = {"latency_ms": times, "latency_ms_median": statistics.median(times),
+           "batch_of_2_ms": batch_ms, "peak_mib": peak,
+           "detections_request_0": int(sum(len(d) for d in all_dets[0][1:]))}
+    log(f"  per-request ms (host resize" + (", RLEs of the capped detections" if mask else "")
+        + f" included): {[round(t, 3) for t in times]} median={fig['latency_ms_median']:.3f}; "
+        f"batch-of-2 Predictor.predict ms: {batch_ms:.3f}; max_memory_allocated over the warm-up "
+        f"{peak:.1f} MiB; detections request 0: {fig['detections_request_0']}")
+    if mask:
+        fig["rles_per_request"] = rle_counts
+        checked, pixels = canvas_matches_host_paste(out, batch)
+        fig["canvas_checked"], fig["canvas_pixels"] = checked, pixels
+        log(f"  RLEs per request {rle_counts}; device canvas bitwise equal to paste_mask_canvas "
+            f"on all {checked} survivors of the batch ({pixels} pixels set)")
+        if checked == 0 or pixels == 0 or min(rle_counts) == 0:
+            raise AssertionError("the mask path pasted no mask")
+        fig["paste"] = paste_cost(model, cfg, batch, dev)
+    fig["host_syncs"] = host_syncs_per_forward(
+        predictor, {k: v[:1] for k, v in batch.items()}, dev)
+    if fig["host_syncs"]["forward"]["count"] != 0:
+        raise AssertionError(f"{label}: host syncs in the forward {fig['host_syncs']}")
+    _, wall_ms, events = _profiled(lambda: serve(images[0]))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    fig["profile"] = {"wall_ms": wall_ms, "busy_ms": busy}
+    by_layer = {}
+    for e in events:
+        by_layer[_layer_of(e.key)] = by_layer.get(_layer_of(e.key), 0.0) + e.self_device_time_total
+    log(f"  one request profiled: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms; by layer "
+        + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in sorted(by_layer.items(), key=lambda kv: -kv[1])))
+    return cap, launches, fig, predictor, images[0], weights
+
+
+def mask_eval_phase(cfg, weights, dev):
+    """``pred_eval`` of the Mask R-CNN model over MASK_EVAL_IMAGES synthetic
+    COCO-sized masked images, serial and with the JAX package's defaults:
+    bit-identical detections and RLEs, equal box mAP and segm stats, and the
+    path's kernels launched per image as reckoned.  Returns the figures."""
+    imdb = SyntheticDataset(num_images=MASK_EVAL_IMAGES, num_classes=COCO_CLASSES,
+                            image_size=MASK_EVAL_HW, with_masks=True)
+    roidb = imdb.gt_roidb()
+    model = make_model(cfg)
+    model.load_state_dict(weights)
+    predictor = Predictor(model, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, figures = {}, {}
+    for label, knobs, loop_knobs in (
+            ("serial", {"postprocess_workers": 0}, {"in_flight": 1, "feed_depth": 0,
+                                                    "mode": "async"}),
+            ("JAX defaults", {"postprocess_workers": 0}, {})):
+        runs[label] = eval_run(predictor, cfg, roidb, imdb, 1, knobs, loop_knobs, label)
+        figures[label] = runs[label][2]
+        figures[label]["segm"] = {k: v for k, v in runs[label][1].items() if k.startswith("segm_")}
+        per_image = {k: v / MASK_EVAL_IMAGES for k, v in runs[label][3].items()}
+        if per_image != {k: float(MASK_SERVE_LAUNCHES.get(k, 0)) for k in KERNELS}:
+            raise AssertionError(f"{label}: launches per image {per_image}")
+    figures["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    (a, ra, _, _, ma), (b, rb, _, _, mb) = runs["serial"], runs["JAX defaults"]
+    kept = sum(len(a[j][i]) for j in range(1, COCO_CLASSES) for i in range(MASK_EVAL_IMAGES))
+    same = all(np.array_equal(a[j][i], b[j][i]) and ma[j][i] == mb[j][i]
+               for j in range(1, COCO_CLASSES) for i in range(MASK_EVAL_IMAGES))
+    log(f"  {kept} detections (and masks) kept over {MASK_EVAL_IMAGES} images; serial vs JAX "
+        f"defaults bit-identical (boxes and RLEs) {same}; images/s serial "
+        f"{figures['serial']['images_per_s']:.3f}, JAX defaults "
+        f"{figures['JAX defaults']['images_per_s']:.3f}; mAP {ra['mAP']:.6f}; segm "
+        f"{figures['serial']['segm']}; max_memory_allocated {figures['peak_mib']:.1f} MiB")
+    if kept == 0 or not same or ra != rb:
+        raise AssertionError("the mask eval settings disagree or kept nothing")
+    if len(figures["serial"]["segm"]) != 12:
+        raise AssertionError(f"segm stats missing: {ra}")
+    figures["launches"] = runs["JAX defaults"][3]
+    return figures
+
+
 # ------------------------------------------------------------------ timing
 def nms_timing(entry, label):
     boxes, valid, thresh, max_keep = entry
@@ -2110,6 +2477,31 @@ def main() -> int:
     log("[eval] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, eval_cap, bwd_diff, stream_diff))
 
+    fpn_cfg = generate_config("resnet_fpn", "coco")
+    mask_cfg = generate_config("mask_resnet_fpn", "coco")
+    for name, c in (("fpn serve", fpn_cfg), ("mask serve", mask_cfg)):
+        n, t = c.network, c.TEST
+        log(f"[{name}] ResNet-{n.depth} FPN{' Mask R-CNN' if n.USE_MASK else ''} "
+            f"({n.FPN_CHANNELS} channels, pooled {n.POOLED_SIZE}"
+            f"{', 28x28 mask head, device canvas paste' if n.USE_MASK else ''}), "
+            f"{c.dataset.NUM_CLASSES} classes, buckets {c.SHAPE_BUCKETS}, "
+            f"{t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} proposals, MAX_PER_IMAGE "
+            f"{t.MAX_PER_IMAGE}: six synthetic COCO-like requests {REQUEST_HW} and a batch of 2")
+        if name == "fpn serve":
+            fpn_serve_cap, fpn_serve_launches, fpn_serve_stats, *_ = infer_serve_phase(
+                "FPN serving", c, dev, FPN_SERVE_LAUNCHES)
+            cap_in = fpn_serve_cap
+        else:
+            mask_cap, mask_serve_launches, mask_serve_stats, _, _, mask_weights = \
+                infer_serve_phase("Mask R-CNN serving", c, dev, MASK_SERVE_LAUNCHES)
+            cap_in = mask_cap
+        log(f"[{name}] kernels vs plain on the captured tensors")
+        roi_err = max(roi_err, hold_captured(nms_diff, cap_in, bwd_diff, stream_diff))
+    log(f"[mask eval] Mask R-CNN pred_eval from the calibrated serving weights: "
+        f"{MASK_EVAL_IMAGES} synthetic {MASK_EVAL_HW[0]}x{MASK_EVAL_HW[1]} masked images, "
+        f"{COCO_CLASSES} classes, serial and the JAX defaults, box mAP and the COCO segm stats")
+    mask_eval_stats = mask_eval_phase(mask_cfg, mask_weights, dev)
+
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
     classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
@@ -2136,6 +2528,16 @@ def main() -> int:
         f"streamed backward {stream_bwd_p2['ms']:.4f} ms vs resident {resident_bwd_p2['ms']:.4f} ms; "
         f"P3: streamed forward {stream_p3['ms']:.4f} ms vs resident {resident_p3['ms']:.4f} ms")
 
+    log("[timing] FPN and Mask R-CNN serving shapes, on the batch-of-2 calls' captured tensors")
+    fpn_union = nms_timing([c for c in fpn_serve_cap.nms if c[2] == fpn_cfg.TEST.RPN_NMS_THRESH][-1],
+                           "FPN serving union of the levels' top-k")
+    fpn_classes = nms_timing([c for c in fpn_serve_cap.nms if c[2] == fpn_cfg.TEST.NMS][-1],
+                             "FPN serving classes")
+    fpn_serve_roi = {f"p{lv}": roi_fwd_timing(at_scale(fpn_serve_cap.roi, 0.5 ** lv),
+                                              f"FPN serving P{lv}") for lv in (2, 3, 4, 5)}
+    mask_roi = roi_fwd_timing(at_scale(mask_cap.roi, 0.25), "Mask R-CNN mask branch P2")
+    del fpn_serve_cap, mask_cap, cap_in
+
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
     log("[profile] where one C4 train step's device time goes")
@@ -2145,6 +2547,14 @@ def main() -> int:
 
     log("[reference] small request, card vs CPU")
     small_request_agrees(cfg, dev)
+    log("[fpn serve reference] small FPN request, card vs CPU")
+    small_request_agrees(fpn_cfg, dev, COCO_CLASSES)
+    # at ResNet-50 depth: the calibrated random ResNet-101 carries the card's
+    # and the CPU's rounding apart until the proposals reorder (rois 148 px
+    # apart at equal validity on the H100, PERF.md §6)
+    log("[mask serve reference] small Mask R-CNN request (ResNet-50 depth), card vs CPU")
+    small_request_agrees(mask_cfg.replace(network=dataclasses.replace(mask_cfg.network, depth=50)),
+                         dev, COCO_CLASSES)
     log("[train reference] small train steps, card vs CPU")
     argmax_takes_the_first_maximum(dev)
     train_step_agrees(dev, small_c4_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
@@ -2159,7 +2569,15 @@ def main() -> int:
     log(f"[fpn train] stats {json.dumps(fpn_stats)}")
     log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
     log(f"[eval] stats {json.dumps(eval_stats)}")
-    log(f"[done] {time.monotonic() - t_start:.1f} s")
+    log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
+    log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
+    log(f"[mask eval] stats {json.dumps(mask_eval_stats)}")
+    log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
+    def infer_launches(kernel):
+        return {"fpn_serve_launches": fpn_serve_launches[kernel],
+                "mask_serve_launches": mask_serve_launches[kernel],
+                "mask_eval_launches": mask_eval_stats["launches"][kernel]}
+
     print(json.dumps({"kernels": [
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
@@ -2168,10 +2586,12 @@ def main() -> int:
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
             "eval_launches": eval_launches["nms"],
             "serve_launches": serve_launches["nms"],
+            **infer_launches("nms"),
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
             **train_nms, "library_ms": None,
             **_prefixed("serve", serve_nms), **_prefixed("class", classes),
-            **_prefixed("fpn", fpn_nms),
+            **_prefixed("fpn", fpn_nms), **_prefixed("fpn_serve_union", fpn_union),
+            **_prefixed("fpn_serve_classes", fpn_classes),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -2180,16 +2600,20 @@ def main() -> int:
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
             "eval_launches": eval_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
+            **infer_launches("roi_align_fwd"),
             "max_abs_err": roi_err, f"s{RUNTIME_S}_max_abs_err": s5_err, **train_roi,
             "library_ms": None, **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
             **_prefixed("p2", resident_p2), **_prefixed("p3", resident_p3),
+            **{k: v for lv, e in fpn_serve_roi.items() for k, v in
+               _prefixed(f"fpn_serve_{lv}", e).items()},
+            **_prefixed("mask_serve_p2", mask_roi),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148", "design": "PR 5",
             "ptxas": redesigned["roi_align_bwd"],
             "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
-            "eval_launches": eval_launches["roi_align_bwd"],
+            "eval_launches": eval_launches["roi_align_bwd"], **infer_launches("roi_align_bwd"),
             "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
             "bitwise_repeatable": bwd_diff.repeatable,
             f"s{RUNTIME_S}_scaled_err": s5_bwd.scaled_err,
@@ -2203,7 +2627,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100", "design": "PR 6",
             "ptxas": redesigned["roi_align_stream_fwd"],
             "launches": fpn_launches["roi_align_stream_fwd"],
-            "eval_launches": eval_launches["roi_align_stream_fwd"],
+            "eval_launches": eval_launches["roi_align_stream_fwd"], **infer_launches("roi_align_stream_fwd"),
             "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
             **stream_p2, "library_ms": None,
             **_prefixed("p3", stream_p3),
@@ -2214,7 +2638,7 @@ def main() -> int:
             "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164", "design": "PR 4",
             "ptxas": redesigned["roi_align_stream_bwd"],
             "launches": fpn_launches["roi_align_stream_bwd"],
-            "eval_launches": eval_launches["roi_align_stream_bwd"],
+            "eval_launches": eval_launches["roi_align_stream_bwd"], **infer_launches("roi_align_stream_bwd"),
             "max_abs_err": stream_diff.bwd_err, "scaled_err": stream_diff.bwd_scaled,
             "bitwise_repeatable": stream_diff.repeatable,
             f"s{RUNTIME_S}_scaled_err": s5_stream.bwd_scaled,

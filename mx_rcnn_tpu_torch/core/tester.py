@@ -6,12 +6,13 @@ The forward runs eagerly under ``torch.inference_mode()`` on one explicit
 device, with the device postprocess fused after it when the Predictor has
 one, so only the per-class keep lists come back to the host, in one batched
 device → host copy (:class:`PendingFetch`).  ``pred_eval`` is the dataset
-loop: test batches → ``pipelined`` forwards → per-image detections in a
-completion pool → ``imdb.evaluate_detections``.
+loop: test batches → ``pipelined`` forwards → per-image detections (and
+mask RLEs) in a completion pool → ``imdb.evaluate_detections``.
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 import os
 import pickle
@@ -105,9 +106,10 @@ class Predictor:
     """Forward-only wrapper around a model on ``device`` (default: the card).
 
     ``postprocess`` (ops/postprocess.py) runs on the device after the forward
-    whenever the batch carries ``orig_hw``.  A batch may hold numpy arrays
-    or tensors already on the device (a ``DeviceFeed`` stages them), which
-    are used without another copy."""
+    whenever the batch carries ``orig_hw``; one that ``wants_canvas`` (the
+    mask paste) also gets the batch's padded image extent, the bucket
+    canvas.  A batch may hold numpy arrays or tensors already on the device
+    (a ``DeviceFeed`` stages them), which are used without another copy."""
 
     def __init__(self, model: nn.Module, postprocess=None, device=None):
         self.device = resolve_device(device)
@@ -125,7 +127,11 @@ class Predictor:
             out = self.model(images, im_info)
             orig_hw = batch.get("orig_hw")
             if self.postprocess is not None and orig_hw is not None:
-                out = self.postprocess(out, im_info, _on_device(orig_hw, self.device, torch.float32))
+                orig_hw = _on_device(orig_hw, self.device, torch.float32)
+                if getattr(self.postprocess, "wants_canvas", False):
+                    out = self.postprocess(out, im_info, orig_hw, tuple(images.shape[1:3]))
+                else:
+                    out = self.postprocess(out, im_info, orig_hw)
         return out
 
     def predict(self, batch: Dict) -> Dict[str, np.ndarray]:
@@ -240,9 +246,8 @@ def im_detect(
     class-specific delta decode, clip to the resized image, divide by the
     scale, clip to the original extent; ``index`` picks the image of a
     batched forward.  → ``{"scores": (n, K), "boxes": (n, 4K)}`` over the
-    valid rois."""
-    if "mask_logits" in output:
-        raise NotImplementedError("mask outputs are not ported: ROADMAP queue 1 item 13")
+    valid rois, and for a mask model ``"mask_probs"`` (n, S, S, K), the
+    sigmoid of the mask logits."""
     rois = output["rois"][index]
     valid = output["roi_valid"][index].astype(bool)
     scores = output["cls_prob"][index]
@@ -254,7 +259,10 @@ def im_detect(
     boxes = boxes / scale
     h, w = orig_hw
     boxes = np_clip_boxes(boxes, (float(h), float(w)))
-    return {"scores": scores[valid], "boxes": boxes[valid]}
+    det = {"scores": scores[valid], "boxes": boxes[valid]}
+    if "mask_logits" in output:
+        det["mask_probs"] = 1.0 / (1.0 + np.exp(-np.asarray(output["mask_logits"][index][valid])))
+    return det
 
 
 def pred_eval(
@@ -272,7 +280,11 @@ def pred_eval(
 ):
     """Full-dataset evaluation loop: → ``(all_boxes, results)`` with
     ``all_boxes[cls][img]`` an (n, 5) [x1, y1, x2, y2, score] array and
-    ``results = imdb.evaluate_detections(all_boxes)``.
+    ``results = imdb.evaluate_detections(all_boxes)``.  For a mask model each
+    kept detection's mask is pasted into the image and RLE-encoded
+    (``eval/segm.py::rles_for_detections``, one (image, class) a unit of
+    completion work) and ``evaluate_detections`` gets ``all_masks`` too,
+    where it takes them (else a warning, and box results only).
 
     With TEST.DEVICE_POSTPROCESS the predictor is rebuilt with the device
     decode + NMS; otherwise its outputs go through the host branch
@@ -287,6 +299,7 @@ def pred_eval(
     (``feed``: mode, window, waits, feed occupancy).  ``vis`` raises: the
     overlays need an image writer (ROADMAP queue 1 item 7)."""
     from mx_rcnn_tpu_torch.data.assembler import CompletionPool
+    from mx_rcnn_tpu_torch.eval.segm import rles_for_detections
     from mx_rcnn_tpu_torch.serve.runner import cap_detections, detections_from_output
 
     if vis:
@@ -309,22 +322,34 @@ def pred_eval(
         [np.zeros((0, 5), np.float32) for _ in range(num_images)]
         for _ in range(num_classes)
     ]
+    all_masks: Optional[List[List[list]]] = None
     t0 = time.time()
     done = 0
-    # the slot writes are disjoint per image; the lock covers the counter
+    # the slot writes are disjoint per image; the lock covers the lazy
+    # all_masks and the counter
     acc_lock = threading.Lock()
 
     def process_image(i: int, rec: Dict, out, im_info_row, k: int = 0):
         """Accumulate dataset image ``i`` from slot ``k`` of a forward's
         outputs; safe from any completion worker."""
-        nonlocal done
+        nonlocal all_masks, done
         cls_dets, mask_probs = detections_from_output(
             out, im_info_row, (rec["height"], rec["width"]), cfg, num_classes,
             index=k, thresh=thresh,
         )
-        cls_dets, _ = cap_detections(cls_dets, te.MAX_PER_IMAGE, mask_probs)
+        # the cap before the masks: pasting detections the cap drops would
+        # dominate the segm eval's cost
+        cls_dets, mask_probs = cap_detections(cls_dets, te.MAX_PER_IMAGE, mask_probs)
         for j in range(1, num_classes):
             all_boxes[j][i] = cls_dets[j]
+        if mask_probs is not None:
+            rles = {j: rles_for_detections(mask_probs[j], cls_dets[j], rec["height"], rec["width"])
+                    for j in range(1, num_classes)}
+            with acc_lock:
+                if all_masks is None:
+                    all_masks = [[[] for _ in range(num_images)] for _ in range(num_classes)]
+            for j in range(1, num_classes):
+                all_masks[j][i] = rles[j]
         with acc_lock:
             done += 1
             n_done = done
@@ -367,4 +392,10 @@ def pred_eval(
     if dump_path:
         with open(dump_path, "wb") as f:
             pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
-    return all_boxes, imdb.evaluate_detections(all_boxes)
+    if all_masks is None:
+        return all_boxes, imdb.evaluate_detections(all_boxes)
+    if "all_masks" not in inspect.signature(imdb.evaluate_detections).parameters:
+        logger.warning("%s.evaluate_detections takes no all_masks: box results only",
+                       type(imdb).__name__)
+        return all_boxes, imdb.evaluate_detections(all_boxes)
+    return all_boxes, imdb.evaluate_detections(all_boxes, all_masks=all_masks)

@@ -15,10 +15,11 @@ from typing import Sequence, Tuple
 import numpy as np
 
 
-def _linear_taps(src: int, dst: int, scale: float):
-    """cv2's INTER_LINEAR source taps and weights along one axis."""
+def _linear_taps(src: int, dst: int, inv_scale: float):
+    """cv2's INTER_LINEAR source taps and weights along one axis, for the
+    source/destination ratio ``inv_scale``."""
     # positions and weights in float64, as OpenCV computes them
-    f = (np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / scale) - 0.5
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * inv_scale - 0.5
     lo = np.floor(f).astype(np.int64)
     w = f - lo
     w[lo < 0] = 0.0
@@ -33,12 +34,23 @@ def resize_linear(im: np.ndarray, scale: float) -> np.ndarray:
     """``cv2.resize(im, None, fx=scale, fy=scale, interpolation=INTER_LINEAR)``
     for an (H, W[, C]) image."""
     h, w = im.shape[:2]
-    dh, dw = int(round(h * scale)), int(round(w * scale))
+    return _resize(im, int(round(h * scale)), int(round(w * scale)), 1.0 / scale, 1.0 / scale)
+
+
+def resize_to(im: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """``cv2.resize(im, (dw, dh), interpolation=INTER_LINEAR)`` for an (H,
+    W[, C]) image: each axis at its own source/destination ratio."""
+    h, w = im.shape[:2]
+    return _resize(im, dh, dw, h / dh, w / dw)
+
+
+def _resize(im: np.ndarray, dh: int, dw: int, inv_y: float, inv_x: float) -> np.ndarray:
+    h, w = im.shape[:2]
     src = im.astype(np.float32)
     if src.ndim == 2:
         src = src[:, :, None]
-    x0, x1, wx0, wx1 = _linear_taps(w, dw, scale)
-    y0, y1, wy0, wy1 = _linear_taps(h, dh, scale)
+    x0, x1, wx0, wx1 = _linear_taps(w, dw, inv_x)
+    y0, y1, wy0, wy1 = _linear_taps(h, dh, inv_y)
     rows = src[:, x0] * wx0[None, :, None] + src[:, x1] * wx1[None, :, None]
     out = rows[y0] * wy0[:, None, None] + rows[y1] * wy1[:, None, None]
     if im.ndim == 2:

@@ -104,10 +104,11 @@ def set_prepared_cache(max_entries: int) -> None:
 
 
 def _render_key(rec: Dict) -> Tuple:
-    """A synthetic render is a function of the record's uri, flip, seed and
-    size (the size is in the key: two roidbs may give one uri two sizes)."""
+    """A synthetic render is a function of the record's uri, flip, seed,
+    size and whether it paints polygons (two roidbs may give one uri two
+    sizes, or one with boxes and one with polygon masks)."""
     return (rec["image"], bool(rec.get("flipped")), rec["synthetic_seed"],
-            int(rec["height"]), int(rec["width"]))
+            int(rec["height"]), int(rec["width"]), rec.get("segmentation") is not None)
 
 
 def _prepared_key(rec: Dict, scales, bucket, uint8: bool, means, stds) -> Tuple:

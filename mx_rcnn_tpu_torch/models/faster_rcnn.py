@@ -124,13 +124,15 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init with each layer's Flax initializer, drawn from
-    ``generator``: lecun_normal (truncated, fan-in) for conv kernels and
+    ``generator``: lecun_normal (truncated, fan-in) for conv kernels (the
+    mask head's transposed one too) and
     Dense kernels (``nn.Dense``'s default, e.g. the FPN head's ``fc1`` and
     ``fc2``), Normal(0.01) for ``cls_score`` and Normal(0.001) for
     ``bbox_pred`` (models/heads.py), zero biases, identity frozen BN (the
     buffers' defaults)."""
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # Flax's fan-in of an HWIO kernel, transposed ones included
             _lecun_normal_(m.weight, m.in_channels * m.kernel_size[0] * m.kernel_size[1], generator)
         elif isinstance(m, nn.Linear):
             std = _DENSE_STD.get(name.rsplit(".", 1)[-1])

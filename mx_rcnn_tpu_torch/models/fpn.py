@@ -1,18 +1,24 @@
-"""Feature Pyramid Network Faster R-CNN, box-only (port of
-``mx_rcnn_tpu/models/fpn.py``): the training forward ``train_forward``, in
-the JAX graph's order.
+"""Feature Pyramid Network Faster R-CNN and Mask R-CNN (port of
+``mx_rcnn_tpu/models/fpn.py``): the training forward ``train_forward``
+(box-only) and the inference forward ``test_forward`` with the mask branch,
+in the JAX graph's order.
 
 normalize → ResNet C2..C5 → neck (1×1 laterals, nearest top-down adds, 3×3
 smoothing) → P2..P5, P6 = P5 at stride 2 → one shared RPN head on every
-level, levels concatenated P2→P6 against one anchor table → anchor targets
-→ per-level top-k of the detached scores, one NMS over their union → roi
-sampling → ROIAlign of every roi from each of P2..P5, each blended in by the
-roi's level (``roi_levels``) → 2-fc head → RCNN head → the four losses.
+level, levels concatenated P2→P6 against one anchor table → per-level top-k
+of the fg scores, one NMS over their union → ROIAlign of every roi from each
+of P2..P5, each blended in by the roi's level (``roi_levels``) → 2-fc head →
+RCNN head.  Training adds anchor targets, roi sampling and the four losses.
+Inference masks the bucket padding through the backbone, the neck and every
+level, drops anchors on padding, pads P2..P5 to the bucket ladder and pools
+with ``valid_hw``; a mask model pools the same rois again at 14×14 for the
+mask head (per-class 28×28 logits).
 
-The ROIAlign routes as the JAX package's does (``ops/roi_align.py``): at the
-608×1024 train canvas P2 and P3 go to the streamed kernels 4/5, P4 and P5
-to the resident kernels 2/3; the NMS is kernel 1.  The inference forward,
-frozen-proposal training and the mask branch are not ported yet.
+The ROIAlign routes as the JAX package's does (``ops/roi_align.py``): in
+training at the 608×1024 canvas P2 and P3 go to the streamed kernels 4/5,
+P4 and P5 to the resident kernels 2/3; inference (``valid_hw``) pools every
+level with kernel 2.  The NMS is kernel 1.  Frozen-proposal training and
+mask training are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,15 +31,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from mx_rcnn_tpu_torch.config import Config
-from mx_rcnn_tpu_torch.models.faster_rcnn import init_weights, sampling_uniforms, train_losses
-from mx_rcnn_tpu_torch.models.heads import RCNNHead
-from mx_rcnn_tpu_torch.models.layers import conv, normalize_images
+from mx_rcnn_tpu_torch.models.faster_rcnn import (
+    FasterRCNN,
+    init_weights,
+    sampling_uniforms,
+    train_losses,
+)
+from mx_rcnn_tpu_torch.models.heads import MaskHead, RCNNHead
+from mx_rcnn_tpu_torch.models.layers import (
+    conv,
+    make_pad_mask,
+    normalize_images,
+    pad_feat_to_ladder,
+)
 from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.ops.anchors import shifted_anchors
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
 from mx_rcnn_tpu_torch.ops.nms import _NEG_INF, nms
-from mx_rcnn_tpu_torch.ops.proposal import Proposals
+from mx_rcnn_tpu_torch.ops.proposal import Proposals, anchor_grid_mask
 from mx_rcnn_tpu_torch.ops.roi_align import extract_roi_features_batched
 from mx_rcnn_tpu_torch.ops.targets import assign_anchor, sample_rois
 
@@ -88,6 +104,9 @@ class FPNTopHead(nn.Module):
         return F.relu(self.fc2(x))
 
 
+_CANONICAL: Dict = {}
+
+
 def roi_levels(rois: torch.Tensor, k0: int = 4, canonical: float = 224.0,
                lo: int = 2, hi: int = 5) -> torch.Tensor:
     """(…, 4) boxes → FPN level in [lo, hi] (Lin et al. eq. 1), int32, in
@@ -95,25 +114,27 @@ def roi_levels(rois: torch.Tensor, k0: int = 4, canonical: float = 224.0,
     w = torch.clamp_min(rois[..., 2] - rois[..., 0] + 1.0, 1.0)
     h = torch.clamp_min(rois[..., 3] - rois[..., 1] + 1.0, 1.0)
     # a device tensor divisor: IEEE division (CUDA multiplies by the
-    # reciprocal of a Python scalar)
-    canon = torch.tensor(canonical, dtype=w.dtype, device=w.device)
-    k = torch.floor(k0 + torch.log2(torch.sqrt(w * h) / canon))
+    # reciprocal of a Python scalar); built once per device, since a copy
+    # from host memory in every call would make the host wait for the card
+    key = (canonical, w.dtype, w.device)
+    if key not in _CANONICAL:
+        _CANONICAL[key] = torch.tensor(canonical, dtype=w.dtype, device=w.device)
+    k = torch.floor(k0 + torch.log2(torch.sqrt(w * h) / _CANONICAL[key]))
     return torch.clamp(k, lo, hi).to(torch.int32)
 
 
 class FPNFasterRCNN(nn.Module):
-    """Multi-level two-stage detector (``generate_config("resnet_fpn", …)``)
-    with :class:`~mx_rcnn_tpu_torch.models.faster_rcnn.FasterRCNN`'s train
-    contract: ``forward(..., train=True)`` → (loss, aux)."""
+    """Multi-level two-stage detector (``generate_config("resnet_fpn", …)``,
+    and ``"mask_resnet_fpn"`` with the mask head) with
+    :class:`~mx_rcnn_tpu_torch.models.faster_rcnn.FasterRCNN`'s contracts:
+    ``forward(..., train=True)`` → (loss, aux), ``forward(...)`` → the
+    padded inference outputs (plus ``mask_logits`` for a mask model)."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         net = cfg.network
         if not net.USE_FPN:
             raise ValueError("FPNFasterRCNN needs a USE_FPN config")
-        if net.USE_MASK:
-            raise NotImplementedError("USE_MASK: the mask family is not ported yet "
-                                      "(ROADMAP queue 1, item 13)")
         if net.name != "resnet":
             raise NotImplementedError(f"network {net.name!r} is not ported yet")
         if net.COMPUTE_DTYPE != "float32" or net.FOLD_BN:
@@ -126,7 +147,14 @@ class FPNFasterRCNN(nn.Module):
         self.rpn = RPNHead(ch, len(net.ANCHOR_RATIOS) * len(net.FPN_ANCHOR_SCALES), ch)
         self.top_head = FPNTopHead(ch * net.POOLED_SIZE[0] * net.POOLED_SIZE[1])
         self.rcnn = RCNNHead(self.top_head.fc2.out_features, cfg.dataset.NUM_CLASSES)
+        if net.USE_MASK:
+            self.mask_head = MaskHead(ch, cfg.dataset.NUM_CLASSES)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
+        # constants of the graph, built once per (device, shape), as in
+        # FasterRCNN
+        self._constants: Dict = {}
+
+    _bbox_denorm = FasterRCNN._bbox_denorm
 
     def forward(
         self,
@@ -141,38 +169,50 @@ class FPNFasterRCNN(nn.Module):
         proposals: Optional[torch.Tensor] = None,
         prop_valid: Optional[torch.Tensor] = None,
     ):
-        if not train:
-            raise NotImplementedError("the FPN inference forward (test_forward) and serving are "
-                                      "not ported yet (ROADMAP queue 1, item 12)")
         if proposals is not None or prop_valid is not None:
             raise NotImplementedError("frozen-proposal training is not ported yet "
                                       "(ROADMAP queue 1, item 12)")
         images = normalize_images(images, im_info, self.cfg)
+        if not train:
+            return self.test_forward(images, im_info)
+        if self.cfg.network.USE_MASK:
+            raise NotImplementedError(
+                "training the mask family (mask targets, the mask loss, gt masks in the "
+                "loader) is not ported yet (ROADMAP queue 1, item 13)")
         return self.train_forward(images, im_info, gt_boxes, gt_valid, sample_seeds, rng, draws)
 
     # ----------------------------------------------------------- helpers
-    def _pyramid(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def _pyramid(self, images: torch.Tensor, pad_mask=_identity) -> List[torch.Tensor]:
         """(B, H, W, 3) → [P2, P3, P4, P5, P6], NCHW.  P6 is the JAX
-        package's 1×1 max pool at stride 2 of P5: every other cell."""
-        ps = self.neck(self.backbone(images.permute(0, 3, 1, 2)))
+        package's 1×1 max pool at stride 2 of P5: every other cell, which
+        mixes nothing spatially and so needs no mask of its own."""
+        ps = self.neck(self.backbone(images.permute(0, 3, 1, 2), pad_mask), pad_mask)
         return ps + [ps[-1][:, :, ::2, ::2]]
+
+    def _anchors(self, shapes: Tuple[Tuple[int, int], ...], device) -> torch.Tensor:
+        """The levels' anchors concatenated P2→P6, (N, 4), built once per
+        (level shapes, device)."""
+        key = ("anchors", shapes, torch.device(device))
+        if key not in self._constants:
+            net = self.cfg.network
+            self._constants[key] = torch.from_numpy(np.concatenate([
+                shifted_anchors(h, w, stride, ratios=net.ANCHOR_RATIOS,
+                                scales=net.FPN_ANCHOR_SCALES)
+                for (h, w), stride in zip(shapes, net.FPN_FEAT_STRIDES)
+            ], axis=0)).to(device)
+        return self._constants[key]
 
     def _rpn_over_levels(self, pyramid: Sequence[torch.Tensor]):
         """The shared RPN on each level → logits (B, N, 2) and deltas
         (B, N, 4) concatenated P2→P6, the (N, 4) anchor table and the
         levels' bounds in it."""
-        net = self.cfg.network
         outs = [self.rpn(p) for p in pyramid]
-        anchors = np.concatenate([
-            shifted_anchors(p.shape[2], p.shape[3], stride, ratios=net.ANCHOR_RATIOS,
-                            scales=net.FPN_ANCHOR_SCALES)
-            for p, stride in zip(pyramid, net.FPN_FEAT_STRIDES)
-        ], axis=0)
+        shapes = tuple((p.shape[2], p.shape[3]) for p in pyramid)
         bounds = np.cumsum([0] + [lg.shape[1] for lg, _ in outs]).tolist()
         return (
             torch.cat([lg for lg, _ in outs], dim=1),
             torch.cat([dl for _, dl in outs], dim=1),
-            torch.from_numpy(anchors).to(pyramid[0].device),
+            self._anchors(shapes, pyramid[0].device),
             bounds,
         )
 
@@ -212,22 +252,41 @@ class FPNFasterRCNN(nn.Module):
                   cat_scores > _NEG_INF / 2)
         return Proposals(*out)
 
-    def _roi_features(self, pyramid: Sequence[torch.Tensor], rois: torch.Tensor) -> torch.Tensor:
-        """(B, R, 4) rois → (B·R, 1024) head features: every roi pooled
-        from each of P2..P5 and kept where its level matches (4× the pooling
-        work, one static graph, as the JAX package does)."""
+    def _level_pooled(self, feats: Sequence[torch.Tensor], rois: torch.Tensor, pooled_size,
+                      fwd_only: bool = False, valid_hw: Optional[torch.Tensor] = None):
+        """(B, R, 4) rois → (B·R, ph, pw, C): every roi pooled from each of
+        the NHWC maps P2..P5 and kept where its level matches (4× the
+        pooling work, one static graph, as the JAX package does)."""
         net = self.cfg.network
         levels = roi_levels(rois)[..., None, None, None]       # (B, R, 1, 1, 1)
         pooled = None
         for li, stride in enumerate(net.FPN_FEAT_STRIDES[:4]):
-            feats = extract_roi_features_batched(
-                pyramid[li].permute(0, 2, 3, 1), rois, "roi_align", net.POOLED_SIZE,
-                1.0 / stride, net.ROI_SAMPLE_RATIO,
+            got = extract_roi_features_batched(
+                feats[li], rois, "roi_align", pooled_size, 1.0 / stride, net.ROI_SAMPLE_RATIO,
+                fwd_only=fwd_only, valid_hw=valid_hw,
             )                                                   # (B, R, ph, pw, C)
-            contrib = torch.where(levels == li + 2, feats, 0.0)
+            contrib = torch.where(levels == li + 2, got, 0.0)
             pooled = contrib if pooled is None else pooled + contrib
         b, r = pooled.shape[0], pooled.shape[1]
-        return self.top_head(pooled.reshape((b * r,) + pooled.shape[2:]))
+        return pooled.reshape((b * r,) + pooled.shape[2:])
+
+    def _roi_features(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                      fwd_only: bool = False, valid_hw: Optional[torch.Tensor] = None):
+        """(B, R, 4) rois → (B·R, 1024) head features from the NHWC maps
+        P2..P5."""
+        return self.top_head(self._level_pooled(
+            feats, rois, self.cfg.network.POOLED_SIZE, fwd_only, valid_hw))
+
+    def _mask_forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                      valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, R, 4) rois → (B, R, 28, 28, K) per-class mask logits: the rois
+        pooled again at 14×14 (``_mask_pooled``), then the mask head."""
+        b, r = rois.shape[0], rois.shape[1]
+        pooled = self._level_pooled(feats, rois, (14, 14), True, valid_hw)
+        # (B·R, 14, 14, C) → NCHW view, channels_last memory; the logits
+        # come back channels_last, so the NHWC permute is a view
+        logits = self.mask_head(pooled.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return logits.reshape((b, r) + logits.shape[1:])
 
     # ------------------------------------------------------------------ train
     def train_forward(
@@ -272,7 +331,57 @@ class FPNFasterRCNN(nn.Module):
             u=(draws["roi_fg"], draws["roi_bg"], draws["roi_tie"]),
         )
 
-        cls_logits, bbox_pred_out = self.rcnn(self._roi_features(pyramid, samples.rois))
+        cls_logits, bbox_pred_out = self.rcnn(
+            self._roi_features([p.permute(0, 2, 3, 1) for p in pyramid[:4]], samples.rois))
         return train_losses(
             cfg, rpn_logits, rpn_deltas, atgt, samples, props.valid, cls_logits, bbox_pred_out
         )
+
+    # ------------------------------------------------------------------ test
+    def test_forward(self, images: torch.Tensor, im_info: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B, H, W, 3) normalized images + (B, 3) im_info → padded per-image
+        ``rois``, ``roi_scores``, ``roi_valid``, ``cls_prob`` and
+        de-normalized ``bbox_deltas``, and for a mask model ``mask_logits``
+        (B, R, 28, 28, K)."""
+        cfg = self.cfg
+        net, te = cfg.network, cfg.TEST
+        b = images.shape[0]
+        k = cfg.dataset.NUM_CLASSES
+        # bucket padding masked through the backbone and the neck and on
+        # every level before the shared RPN's 3×3 conv
+        pad_mask = make_pad_mask(im_info, (images.shape[1], images.shape[2]))
+        pyramid = [pad_mask(p) for p in self._pyramid(images, pad_mask)]
+        rpn_logits, rpn_deltas, anchors, bounds = self._rpn_over_levels(pyramid)
+        fg_scores = torch.softmax(rpn_logits, dim=-1)[..., 1]
+        # anchors on bucket padding, level by level, would make the top-k
+        # depend on the bucket: drop them
+        shapes = tuple((p.shape[2], p.shape[3]) for p in pyramid)
+        a_per_cell = len(net.ANCHOR_RATIOS) * len(net.FPN_ANCHOR_SCALES)
+        grid_ok = anchor_grid_mask(shapes, net.FPN_FEAT_STRIDES, a_per_cell, im_info)
+        fg_scores = torch.where(grid_ok, fg_scores, _NEG_INF)
+        pre_per_level = max(te.RPN_PRE_NMS_TOP_N // (len(bounds) - 1), 256)
+        props = self._propose_multilevel(
+            fg_scores, rpn_deltas, anchors, bounds, im_info, pre_per_level,
+            te.RPN_POST_NMS_TOP_N, te.RPN_NMS_THRESH, te.RPN_MIN_SIZE,
+        )
+
+        # one ladder-wide shape per level into ROIAlign for every bucket;
+        # P6 feeds only the RPN
+        feats = [pad_feat_to_ladder(p.permute(0, 2, 3, 1), stride, cfg.SHAPE_BUCKETS)
+                 for p, stride in zip(pyramid[:4], net.FPN_FEAT_STRIDES[:4])]
+        valid_hw = im_info[:, :2]
+        cls_logits, bbox_deltas = self.rcnn(
+            self._roi_features(feats, props.rois, fwd_only=True, valid_hw=valid_hw))
+        r = props.rois.shape[1]
+        means, stds = self._bbox_denorm(images.device)
+        bbox_deltas = bbox_deltas * stds + means
+        out = {
+            "rois": props.rois,                                   # (B, R, 4)
+            "roi_scores": props.scores,                           # (B, R)
+            "roi_valid": props.valid,                             # (B, R)
+            "cls_prob": torch.softmax(cls_logits, dim=-1).reshape(b, r, k),
+            "bbox_deltas": bbox_deltas.reshape(b, r, 4 * k),
+        }
+        if net.USE_MASK:
+            out["mask_logits"] = self._mask_forward(feats, props.rois, valid_hw)
+        return out

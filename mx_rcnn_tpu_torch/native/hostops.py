@@ -27,8 +27,8 @@ logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / "hostops.c"
 BUILD_DIR = _SRC.parent / "build"
-# no FMA contraction: the IoU rounds as numpy's does, so borderline keeps
-# agree with nms_numpy
+# no FMA contraction: floating-point results round as numpy's do (the NMS's
+# IoU: borderline keeps agree with nms_numpy)
 CFLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -42,21 +42,28 @@ def _compiler() -> Optional[str]:
     return None
 
 
+def build_library(src: Path) -> ctypes.CDLL:
+    """Compile the C source ``src`` (unless built) into ``BUILD_DIR`` and
+    load it; raises when there is no compiler or the build or load fails.
+    ``native/rle.py`` builds ``rlelib.c`` with it too."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CFLAGS).encode()).hexdigest()[:16]
+    so_path = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if not so_path.exists():
+        cc = _compiler()
+        if cc is None:
+            raise RuntimeError("no C compiler found ($CC, cc, gcc)")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([cc, *CFLAGS, str(src), "-o", str(tmp)], check=True,
+                       capture_output=True)
+        os.replace(tmp, so_path)
+    return ctypes.CDLL(str(so_path))
+
+
 def _build_and_load() -> Optional[ctypes.CDLL]:
     """Compile (unless built) and load the library; None on any failure."""
     try:
-        digest = hashlib.sha256(_SRC.read_bytes() + " ".join(CFLAGS).encode()).hexdigest()[:16]
-        so_path = BUILD_DIR / f"hostops-{digest}.so"
-        if not so_path.exists():
-            cc = _compiler()
-            if cc is None:
-                raise RuntimeError("no C compiler found ($CC, cc, gcc)")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-            subprocess.run([cc, *CFLAGS, str(_SRC), "-o", str(tmp)], check=True,
-                           capture_output=True)
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(str(so_path))
+        lib = build_library(_SRC)
     except Exception as e:  # noqa: BLE001 — no compiler or load failure: numpy twin
         logger.warning("host NMS: C library unavailable (%s); using ops/nms.py::nms_numpy", e)
         return None
@@ -64,7 +71,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     lib.cpu_nms.restype = ctypes.c_int
     lib.cpu_nms.argtypes = [f32p, ctypes.c_int, ctypes.c_float, i32p]
-    logger.info("host NMS: C library %s", so_path.name)
+    logger.info("host NMS: C library %s", Path(lib._name).name)
     return lib
 
 

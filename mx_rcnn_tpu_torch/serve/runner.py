@@ -16,6 +16,7 @@ from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.tester import Predictor, im_detect
 from mx_rcnn_tpu_torch.data.image import normalize, pad_to_bucket, quantize_uint8, resize_im
 from mx_rcnn_tpu_torch.native.hostops import nms_host
+from mx_rcnn_tpu_torch.ops.postprocess import MASK_FILL
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 
 # per class (n, 5) [x1 y1 x2 y2 score]; index 0 (background) is None
@@ -64,42 +65,66 @@ def detections_from_output(
 ):
     """One image's forward outputs (host numpy) → ``(cls_dets,
     mask_probs)``: per-class (n, 5) [x1 y1 x2 y2 score] arrays, ``cls_dets[0]``
-    None (background), and ``mask_probs`` None (no mask family yet).
+    None (background), and for a mask model ``mask_probs[j]`` (n, S, S), the
+    kept detections' mask probabilities row for row (else None).
 
     Both output flavors: the device-postprocess dict (``det_boxes`` /
     ``det_scores`` / ``det_valid``: decode, unscale, clip and per-class NMS
     already ran on the device) and raw head outputs (host decode through
     :func:`~mx_rcnn_tpu_torch.core.tester.im_detect`, then per-class
     ``score > thresh`` and the host NMS at TEST.NMS, the reference's
-    ``pred_eval`` inner loop).  ``with_rows=True`` also returns each kept
-    detection's det-grid row (device flavor; None on the host flavor).  Mask
-    outputs raise: the mask family is ROADMAP queue 1 item 13."""
-    if "det_masks" in out or "mask_logits" in out:
-        raise NotImplementedError("mask outputs are not ported: ROADMAP queue 1 item 13")
+    ``pred_eval`` inner loop).  On the device flavor a mask model ships the
+    selected survivors' LOGIT grids (``det_masks``, ``det_mask_idx``): each
+    kept row finds its grid by its flat det-grid index, rows past the
+    device's ``max_det`` budget (only past the MAX_PER_IMAGE cut) get the
+    −80 fill, and the sigmoid is the reference ``im_detect``'s numpy
+    expression, so the probabilities equal the host flavor's bit for bit.
+    ``with_rows=True`` also returns each kept detection's det-grid row
+    (device flavor; None on the host flavor)."""
     te = cfg.TEST
     thresh = te.SCORE_THRESH if thresh is None else thresh
     cls_dets: ClsDets = [None] * num_classes
+    mask_probs: Optional[Dict[int, np.ndarray]] = None
     det_rows: Optional[Dict[int, np.ndarray]] = None
     if "det_boxes" in out:
         det_rows = {}
+        lut = None
+        if "det_masks" in out:
+            mask_probs = {}
+            grids = np.asarray(out["det_masks"][index])
+            lut = {int(f): p for p, f in enumerate(np.asarray(out["det_mask_idx"][index]))
+                   if f >= 0}
+        max_out = out["det_boxes"].shape[2]
         for j in range(1, num_classes):
             m = np.asarray(out["det_valid"][index][j - 1]).astype(bool)
             b = np.asarray(out["det_boxes"][index][j - 1][m])
             s = np.asarray(out["det_scores"][index][j - 1][m])
             cls_dets[j] = np.hstack([b, s[:, None]]).astype(np.float32)
             det_rows[j] = np.where(m)[0]
+            if lut is not None:
+                g = np.full((len(det_rows[j]),) + grids.shape[1:], MASK_FILL, np.float32)
+                for t, row in enumerate(det_rows[j]):
+                    p = lut.get((j - 1) * max_out + int(row))
+                    if p is not None:
+                        g[t] = grids[p]
+                mask_probs[j] = 1.0 / (1.0 + np.exp(-g))
     else:
         det = im_detect(out, im_info_row, orig_hw, index=index)
         scores, boxes = det["scores"], det["boxes"]
+        if "mask_probs" in det:
+            mask_probs = {}
         for j in range(1, num_classes):
             keep = np.where(scores[:, j] > thresh)[0]
             cd = np.hstack(
                 [boxes[keep, j * 4 : (j + 1) * 4], scores[keep, j : j + 1]]
             ).astype(np.float32)
-            cls_dets[j] = cd[nms_host(cd, te.NMS)]
+            keep_nms = nms_host(cd, te.NMS)
+            cls_dets[j] = cd[keep_nms]
+            if mask_probs is not None:
+                mask_probs[j] = det["mask_probs"][keep][keep_nms, :, :, j]
     if with_rows:
-        return cls_dets, None, det_rows
-    return cls_dets, None
+        return cls_dets, mask_probs, det_rows
+    return cls_dets, mask_probs
 
 
 def cap_detections(

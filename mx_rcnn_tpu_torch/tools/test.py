@@ -1,8 +1,10 @@
-"""Evaluation CLI: mAP of a detector on VOC or synthetic data (port of
-``mx_rcnn_tpu/tools/test.py``, the routes this slice supports, under the same
-flags).
+"""Evaluation CLI: mAP of a detector on VOC or synthetic data, and for a mask
+network the COCO segm stats (port of ``mx_rcnn_tpu/tools/test.py``, the
+routes the port supports, under the same flags).
 
     python -m mx_rcnn_tpu_torch.tools.test --network resnet --dataset PascalVOC \\
+        --synthetic 32 --params params.pkl
+    python -m mx_rcnn_tpu_torch.tools.test --network mask_resnet_fpn --dataset coco \\
         --synthetic 32 --params params.pkl
 
 Builds the test graph, loads ``--params`` (a pickle of a Flax parameter
@@ -10,7 +12,8 @@ tree with numpy leaves, bridged by ``utils/bridge.py::flax_to_torch``),
 applies the run's ``run_meta.json`` beside it, runs ``pred_eval`` over the
 test set and logs each class's AP and the mAP to standard output.  Runs on
 the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels on the
-CPU.  The ResNet C4 networks are ported; checkpoints (``--prefix`` /
+CPU.  The ResNet C4, ResNet FPN and Mask R-CNN FPN networks are ported
+(``--synthetic`` COCO runs read polygon records); checkpoints (``--prefix`` /
 ``--epoch`` without ``--params``, ROADMAP queue 1 item 8) and ``--vis``
 (item 7) are not.
 """
@@ -35,7 +38,7 @@ from mx_rcnn_tpu_torch.utils.load_data import get_imdb
 logger = logging.getLogger(__name__)
 
 # networks the port cannot build yet, and the ROADMAP queue 1 item of each
-_UNPORTED = {"vgg": "item 11", "resnet_fpn": "item 12", "mask_resnet_fpn": "items 12 and 13"}
+_UNPORTED = {"vgg": "item 11"}
 
 
 def parse_args(argv=None):

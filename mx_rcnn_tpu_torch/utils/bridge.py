@@ -3,11 +3,15 @@
 ``params_np`` is the Flax tree as nested dicts of numpy arrays (the caller
 runs ``jax.tree.map(np.asarray, params)``); no JAX is imported here, so the
 bridge also runs where JAX is absent.  The port's module names follow the
-Flax tree (top level ``backbone``, ``top_head``, ``rpn``, ``rcnn``), so a
-leaf at path ``a/b/kernel`` is the tensor ``a.b.weight``:
+Flax tree (top level ``backbone``, ``top_head``, ``rpn``, ``rcnn``, and in
+FPN models ``neck`` and ``mask_head``), so a leaf at path ``a/b/kernel`` is
+the tensor ``a.b.weight``:
 
 - an HWIO conv kernel becomes an OIHW weight;
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
+- the mask head's ``ConvTranspose`` kernel (HWIO) becomes a
+  ``ConvTranspose2d`` weight (in, out, kh, kw), flipped in both spatial axes
+  (``models/heads.py::MaskHead``);
 - biases and the frozen-BN ``scale/bias/mean/var`` map one to one.
 """
 
@@ -28,9 +32,16 @@ def _leaves(tree: Dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[st
             yield prefix + (k,), np.asarray(v)
 
 
-def _to_torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf != "kernel":
+# Flax ConvTranspose modules: HWIO kernels that torch's ConvTranspose2d
+# holds as (in, out, kh, kw), flipped in both spatial axes (models/heads.py)
+_TRANSPOSED = ("mask_deconv",)
+
+
+def _to_torch_layout(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
+    if path[-1] != "kernel":
         return a
+    if path[-2] in _TRANSPOSED:
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
     return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
 
 
@@ -44,7 +55,7 @@ def flax_to_torch(params_np: Dict, model: nn.Module) -> nn.Module:
         key = ".".join(path[:-1] + ("weight" if leaf == "kernel" else leaf,))
         if key not in state:
             raise KeyError(f"Flax leaf {'/'.join(path)} has no tensor {key} in the model")
-        t = np.array(_to_torch_layout(leaf, a), dtype=np.float32, order="C")
+        t = np.array(_to_torch_layout(path, a), dtype=np.float32, order="C")
         if t.shape != tuple(state[key].shape):
             raise ValueError(f"{key}: Flax {a.shape} → {t.shape} != model {tuple(state[key].shape)}")
         new[key] = torch.from_numpy(t)
@@ -63,7 +74,10 @@ def _flax_tree(named: Iterator[Tuple[str, torch.Tensor]]) -> Dict:
         a = t.detach().cpu().numpy()
         if leaf == "weight":
             leaf = "kernel"
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            if mods[-1] in _TRANSPOSED:
+                a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         node = tree
         for m in mods:
             node = node.setdefault(m, {})

@@ -19,13 +19,11 @@ def get_imdb(cfg: Config, image_set: Optional[str] = None, synthetic_size: int =
     training) give several imdbs, whose roidbs are merged."""
     ds = cfg.dataset
     if synthetic_size:
-        if cfg.network.USE_MASK:
-            raise NotImplementedError(
-                "synthetic polygon (mask) records are not ported: ROADMAP queue 1 item 13"
-            )
         from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 
-        return [SyntheticDataset(num_images=synthetic_size, num_classes=ds.NUM_CLASSES)]
+        # a mask network's records carry polygon gts, for the segm protocol
+        return [SyntheticDataset(num_images=synthetic_size, num_classes=ds.NUM_CLASSES,
+                                 with_masks=cfg.network.USE_MASK)]
     image_set = image_set or ds.image_set
     imdbs = []
     for split in image_set.split("+"):

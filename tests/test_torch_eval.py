@@ -32,7 +32,7 @@ from mx_rcnn_tpu_torch.data.pascal_voc import PascalVOC
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
 from mx_rcnn_tpu_torch.eval.voc_eval import voc_ap, voc_eval
 from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
-from mx_rcnn_tpu_torch.native import hostops
+from mx_rcnn_tpu_torch.native import hostops, rle
 from mx_rcnn_tpu_torch.ops.nms import nms_numpy
 from mx_rcnn_tpu_torch.tools import test as test_cli
 from mx_rcnn_tpu_torch.utils import load_data
@@ -143,7 +143,8 @@ def test_pascal_voc_matches_jax(voc_devkit, tmp_path):  # noqa: F811
 
 def test_synthetic_evaluate_detections_matches_jax():
     """Same records (classes absent from the gt skipped) and mAP; the gt as
-    detections scores 1.0; segm evaluation raises."""
+    detections scores 1.0, and with polygon records and the gt masks as
+    detections the segm stats are JAX's, AP 1.0."""
     ds = SyntheticDataset(num_images=6, num_classes=8, image_size=(160, 200), max_boxes=3)
     ref_ds = JSyntheticDataset(num_images=6, num_classes=8, image_size=(160, 200), max_boxes=3)
     assert (ds.name, ds.root_path, ds.num_images) == (ref_ds.name, ref_ds.root_path, 6)
@@ -164,8 +165,24 @@ def test_synthetic_evaluate_detections_matches_jax():
          for r in roidb] for j in range(1, 8)
     ]
     assert ds.evaluate_detections(gt_dets)["mAP"] == 1.0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ds.evaluate_detections(gt_dets, all_masks=[])
+    masked = SyntheticDataset(num_images=6, num_classes=8, image_size=(160, 200), max_boxes=3,
+                              with_masks=True)
+    ref_masked = JSyntheticDataset(num_images=6, num_classes=8, image_size=(160, 200),
+                                   max_boxes=3, with_masks=True)
+    roidb = masked.gt_roidb()
+    gt_dets = [[None] * 6] + [
+        [np.hstack([r["boxes"][r["gt_classes"] == j], np.ones(((r["gt_classes"] == j).sum(), 1),
+                                                               np.float32)])
+         for r in roidb] for j in range(1, 8)
+    ]
+    gt_masks = [[]] + [
+        [[rle.from_polygons(seg, r["height"], r["width"])
+          for seg, c in zip(r["segmentation"], r["gt_classes"]) if c == j]
+         for r in roidb] for j in range(1, 8)
+    ]
+    got = masked.evaluate_detections(gt_dets, all_masks=gt_masks)
+    assert got == ref_masked.evaluate_detections(gt_dets, all_masks=gt_masks)
+    assert got["mAP"] == 1.0 and got["segm_AP"] == 1.0
 
 
 def test_imdb_base_and_load_data(tmp_path):
@@ -362,8 +379,8 @@ def test_cli_refuses_what_is_not_ported(params_pickle, tmp_path):
             test_cli.main(base)
     with pytest.raises(NotImplementedError, match="item 8"):
         test_cli.main(["--synthetic", "2", "--cpu", "1"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        test_cli.main(base + ["--cpu", "1", "--network", "resnet_fpn"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        test_cli.main(base + ["--cpu", "1", "--network", "vgg"])
     with pytest.raises(NotImplementedError, match="item 7"):
         test_cli.main(base + ["--cpu", "1", "--vis", str(tmp_path)])
     # a pickle of jax.Array leaves needs JAX to read

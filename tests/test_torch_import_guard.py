@@ -1,6 +1,6 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
-package cannot be imported (it serves a request, trains a step through its
-CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py`` refuses
+package cannot be imported (it serves a request and a mask request, trains a
+step through its CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py`` refuses
 to report without a card or outside the repository."""
 
 import json
@@ -67,6 +67,48 @@ pred = Predictor(FasterRCNN(cfg), make_test_postprocess(cfg, 21, cfg.TEST.SCORE_
 im = (np.random.RandomState(0).rand(60, 80, 3) * 255).astype(np.uint8)
 dets = detect_single(pred, im, cfg, 21)
 assert len(dets) == 21 and all(np.isfinite(d).all() for d in dets[1:])
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_serves_a_mask_request_without_jax():
+    """Mask R-CNN FPN: one request through the Predictor with the device
+    canvas paste, the host mask branch of ``detections_from_output`` and
+    the image-space RLEs (the C RLE library), and the canvas RLEs."""
+    r = run_blocked("""
+import dataclasses, numpy as np, torch
+torch.set_num_threads(2)
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.eval.segm import canvas_rles, rles_for_detections
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.native import rle
+from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
+from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
+from mx_rcnn_tpu_torch.serve.runner import cap_detections, detections_from_output, prepare_request
+cfg = generate_config("mask_resnet_fpn", "coco")
+cfg = cfg.replace(network=dataclasses.replace(cfg.network, depth=50),
+                  dataset=dataclasses.replace(cfg.dataset, SCALES=((128, 128),)),
+                  SHAPE_BUCKETS=((128, 128),),
+                  TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100, RPN_POST_NMS_TOP_N=16))
+pp = make_test_postprocess(cfg, 81, cfg.TEST.SCORE_THRESH, 10, paste=True)
+pred = Predictor(build_model(cfg), pp, device="cpu")
+im = (np.random.RandomState(0).rand(90, 120, 3) * 255).astype(np.uint8)
+req = prepare_request(im, cfg, BucketLadder(cfg.SHAPE_BUCKETS))
+batch = {"images": req.image[None], "im_info": req.im_info[None],
+         "orig_hw": np.asarray([req.orig_hw], np.float32)}
+out = pred.predict(batch)
+assert out["det_canvas"].shape == (1, 100, 128, 128)
+dets, probs = detections_from_output(out, batch["im_info"][0], req.orig_hw, cfg, 81)
+dets, probs = cap_detections(dets, cfg.TEST.MAX_PER_IMAGE, probs)
+n = 0
+for j in range(1, 81):
+    assert probs[j].shape == (len(dets[j]), 28, 28)
+    n += len(rles_for_detections(probs[j], dets[j], 90, 120))
+    canvas_rles(out["det_masks"][0][:1], dets[j][:1], float(req.im_info[2]), 128, 128)
+assert n > 0 and rle.backend() == "c"
 print("ok")
 """)
     assert r.returncode == 0, r.stderr

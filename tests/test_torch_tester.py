@@ -65,8 +65,13 @@ def test_im_detect_bit_identical(seed):
         assert set(got) == set(ref) == {"scores", "boxes"}
         for key in ref:
             assert got[key].tobytes() == np.asarray(ref[key]).tobytes(), key
-    with pytest.raises(NotImplementedError, match="item 13"):
-        im_detect(dict(out, mask_logits=np.zeros(1)), im_info[0], tuple(orig_hw[0]))
+    # a mask model's outputs: the sigmoid of the valid rois' logits too
+    masked = dict(out, mask_logits=np.random.RandomState(seed).randn(2, 64, 3, 3, K)
+                  .astype(np.float32) * 3)
+    got = im_detect(masked, im_info[1], tuple(orig_hw[1]), index=1)
+    ref = j_im_detect(masked, im_info[1], tuple(orig_hw[1]), index=1)
+    assert set(got) == set(ref) == {"scores", "boxes", "mask_probs"}
+    assert got["mask_probs"].tobytes() == ref["mask_probs"].tobytes()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -115,8 +120,6 @@ def test_device_branch_matches_host_branch(seed):
             d, h = d[np.argsort(-d[:, 4], kind="stable")], h[np.argsort(-h[:, 4], kind="stable")]
             np.testing.assert_allclose(d[:, 4], h[:, 4], rtol=1e-5)
             np.testing.assert_allclose(d[:, :4], h[:, :4], rtol=1e-4, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        detections_from_output(dict(dev, det_masks=np.zeros(1)), im_info[0], (1, 1), cfg, K)
 
 
 def test_fetch_outputs_keeps_dtypes_and_shapes():
