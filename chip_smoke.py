@@ -56,10 +56,11 @@
    union) the same way.  Each run resets the launch counts just before and
    reads them just after: a C4 step launches NMS and kernels 2 and 3 once,
    an FPN step NMS once and kernels 2–5 twice (P2/P3 streamed, P4/P5
-   resident).  The random weights are calibrated first on one training
-   image: the frozen BN moments (unit-scale activations, as a pretrained
-   backbone's give) and, for FPN, the output scale of the neck's convs and
-   the 2-fc head (``calibrate_scales``).  Every loss must be finite and none
+   resident).  The random weights are calibrated first on one batch of the
+   8 training images (``calibration_batch``): the frozen BN moments
+   (unit-scale activations, as a pretrained backbone's give) and, for FPN,
+   the output scale of the neck's convs and the 2-fc head
+   (``calibrate_scales``).  Every loss must be finite and none
    above 100× the first step's, every frozen tensor bit-identical after the
    steps and some trainable tensor of each trained group changed; each
    kernel is held against its plain version on the tensors the steps fed
@@ -68,6 +69,19 @@
    (forward / backward / optimizer, device time by layer); one small step
    of each (128 × 128) runs on the card and on the CPU with the same weights
    and sampling draws, and the two must agree;
+   ``[mask train]``: Mask R-CNN ResNet-101 FPN
+   (``generate_config("mask_resnet_fpn", "coco")``: 81 classes, BATCH_ROIS
+   128 of which the mask branch takes the first 32, MASK_SIZE 28,
+   MASK_GT_SIZE 64) the same way on 8 synthetic 480 × 640 polygon images and
+   their flipped copies (``load_gt_roidb(flip=True)``), the batches carrying
+   the gt masks: a step launches NMS once and kernels 2–5 four times each
+   (the mask branch pools its 32 rois again, with the backward), the
+   captured calls of both branches are held against the plain versions,
+   ``MaskBCELoss`` is held to the loss gates on its own, a mask head
+   weight must change, the finite differences move the mask head and the
+   neck; printed: host syncs in one step, one profiled step and its mask
+   branch split into pooling, head, targets and BCE, and a small mask step
+   (ResNet-50 depth, polygon gt masks) runs on the card and on the CPU;
 7. ``[pipeline]``: from each path's calibrated weights, 10 steps of ``fit``
    in each of three loop settings, serial (no prefetch, no pool, feed depth
    1, aux every step), ``fit``'s defaults (prefetch 2, feed depth 2) and the
@@ -123,7 +137,8 @@
    (``wrapper_ms``) and the eager plain version (``plain_ms``), beside the
    bound for the work this data needs; and NMS (the levels' union, the
    classes) and kernel 2 (P2..P5, and the mask branch's P2) at the FPN and
-   mask serving shapes;
+   mask serving shapes, and kernels 2–5 at P2..P5 on the mask branch's
+   train tensors (R = 32);
 11. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
@@ -170,11 +185,13 @@ from mx_rcnn_tpu_torch.data.loader import (
     load_record_image,
     make_batch,
 )
-from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from mx_rcnn_tpu_torch.data.masks import polygons_to_box_frame
+from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset, shape_polygon
 from mx_rcnn_tpu_torch.eval.segm import paste_mask_canvas, rles_for_detections
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
-from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
+from mx_rcnn_tpu_torch.models.fpn import mask_bce
+from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, normalize_images
 from mx_rcnn_tpu_torch.native import hostops
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
@@ -186,6 +203,7 @@ from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepar
 from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
 from mx_rcnn_tpu_torch.utils import faults
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
+from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -208,7 +226,7 @@ ROI_BWD_TOL = 1e-4
 LOSS_GROWTH_MAX = 100.0
 FD_TOL = 1e-2
 # the finite-difference steps, as the share of the loss each moves it by
-FD_STEPS = (1e-3, 5e-4)
+FD_STEPS = tuple(1e-3 / 2**i for i in range(7))
 NUM_CLASSES = 21
 TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
@@ -953,21 +971,57 @@ C4_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
                         "roi_align_stream_fwd": 0, "roi_align_stream_bwd": 0}
 FPN_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2,
                          "roi_align_stream_fwd": 2, "roi_align_stream_bwd": 2}
+# Mask R-CNN pools through each route twice, the box branch's BATCH_ROIS rois
+# and the mask branch's first FG_FRACTION·BATCH_ROIS slots, each with its
+# backward
+MASK_TRAINED_GROUPS = FPN_TRAINED_GROUPS + ("mask_head",)
+MASK_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 4, "roi_align_bwd": 4,
+                          "roi_align_stream_fwd": 4, "roi_align_stream_bwd": 4}
+# the groups the mask phase's finite differences move: the mask head, and
+# the neck, whose gradient comes through the ROIAlign backward kernels of
+# both branches
+MASK_FD_GROUPS = ("mask_head", "neck")
+MASK_TRAIN_IMAGES = 8
+# the train paths calibrate their random weights on this many images at once
+CALIBRATION_IMAGES = 8
 
 
 def train_batch(cfg, roidb, i, dev):
     rec = roidb[i]
     return batch_to_device(
-        make_batch([rec], cfg, _orientation_bucket(rec, cfg.SHAPE_BUCKETS), seeds=[i]), dev)
+        make_batch([rec], cfg, _orientation_bucket(rec, cfg.SHAPE_BUCKETS), seeds=[i],
+                   with_masks=cfg.network.USE_MASK), dev)
+
+
+def calibration_batch(cfg, roidb, dev):
+    """One batch of the first CALIBRATION_IMAGES records in the first
+    record's bucket: the images the train paths calibrate their random
+    weights on.  Moments from one image do not carry to the others: the
+    first synthetic image holds one shape and the least contrast, and the
+    weights calibrated on it alone gave the deep stages and the neck
+    activations many times unit scale on the other images, so each step
+    moved the model by far more than its scale and the losses (the mask
+    run's ``MaskBCELoss`` most) ran away within ten steps."""
+    bucket = _orientation_bucket(roidb[0], cfg.SHAPE_BUCKETS)
+    recs = [r for r in roidb
+            if _orientation_bucket(r, cfg.SHAPE_BUCKETS) == bucket][:CALIBRATION_IMAGES]
+    return batch_to_device(
+        make_batch(recs, cfg, bucket, seeds=list(range(len(recs))),
+                   with_masks=cfg.network.USE_MASK), dev)
+
+
+def masks_of(batch) -> dict:
+    """A mask network's batch passes its gt masks to the model."""
+    return {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
 
 
 def _calibration_forward(model, batch):
-    """One forward on ``batch``: the train forward when it carries gt boxes,
-    else the inference forward (a mask model has no train forward yet)."""
+    """One forward on ``batch``: the train forward when it carries gt boxes
+    (the mask branch included), else the inference forward."""
     with torch.no_grad():
         if "gt_boxes" in batch:
             model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                  train=True, sample_seeds=batch["sample_seeds"])
+                  train=True, sample_seeds=batch["sample_seeds"], **masks_of(batch))
         else:
             model(batch["images"], batch["im_info"])
 
@@ -996,7 +1050,8 @@ def calibrate_bn(model, batch):
     finally:
         for h in hooks:
             h.remove()
-    log(f"  BN moments set from one forward on an image: {len(hooks)} layers")
+    log(f"  BN moments set from one forward on {batch['images'].shape[0]} image(s): "
+        f"{len(hooks)} layers")
 
 
 def calibrate_scales(model, batch):
@@ -1022,7 +1077,8 @@ def calibrate_scales(model, batch):
             if layer.bias is not None:
                 layer.bias.div_(seen[0])
     if layers:
-        log(f"  unit output scale set from one forward each on an image: {len(layers)} "
+        log(f"  unit output scale set from one forward each on {batch['images'].shape[0]} "
+            f"image(s): {len(layers)} "
             f"layers ({', '.join(n for n, _ in layers)})")
 
 
@@ -1034,8 +1090,8 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
     samplers' draws are fixed (one rng and seed) and the first forward's
     sampled rois are reused, so the loss is a function of the weights alone,
     smooth but for the ReLU and max-pool switches; ε moves it by ~1e-3 of
-    itself, then by half that, and the smaller of the two readings is held
-    to the bar (a wrong gradient fails both).  The backbone takes its gradient
+    itself, then by half that, six times, and the smallest of the seven
+    readings is held to the bar (a wrong gradient fails all seven).  The backbone takes its gradient
     through the ROIAlign backward kernels almost wholly, since the RPN's
     output layers are scaled by 1e-3."""
     batch = train_batch(cfg, roidb, 1, dev)
@@ -1050,7 +1106,7 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
 
     def loss_fn():
         return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                     train=True, sample_seeds=batch["sample_seeds"], rng=5)[0]
+                     train=True, sample_seeds=batch["sample_seeds"], rng=5, **masks_of(batch))[0]
 
     model_mod.sample_rois = sample_once
     try:
@@ -1069,9 +1125,12 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
                 gnorm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
                 if not gnorm > 0:
                     raise AssertionError(f"{grp} has no gradient")
-                # two step sizes: a gradient error shows at both, while the
-                # ReLU / max-pool switches a step crosses move each reading
-                # by up to ~1e-2 of the difference on their own
+                # seven step sizes, each half the last: a gradient error
+                # shows at all of them, while the ReLU / max-pool switches
+                # a step crosses move a reading in proportion to the step
+                # (a deep group such as C4's stage 2 reads ~1e-2 at the
+                # fourth step) and the float32 rounding of the loss moves
+                # it in inverse proportion (~1e-3 at the seventh)
                 rels = []
                 for step in FD_STEPS:
                     eps = step * abs(f0) / gnorm
@@ -1094,28 +1153,33 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
         model_mod.sample_rois = orig
         for p in model.parameters():
             p.grad = None
-    log(f"  loss {f0:.6f}; worst group's smaller relative difference {worst:.3g} (bar {FD_TOL})")
+    log(f"  loss {f0:.6f}; worst group's smallest relative difference {worst:.3g} (bar {FD_TOL})")
     if not worst <= FD_TOL:
         raise AssertionError("the full-width gradient disagrees with the loss's finite differences")
     return worst
 
 
-def train_path(cfg, dev, groups, per_step):
+def train_path(cfg, dev, groups, per_step, roidb=None, keep=2):
     """TRAIN_STEPS steps of ``fit`` (its defaults: a prefetch thread, a
     device feed of depth 2, the aux checked every step) at full width on
-    synthetic records; each kernel must launch ``per_step`` times a step
-    dispatched.  Returns the captured kernel inputs, the launch counts of
-    the run, the model, the roidb, the step statistics and the calibrated
-    weights the run started from (on the host)."""
-    roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
+    synthetic records (``roidb``, default 8 box records of 480 × 640); each
+    kernel must launch ``per_step`` times a step dispatched; the first
+    ``keep`` calls of each ROIAlign kernel are captured.  Returns the
+    captured kernel inputs, the launch counts of the run, the model, the
+    roidb, the step statistics and the calibrated weights the run started
+    from (on the host)."""
+    if roidb is None:
+        roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
     model = make_model(cfg)
-    calibrate_bn(model, train_batch(cfg, roidb, 0, dev))
-    calibrate_scales(model, train_batch(cfg, roidb, 0, dev))
+    calib = calibration_batch(cfg, roidb, dev)
+    calibrate_bn(model, calib)
+    calibrate_scales(model, calib)
+    del calib
     before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with Capture(keep=2) as cap:
+    with Capture(keep=keep) as cap:
         out = fit(model, cfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS,
                   frequent=TRAIN_STEPS, device=dev)
     launches = read_launches()
@@ -1134,19 +1198,23 @@ def train_path(cfg, dev, groups, per_step):
     hist = out["history"]
     if len(hist) != TRAIN_STEPS:
         raise AssertionError(f"fit ran {len(hist)} steps, not {TRAIN_STEPS}")
+    losses = METRIC_NAMES + (("MaskBCELoss",) if cfg.network.USE_MASK else ())
     for i, h in enumerate(hist):
         log(f"  step {i}: loss={h['loss']:.5f} "
-            + " ".join(f"{k}={h[k]:.5f}" for k in METRIC_NAMES)
+            + " ".join(f"{k}={h[k]:.5f}" for k in losses)
             + f" fg_rois={int(h['num_fg_rois'])} valid_props={int(h['num_valid_props'])}"
             f" fg_anchors={int(h['num_fg_anchors'])} step_ms={h['step_ms']:.3f}"
             f" wait_ms={h['wait_ms']:.3f}")
-    bad = sorted({k for h in hist for k in METRIC_NAMES + ("loss",) if not math.isfinite(h[k])})
+    bad = sorted({k for h in hist for k in losses + ("loss",) if not math.isfinite(h[k])})
     if bad:
         raise AssertionError(f"non-finite losses in the train path: {bad}")
-    growth = max(h["loss"] for h in hist) / hist[0]["loss"]
-    log(f"  largest loss / first step's loss: {growth:.3f} (bar {LOSS_GROWTH_MAX})")
-    if not growth <= LOSS_GROWTH_MAX:
-        raise AssertionError(f"the train path's loss grew {growth:.3g}x: the run diverges")
+    # the total, and a mask network's MaskBCELoss on its own (every image
+    # has a gt, which joins the sampled rois: the first step's is > 0)
+    for key in ("loss",) + (("MaskBCELoss",) if cfg.network.USE_MASK else ()):
+        growth = max(h[key] for h in hist) / hist[0][key] if hist[0][key] > 0 else math.inf
+        log(f"  largest {key} / first step's: {growth:.3f} (bar {LOSS_GROWTH_MAX})")
+        if not growth <= LOSS_GROWTH_MAX:
+            raise AssertionError(f"the train path's {key} grew {growth:.3g}x: the run diverges")
 
     after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     params = {k for k, _ in model.named_parameters()}
@@ -1175,6 +1243,8 @@ def train_path(cfg, dev, groups, per_step):
         "first_step_ms": hist[0]["step_ms"],
         "peak_mib": peak_mib, "captured_mib": captured_mib,
     }
+    if cfg.network.USE_MASK:
+        stats["mask_bce"] = [h["MaskBCELoss"] for h in hist]
     log(f"  train step (batch in hand to metrics on the host, guard snapshot included, "
         f"{len(timed)} steps after {TRAIN_WARMUP} warm-up): median "
         f"{stats['step_ms_median']:.3f} ms ({stats['images_per_s']:.3f} images/s); the step "
@@ -1453,7 +1523,7 @@ def profile_train_step(model, cfg, roidb, dev):
     def forward():
         opt.zero_grad()
         return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                     train=True, sample_seeds=batch["sample_seeds"], rng=1)[0]
+                     train=True, sample_seeds=batch["sample_seeds"], rng=1, **masks_of(batch))[0]
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
@@ -1495,6 +1565,66 @@ def profile_train_step(model, cfg, roidb, dev):
         log(f"    top: {e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
     return {"spans_ms": spans, "phases": phases, "busy_ms": total / 1e3,
             "by_layer_ms": {k: v / 1e3 for k, v in by_layer.items()}}
+
+
+def mask_branch_profile(model, cfg, roidb, dev):
+    """The mask branch of one train step split into its pieces, each run on
+    that step's own tensors (its sampled rois, pyramid, gt masks) under
+    torch.profiler with a sync after, forward and backward: the second
+    pooling of the mask rois from P2..P5 (``_level_pooled``: kernels 4/5 at
+    P2/P3, 2/3 at P4/P5), the mask head, the targets (``_mask_targets``)
+    and the BCE (``mask_bce``).  Returns each piece's device busy and wall
+    ms."""
+    batch = train_batch(cfg, roidb, 0, dev)
+    fpn_mod = importlib.import_module(type(model).__module__)
+    held = {}
+    orig = fpn_mod.sample_rois
+
+    def keep(*a, **k):
+        held["samples"] = orig(*a, **k)
+        return held["samples"]
+
+    fpn_mod.sample_rois = keep
+    try:
+        with torch.no_grad():
+            model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                  train=True, sample_seeds=batch["sample_seeds"], rng=1, **masks_of(batch))
+            images = normalize_images(batch["images"], batch["im_info"], cfg)
+            feats = [p.permute(0, 2, 3, 1).detach().requires_grad_()
+                     for p in model._pyramid(images)[:4]]
+    finally:
+        fpn_mod.sample_rois = orig
+    t = cfg.TRAIN
+    nfg = int(round(t.FG_FRACTION * t.BATCH_ROIS))
+    smp = held["samples"]
+    rois, labels, gi = smp.rois[:, :nfg], smp.labels[:, :nfg], smp.gt_index[:, :nfg]
+    with torch.no_grad():
+        pooled = model._level_pooled(feats, rois, (14, 14))
+        x = pooled.permute(0, 3, 1, 2).detach().requires_grad_()
+        head_out = model.mask_head(x).permute(0, 2, 3, 1)
+    logits = head_out.reshape((1, nfg) + head_out.shape[1:]).detach().requires_grad_()
+    g_pool, g_head = torch.randn_like(pooled), torch.randn_like(head_out)
+    targets = model._mask_targets(rois, gi, batch["gt_boxes"], batch.get("gt_masks"))
+    pieces = {
+        "pooling": lambda: model._level_pooled(feats, rois, (14, 14)).backward(g_pool),
+        "head": lambda: model.mask_head(x).permute(0, 2, 3, 1).backward(g_head),
+        "targets": lambda: model._mask_targets(rois, gi, batch["gt_boxes"],
+                                               batch.get("gt_masks")),
+        "BCE": lambda: mask_bce(logits, labels, targets).backward(),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        _, wall, events = _profiled(fn)
+        out[name] = {"busy_ms": sum(e.self_device_time_total for e in events) / 1e3,
+                     "wall_ms": wall, "kernels": sum(e.count for e in events)}
+    for p in model.parameters():
+        p.grad = None
+    log(f"  the mask branch of one step ({nfg} rois, {int((labels > 0).sum())} fg), piece by "
+        f"piece on its tensors (forward + backward, profiler on, sync after): "
+        + "; ".join(f"{k} {v['busy_ms']:.3f} ms busy of {v['wall_ms']:.3f} ms wall, "
+                    f"{v['kernels']} kernels" for k, v in out.items()))
+    return out
 
 
 def argmax_takes_the_first_maximum(dev):
@@ -1543,6 +1673,23 @@ def small_fpn_cfg():
     )
 
 
+def small_mask_cfg():
+    """Mask R-CNN (``mask_resnet_fpn``'s network) at small_fpn_cfg's size and
+    ResNet-50 depth: a calibrated random ResNet-101 carries the card's and
+    the CPU's rounding apart by depth (ROADMAP queue 3)."""
+    net = generate_config("mask_resnet_fpn", "coco").network
+    return small_fpn_cfg().replace(network=dataclasses.replace(net, depth=50))
+
+
+def small_gt_masks(gts, m: int):
+    """(1, 4, m, m) box-frame bitmaps of an ellipse and a triangle in the
+    first two of ``gts``."""
+    out = np.zeros((1, 4, m, m), np.uint8)
+    for j, kind in enumerate(("ellipse", "triangle")):
+        out[0, j] = polygons_to_box_frame([shape_polygon(kind, gts[j])], gts[j], m)
+    return torch.from_numpy(out)
+
+
 def train_step_agrees(dev, cfg, gts, label):
     """One small train step (128 × 128, the same weights and the same
     sampling draws) on the card (kernels, cuDNN) and on the CPU (plain
@@ -1551,7 +1698,8 @@ def train_step_agrees(dev, cfg, gts, label):
     1e-3 of its own L2 norm and within 3e-3 of its largest element (cuDNN's
     f32 convolution algorithms, its split reductions in the weight gradients
     and the atomics of the ROIAlign backward sum in other orders than the
-    CPU).  ``gts``: the image's (x1, y1, x2, y2, class) boxes."""
+    CPU).  ``gts``: the image's (x1, y1, x2, y2, class) boxes; a mask
+    network gets the polygon gt masks of :func:`small_gt_masks`."""
     model = make_model(cfg, seed=3)
     model_mod = importlib.import_module(type(model).__module__)
     rng = np.random.RandomState(4)
@@ -1563,6 +1711,8 @@ def train_step_agrees(dev, cfg, gts, label):
     gt_valid = torch.arange(4)[None] < len(gts)
     draws = sampling_uniforms(11, [0], anchor_count(cfg, 128, 128),
                               cfg.TRAIN.RPN_POST_NMS_TOP_N + 4, "cpu")
+    masks = ({"gt_masks": small_gt_masks(gts, cfg.TRAIN.MASK_GT_SIZE)}
+             if cfg.network.USE_MASK else {})
 
     runs = {}
     orig = (model_mod.assign_anchor, model_mod.sample_rois)
@@ -1574,7 +1724,8 @@ def train_step_agrees(dev, cfg, gts, label):
         model_mod.sample_rois = lambda *a, **k: got.setdefault("rois", orig[1](*a, **k))
         try:
             loss, aux = m(images.to(d), im_info.to(d), gt.to(d), gt_valid.to(d), train=True,
-                          draws={k: v.to(d) for k, v in draws.items()})
+                          draws={k: v.to(d) for k, v in draws.items()},
+                          **{k: v.to(d) for k, v in masks.items()})
         finally:
             model_mod.assign_anchor, model_mod.sample_rois = orig
         loss.backward()
@@ -2448,6 +2599,34 @@ def main() -> int:
     fpn_stats["fd_worst"] = gradient_matches_finite_differences(
         fpn_model, fcfg, fpn_roidb, dev, FPN_TRAINED_GROUPS)
 
+    mcfg = generate_config("mask_resnet_fpn", "coco")
+    mt, mn = mcfg.TRAIN, mcfg.network
+    nfg = int(round(mt.FG_FRACTION * mt.BATCH_ROIS))
+    log(f"[mask train] Mask R-CNN ResNet-{mn.depth} FPN ({mn.FPN_CHANNELS} channels, pooled "
+        f"{mn.POOLED_SIZE}, 28x28 mask head), {mcfg.dataset.NUM_CLASSES} classes, buckets "
+        f"{mcfg.SHAPE_BUCKETS}, BATCH_ROIS {mt.BATCH_ROIS} of which the mask branch's {nfg}, "
+        f"{mt.RPN_PRE_NMS_TOP_N}->{mt.RPN_POST_NMS_TOP_N} proposals, MASK_SIZE {mt.MASK_SIZE}, "
+        f"MASK_GT_SIZE {mt.MASK_GT_SIZE}, {TRAIN_STEPS} steps of fit on {MASK_TRAIN_IMAGES} "
+        f"synthetic 480x640 polygon images and their flipped copies (load_gt_roidb)")
+    _, mask_roidb = load_gt_roidb(mcfg, flip=True, synthetic_size=MASK_TRAIN_IMAGES)
+    mtrain_cap, mask_launches, mask_model, mask_roidb, mask_stats, mask_train_weights = \
+        train_path(mcfg, dev, MASK_TRAINED_GROUPS, MASK_LAUNCHES_PER_STEP, roidb=mask_roidb,
+                   keep=4)
+    log("[mask train] kernels vs plain on the captured tensors (the first step's calls of both "
+        "branches)")
+    if not all(any(e[1].shape[1] == nfg for e in calls) for calls in (
+            mtrain_cap.roi, mtrain_cap.roi_bwd, mtrain_cap.stream, mtrain_cap.stream_bwd)):
+        raise AssertionError("a ROIAlign kernel's mask-branch call was not captured")
+    roi_err = max(roi_err, hold_captured(nms_diff, mtrain_cap, bwd_diff, stream_diff))
+    log("[mask train] full-width gradient vs finite differences of the loss")
+    mask_stats["fd_worst"] = gradient_matches_finite_differences(
+        mask_model, mcfg, mask_roidb, dev, MASK_FD_GROUPS)
+    n_syncs, sync_lines = host_syncs_per_step(mask_model, mask_train_weights, mcfg, mask_roidb,
+                                              dev, 1)
+    top = sorted(sync_lines.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[mask train] host syncs in one step at aux_interval 1: {n_syncs}; by line {top}")
+    mask_stats["host_syncs"] = {"count": n_syncs, "top": top}
+
     nproc, affinity = os.cpu_count(), len(os.sched_getaffinity(0))
     workers = assembly_workers_for(affinity)
     log(f"[pipeline] nproc {nproc} (this process may run on {affinity}); the card CLI run's "
@@ -2519,6 +2698,21 @@ def main() -> int:
     stream_bwd_p3 = stream_bwd_timing(p3_bwd, "P3")
     fpn_roi = roi_fwd_timing(at_scale(fpn_cap.roi, 1.0 / 16), "FPN P4")
     fpn_bwd = roi_bwd_timing(at_scale(fpn_cap.roi_bwd, 1.0 / 16), "FPN P4")
+    log(f"[timing] Mask R-CNN train shapes, on the mask branch's captured tensors (R = {nfg})")
+
+    def mask_branch(entries, scale):
+        return at_scale([e for e in entries if e[1].shape[1] == nfg], scale)
+
+    mtrain = {
+        "stream_fwd": {f"p{lv}": stream_fwd_timing(mask_branch(mtrain_cap.stream, 0.5 ** lv),
+                                                   f"mask branch P{lv}") for lv in (2, 3)},
+        "stream_bwd": {f"p{lv}": stream_bwd_timing(mask_branch(mtrain_cap.stream_bwd, 0.5 ** lv),
+                                                   f"mask branch P{lv}") for lv in (2, 3)},
+        "roi_fwd": {f"p{lv}": roi_fwd_timing(mask_branch(mtrain_cap.roi, 0.5 ** lv),
+                                             f"mask branch P{lv}") for lv in (4, 5)},
+        "roi_bwd": {f"p{lv}": roi_bwd_timing(mask_branch(mtrain_cap.roi_bwd, 0.5 ** lv),
+                                             f"mask branch P{lv}") for lv in (4, 5)},
+    }
     log("[timing] the resident kernels 2 and 3 on the same P2 tensors, and kernel 2 on P3's "
         "(the other tap rule)")
     resident_p2 = roi_fwd_timing(p2 + (None,), "P2, resident kernel 2")
@@ -2536,7 +2730,7 @@ def main() -> int:
     fpn_serve_roi = {f"p{lv}": roi_fwd_timing(at_scale(fpn_serve_cap.roi, 0.5 ** lv),
                                               f"FPN serving P{lv}") for lv in (2, 3, 4, 5)}
     mask_roi = roi_fwd_timing(at_scale(mask_cap.roi, 0.25), "Mask R-CNN mask branch P2")
-    del fpn_serve_cap, mask_cap, cap_in
+    del fpn_serve_cap, mask_cap, cap_in, mtrain_cap
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
@@ -2544,6 +2738,9 @@ def main() -> int:
     train_stats["profile"] = profile_train_step(model, cfg, roidb, dev)
     log("[profile] where one FPN train step's device time goes")
     fpn_stats["profile"] = profile_train_step(fpn_model, fcfg, fpn_roidb, dev)
+    log("[profile] where one Mask R-CNN train step's device time goes, and its mask branch's")
+    mask_stats["profile"] = profile_train_step(mask_model, mcfg, mask_roidb, dev)
+    mask_stats["branch"] = mask_branch_profile(mask_model, mcfg, mask_roidb, dev)
 
     log("[reference] small request, card vs CPU")
     small_request_agrees(cfg, dev)
@@ -2562,11 +2759,16 @@ def main() -> int:
     log("[fpn train reference] small FPN train step, card vs CPU")
     train_step_agrees(dev, small_fpn_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
                                              [50.0, 60.0, 120.0, 110.0, 2.0]], "FPN")
+    log("[mask train reference] small Mask R-CNN train step (ResNet-50 depth, polygon gt "
+        "masks), card vs CPU")
+    train_step_agrees(dev, small_mask_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
+                                              [50.0, 60.0, 120.0, 110.0, 2.0]], "Mask R-CNN")
     log("[eval reference] small eval, card vs CPU")
     small_eval_agrees(dev)
 
     log(f"[train] stats {json.dumps(train_stats)}")
     log(f"[fpn train] stats {json.dumps(fpn_stats)}")
+    log(f"[mask train] stats {json.dumps(mask_stats)}")
     log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
     log(f"[eval] stats {json.dumps(eval_stats)}")
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
@@ -2576,7 +2778,12 @@ def main() -> int:
     def infer_launches(kernel):
         return {"fpn_serve_launches": fpn_serve_launches[kernel],
                 "mask_serve_launches": mask_serve_launches[kernel],
-                "mask_eval_launches": mask_eval_stats["launches"][kernel]}
+                "mask_eval_launches": mask_eval_stats["launches"][kernel],
+                "mask_train_launches": mask_launches[kernel]}
+
+    def mask_train_timing(kernel):
+        return {k: v for lv, e in mtrain[kernel].items()
+                for k, v in _prefixed(f"mask_train_{lv}", e).items()}
 
     print(json.dumps({"kernels": [
         {
@@ -2606,7 +2813,7 @@ def main() -> int:
             **_prefixed("p2", resident_p2), **_prefixed("p3", resident_p3),
             **{k: v for lv, e in fpn_serve_roi.items() for k, v in
                _prefixed(f"fpn_serve_{lv}", e).items()},
-            **_prefixed("mask_serve_p2", mask_roi),
+            **_prefixed("mask_serve_p2", mask_roi), **mask_train_timing("roi_fwd"),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -2620,6 +2827,7 @@ def main() -> int:
             f"s{RUNTIME_S}_bitwise_repeatable": s5_bwd.repeatable,
             **train_bwd, "library_ms": None,
             **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
+            **mask_train_timing("roi_bwd"),
         },
         {
             "name": "roi_align_stream_fwd", "route": "cuda",
@@ -2630,7 +2838,7 @@ def main() -> int:
             "eval_launches": eval_launches["roi_align_stream_fwd"], **infer_launches("roi_align_stream_fwd"),
             "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
             **stream_p2, "library_ms": None,
-            **_prefixed("p3", stream_p3),
+            **_prefixed("p3", stream_p3), **mask_train_timing("stream_fwd"),
         },
         {
             "name": "roi_align_stream_bwd", "route": "cuda",
@@ -2644,7 +2852,7 @@ def main() -> int:
             f"s{RUNTIME_S}_scaled_err": s5_stream.bwd_scaled,
             f"s{RUNTIME_S}_bitwise_repeatable": s5_stream.repeatable,
             **stream_bwd_p2, "library_ms": None,
-            **_prefixed("p3", stream_bwd_p3),
+            **_prefixed("p3", stream_bwd_p3), **mask_train_timing("stream_bwd"),
         },
     ]}), flush=True)
     print(smi, flush=True)

@@ -220,17 +220,19 @@ def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[floa
     """One train step, the JAX step's contract: ``(state, aux)``, the state
     updated in place.  Forward in train mode, backward, one optimizer update
     (``lr_scale`` scales this update only).  ``batch`` holds device tensors
-    ``images``, ``im_info``, ``gt_boxes``, ``gt_valid`` and, optionally,
-    host ``sample_seeds``; the samplers' seed is ``fold_in(rng, update
-    count)``, as the JAX step folds its step into the sampling key, unless
-    ``draws`` hands them their uniforms.  ``aux`` gains ``loss``; its values
-    stay on the device."""
+    ``images``, ``im_info``, ``gt_boxes``, ``gt_valid``, for a mask network
+    ``gt_masks`` and, optionally, host ``sample_seeds``; the samplers' seed
+    is ``fold_in(rng, update count)``, as the JAX step folds its step into
+    the sampling key, unless ``draws`` hands them their uniforms.  ``aux``
+    gains ``loss``; its values stay on the device."""
     model, optimizer = state.model, state.optimizer
     optimizer.zero_grad()
+    # the batch's keys are the model's arguments, as in the JAX step
+    masks = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
     loss, aux = model(
         batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
         train=True, sample_seeds=batch.get("sample_seeds"),
-        rng=fold_in(rng, optimizer.count), draws=draws,
+        rng=fold_in(rng, optimizer.count), draws=draws, **masks,
     )
     loss.backward()
     optimizer.step(lr_scale)

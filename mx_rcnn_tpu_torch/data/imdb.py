@@ -3,7 +3,9 @@
 
 A roidb record holds ``image`` (a path or ``synthetic://<i>``), ``height``,
 ``width``, ``boxes`` (n, 4) float32 inclusive pixel corners, ``gt_classes``
-(n,) int32 and ``flipped``.  An IMDB has a name, a root path whose
+(n,) int32 and ``flipped``, and optionally ``segmentation`` (one entry per
+box: polygons, an RLE dict or None; ``data/masks.py``) and ``proposals``
+(m, 4).  An IMDB has a name, a root path whose
 ``cache/`` holds pickled roidbs (``{name}_{tag}.pkl``), classes, an image
 index and ``evaluate_detections(detections)`` with ``detections[cls][img]``
 an (n, 5) [x1, y1, x2, y2, score] array.
@@ -14,6 +16,8 @@ from __future__ import annotations
 import os
 import pickle
 from typing import Dict, List
+
+from mx_rcnn_tpu_torch.data.masks import flip_segmentations
 
 
 class IMDB:
@@ -58,19 +62,32 @@ class IMDB:
 
     @staticmethod
     def append_flipped_images(roidb: List[Dict]) -> List[Dict]:
-        """The roidb followed by x-flipped copies of its records."""
+        """The roidb followed by x-flipped copies of its records: boxes,
+        ``segmentation`` (``data/masks.py::flip_segmentations``) and
+        ``proposals``, where a record has them."""
         flipped = []
         for rec in roidb:
-            boxes = rec["boxes"].copy()
-            if len(boxes):
-                oldx1 = boxes[:, 0].copy()
-                oldx2 = boxes[:, 2].copy()
-                boxes[:, 0] = rec["width"] - oldx2 - 1
-                boxes[:, 2] = rec["width"] - oldx1 - 1
-                if not (boxes[:, 2] >= boxes[:, 0]).all():
-                    raise ValueError(f"flipping {rec['image']} inverted a box")
-            flipped.append(dict(rec, boxes=boxes, flipped=True))
+            boxes = _flip_boxes(rec["boxes"], rec["width"])
+            if len(boxes) and not (boxes[:, 2] >= boxes[:, 0]).all():
+                raise ValueError(f"flipping {rec['image']} inverted a box")
+            new_rec = dict(rec, boxes=boxes, flipped=True)
+            if rec.get("segmentation") is not None:
+                new_rec["segmentation"] = flip_segmentations(rec["segmentation"], rec["width"])
+            if "proposals" in rec and len(rec["proposals"]):
+                new_rec["proposals"] = _flip_boxes(rec["proposals"], rec["width"])
+            flipped.append(new_rec)
         return list(roidb) + flipped
+
+
+def _flip_boxes(boxes, width: int):
+    """x-flip (n, ≥4) inclusive-pixel boxes in an image ``width`` wide."""
+    boxes = boxes.copy()
+    if len(boxes):
+        oldx1 = boxes[:, 0].copy()
+        oldx2 = boxes[:, 2].copy()
+        boxes[:, 0] = width - oldx2 - 1
+        boxes[:, 2] = width - oldx1 - 1
+    return boxes
 
 
 def filter_roidb(roidb: List[Dict]) -> List[Dict]:

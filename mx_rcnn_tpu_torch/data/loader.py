@@ -32,6 +32,7 @@ import numpy as np
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.assembler import AssemblyPool, default_assembly_workers
 from mx_rcnn_tpu_torch.data.image import prepare_image
+from mx_rcnn_tpu_torch.data.masks import record_gt_masks
 from mx_rcnn_tpu_torch.data.synthetic import synthetic_image
 from mx_rcnn_tpu_torch.utils import faults
 from mx_rcnn_tpu_torch.utils.retry import RetryPolicy, make_retry_policy
@@ -144,6 +145,7 @@ def make_batch(
     seeds: Optional[Sequence[int]] = None,
     images: Optional[Sequence[np.ndarray]] = None,
     uint8_images: bool = False,
+    with_masks: bool = False,
 ) -> Dict[str, np.ndarray]:
     """One padded batch: normalized images in ``bucket`` (or, with
     ``uint8_images``, the resized pixels quantized to uint8, which the model
@@ -151,7 +153,11 @@ def make_batch(
     by the resize factor and padded to MAX_GT_BOXES, and, with ``seeds``,
     the per-image sampling seeds.  ``images`` gives the records' pixels (the
     loader's guarded loads); without it they load here, through the
-    prepared-canvas cache when it is on."""
+    prepared-canvas cache when it is on.  ``with_masks`` adds ``gt_masks``
+    (n, MAX_GT_BOXES, M, M) uint8 box-frame bitmaps (M = TRAIN.MASK_GT_SIZE,
+    ``data/masks.py::record_gt_masks``); a record without ``segmentation``
+    gets all ones (rectangle targets).  The bitmaps are box-relative, so
+    the resize does not touch them."""
     target, max_size = cfg.dataset.SCALES[0]
     g = cfg.dataset.MAX_GT_BOXES
     n = len(records)
@@ -160,6 +166,9 @@ def make_batch(
     im_info = np.zeros((n, 3), np.float32)
     gt_boxes = np.zeros((n, g, 5), np.float32)
     gt_valid = np.zeros((n, g), bool)
+    if with_masks:
+        msize = cfg.TRAIN.MASK_GT_SIZE
+        gt_masks = np.zeros((n, g, msize, msize), np.uint8)
     for i, rec in enumerate(records):
         # only loader-owned loads are cached: a caller's ``images`` may hold
         # substituted slots, whose pixels no longer match the record's key
@@ -184,7 +193,12 @@ def make_batch(
         gt_boxes[i, :k, :4] = boxes[:k]
         gt_boxes[i, :k, 4] = rec["gt_classes"][:k]
         gt_valid[i, :k] = True
+        if with_masks:
+            rec_masks = record_gt_masks(rec, g, msize)
+            gt_masks[i] = 1 if rec_masks is None else rec_masks
     out = {"images": out_images, "im_info": im_info, "gt_boxes": gt_boxes, "gt_valid": gt_valid}
+    if with_masks:
+        out["gt_masks"] = gt_masks
     if seeds is not None:
         out["sample_seeds"] = np.asarray(seeds, np.int32)
     return out
@@ -305,7 +319,8 @@ def build_batch(
     filled with the batch's first good record (record, pixels and seed stay
     consistent; the batch keeps its shape).  Returns ``(batch or None when
     no record loads, [(record, error)] of the failed records, substituted
-    slots)``; the loader does the accounting."""
+    slots)``; the loader does the accounting.  A mask network's batch
+    carries ``gt_masks``."""
     failures: List[Tuple[int, str]] = []
     images: List[Optional[np.ndarray]] = []
     for i in idxs:
@@ -328,7 +343,8 @@ def build_batch(
             i, im = good[0]
         filled.append(i)
         imgs.append(im)
-    batch = make_batch([roidb[i] for i in filled], cfg, bucket, seeds=filled, images=imgs)
+    batch = make_batch([roidb[i] for i in filled], cfg, bucket, seeds=filled, images=imgs,
+                       with_masks=cfg.network.USE_MASK)
     return batch, failures, len(idxs) - len(good)
 
 

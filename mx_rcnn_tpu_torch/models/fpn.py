@@ -1,14 +1,18 @@
 """Feature Pyramid Network Faster R-CNN and Mask R-CNN (port of
-``mx_rcnn_tpu/models/fpn.py``): the training forward ``train_forward``
-(box-only) and the inference forward ``test_forward`` with the mask branch,
-in the JAX graph's order.
+``mx_rcnn_tpu/models/fpn.py``): the training forward ``train_forward`` and
+the inference forward ``test_forward``, each with the mask branch of a mask
+model, and ``mask_iou_probe``, in the JAX graph's order.
 
 normalize → ResNet C2..C5 → neck (1×1 laterals, nearest top-down adds, 3×3
 smoothing) → P2..P5, P6 = P5 at stride 2 → one shared RPN head on every
 level, levels concatenated P2→P6 against one anchor table → per-level top-k
 of the fg scores, one NMS over their union → ROIAlign of every roi from each
 of P2..P5, each blended in by the roi's level (``roi_levels``) → 2-fc head →
-RCNN head.  Training adds anchor targets, roi sampling and the four losses.
+RCNN head.  Training adds anchor targets, roi sampling and the four losses;
+a mask model adds the mask loss on the first FG_FRACTION·BATCH_ROIS sampled
+slots (fg first): those rois pooled again at 14×14, the mask head, targets
+resampled from the gt masks (``ops/mask_targets.py``) and the sigmoid BCE on
+the label's channel.
 Inference masks the bucket padding through the backbone, the neck and every
 level, drops anchors on padding, pads P2..P5 to the bucket ladder and pools
 with ``valid_hw``; a mask model pools the same rois again at 14×14 for the
@@ -16,9 +20,9 @@ mask head (per-class 28×28 logits).
 
 The ROIAlign routes as the JAX package's does (``ops/roi_align.py``): in
 training at the 608×1024 canvas P2 and P3 go to the streamed kernels 4/5,
-P4 and P5 to the resident kernels 2/3; inference (``valid_hw``) pools every
-level with kernel 2.  The NMS is kernel 1.  Frozen-proposal training and
-mask training are not ported yet.
+P4 and P5 to the resident kernels 2/3, for the box and the mask branch
+alike; inference (``valid_hw``) pools every level with kernel 2.  The NMS is
+kernel 1.  Frozen-proposal training is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.ops.anchors import shifted_anchors
 from mx_rcnn_tpu_torch.ops.boxes import bbox_pred, clip_boxes
+from mx_rcnn_tpu_torch.ops.losses import select_class, sigmoid_bce
+from mx_rcnn_tpu_torch.ops.mask_targets import crop_resize_masks, rasterize_box_masks
 from mx_rcnn_tpu_torch.ops.nms import _NEG_INF, nms
 from mx_rcnn_tpu_torch.ops.proposal import Proposals, anchor_grid_mask
 from mx_rcnn_tpu_torch.ops.roi_align import extract_roi_features_batched
@@ -123,6 +129,16 @@ def roi_levels(rois: torch.Tensor, k0: int = 4, canonical: float = 224.0,
     return torch.clamp(k, lo, hi).to(torch.int32)
 
 
+def mask_bce(logits: torch.Tensor, labels: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """(B, R, S, S, K) mask logits, (B, R) roi labels, (B, R, S, S) targets
+    → the sigmoid BCE on each roi's label channel, averaged over its cells,
+    summed over the fg rois and divided by max(#fg, 1)."""
+    fg = labels > 0
+    sel = select_class(logits, labels.clamp_min(0)[..., None, None])
+    per_roi = sigmoid_bce(sel, targets).mean(dim=(-1, -2))              # (B, R)
+    return (per_roi * fg).sum() / fg.float().sum().clamp_min(1.0)
+
+
 class FPNFasterRCNN(nn.Module):
     """Multi-level two-stage detector (``generate_config("resnet_fpn", …)``,
     and ``"mask_resnet_fpn"`` with the mask head) with
@@ -166,6 +182,7 @@ class FPNFasterRCNN(nn.Module):
         sample_seeds: Optional[Iterable[int]] = None,
         rng: int = 0,
         draws: Optional[Dict[str, torch.Tensor]] = None,
+        gt_masks: Optional[torch.Tensor] = None,
         proposals: Optional[torch.Tensor] = None,
         prop_valid: Optional[torch.Tensor] = None,
     ):
@@ -175,11 +192,8 @@ class FPNFasterRCNN(nn.Module):
         images = normalize_images(images, im_info, self.cfg)
         if not train:
             return self.test_forward(images, im_info)
-        if self.cfg.network.USE_MASK:
-            raise NotImplementedError(
-                "training the mask family (mask targets, the mask loss, gt masks in the "
-                "loader) is not ported yet (ROADMAP queue 1, item 13)")
-        return self.train_forward(images, im_info, gt_boxes, gt_valid, sample_seeds, rng, draws)
+        return self.train_forward(images, im_info, gt_boxes, gt_valid, sample_seeds, rng, draws,
+                                  gt_masks)
 
     # ----------------------------------------------------------- helpers
     def _pyramid(self, images: torch.Tensor, pad_mask=_identity) -> List[torch.Tensor]:
@@ -278,15 +292,76 @@ class FPNFasterRCNN(nn.Module):
             feats, rois, self.cfg.network.POOLED_SIZE, fwd_only, valid_hw))
 
     def _mask_forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
-                      valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      valid_hw: Optional[torch.Tensor] = None,
+                      fwd_only: bool = True) -> torch.Tensor:
         """(B, R, 4) rois → (B, R, 28, 28, K) per-class mask logits: the rois
-        pooled again at 14×14 (``_mask_pooled``), then the mask head."""
+        pooled again at 14×14 (JAX's ``_mask_pooled``), then the mask head.
+        The training branch pools with ``fwd_only`` off, so the backward
+        runs through ROIAlign's kernels 3 and 5."""
         b, r = rois.shape[0], rois.shape[1]
-        pooled = self._level_pooled(feats, rois, (14, 14), True, valid_hw)
+        pooled = self._level_pooled(feats, rois, (14, 14), fwd_only, valid_hw)
         # (B·R, 14, 14, C) → NCHW view, channels_last memory; the logits
         # come back channels_last, so the NHWC permute is a view
         logits = self.mask_head(pooled.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return logits.reshape((b, r) + logits.shape[1:])
+
+    def _mask_loss(self, feats: Sequence[torch.Tensor], samples, gt_boxes: torch.Tensor,
+                   gt_masks: Optional[torch.Tensor] = None):
+        """Per-fg-roi sigmoid BCE against the matched gt's mask on the roi's
+        28×28 grid → (loss, ``{"MaskBCELoss": loss}``).
+
+        Only the first ``nfg = min(round(FG_FRACTION·BATCH_ROIS), R)``
+        sampled slots enter: ``sample_rois`` packs fg first within that
+        quota, so every fg roi is there and the bg rows that pad it weigh
+        nothing.  The matched gt is ``samples.gt_index``, the assignment the
+        roi's label came from.  Targets: with ``gt_masks`` (B, G, M, M)
+        box-frame bitmaps, the matched bitmap resampled under the roi grid
+        and binarized at 0.5; without, the matched gt's rectangle.  The BCE
+        on the label's channel is averaged per roi, kept on fg rois and
+        divided by max(#fg, 1).  ``nfg`` is a Python int: no host sync."""
+        t = self.cfg.TRAIN
+        nfg = min(int(round(t.FG_FRACTION * t.BATCH_ROIS)), samples.rois.shape[1])
+        m_rois, m_labels = samples.rois[:, :nfg], samples.labels[:, :nfg]
+        logits = self._mask_forward(feats, m_rois, fwd_only=False)    # (B, R, S, S, K)
+        targets = self._mask_targets(m_rois, samples.gt_index[:, :nfg], gt_boxes, gt_masks)
+        loss = mask_bce(logits, m_labels, targets)
+        return loss, {"MaskBCELoss": loss}
+
+    def _mask_targets(self, rois: torch.Tensor, gt_index: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, R, 4) rois and their matched gt slots (B, R) → (B, R, S, S)
+        {0, 1} float32 targets: the matched bitmap of ``gt_masks`` resampled
+        and binarized at 0.5, or without ``gt_masks`` the matched box."""
+        size = self.cfg.TRAIN.MASK_SIZE
+        b, r = rois.shape[0], rois.shape[1]
+        gi = gt_index.long()
+        matched = torch.gather(gt_boxes[..., :4], 1, gi[..., None].expand(b, r, 4))
+        if gt_masks is None:
+            return rasterize_box_masks(rois, matched, size)
+        m = gt_masks.shape[-1]
+        bitmaps = torch.gather(gt_masks, 1, gi[..., None, None].expand(b, r, m, m))
+        return (crop_resize_masks(rois, matched, bitmaps, size) >= 0.5).float()
+
+    @torch.no_grad()
+    def mask_iou_probe(self, images: torch.Tensor, im_info: torch.Tensor, gt_boxes: torch.Tensor,
+                       gt_valid: torch.Tensor, gt_masks: torch.Tensor):
+        """Mask quality without the detector in the way: the masks predicted
+        at the gt boxes for the gt classes (no RPN, no scoring, no NMS),
+        thresholded at logit 0, against the gt bitmaps resampled onto the
+        same 28×28 grid → (IoU (B, G) float32, ``gt_valid``).  A head that
+        paints rectangles scores the shapes' box occupancy (ellipse ≈ 0.785,
+        triangle ≈ 0.5)."""
+        size = self.cfg.TRAIN.MASK_SIZE
+        images = normalize_images(images, im_info, self.cfg)
+        feats = [p.permute(0, 2, 3, 1) for p in self._pyramid(images)[:4]]
+        boxes = gt_boxes[..., :4]
+        logits = self._mask_forward(feats, boxes)                       # (B, G, S, S, K)
+        cls = gt_boxes[..., 4].to(torch.int32).clamp_min(0)
+        pred = select_class(logits, cls[..., None, None]) > 0.0
+        target = crop_resize_masks(boxes, boxes, gt_masks, size) >= 0.5
+        inter = (pred & target).sum(dim=(-1, -2)).float()
+        union = (pred | target).sum(dim=(-1, -2)).float()
+        return inter / union.clamp_min(1.0), gt_valid
 
     # ------------------------------------------------------------------ train
     def train_forward(
@@ -298,11 +373,14 @@ class FPNFasterRCNN(nn.Module):
         sample_seeds: Optional[Iterable[int]] = None,
         rng: int = 0,
         draws: Optional[Dict[str, torch.Tensor]] = None,
+        gt_masks: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(B, H, W, 3) normalized images, (B, 3) im_info, (B, G, 5) padded
         gt boxes and (B, G) ``gt_valid`` → (total loss, aux metrics), with
         the samplers' uniforms as in ``FasterRCNN.train_forward`` (over the
-        concatenated anchor table)."""
+        concatenated anchor table).  A mask model adds ``_mask_loss``
+        (``gt_masks``: (B, G, M, M) uint8 box-frame bitmaps, or None for
+        rectangle targets) and its ``MaskBCELoss``."""
         cfg = self.cfg
         t = cfg.TRAIN
         b = images.shape[0]
@@ -331,11 +409,16 @@ class FPNFasterRCNN(nn.Module):
             u=(draws["roi_fg"], draws["roi_bg"], draws["roi_tie"]),
         )
 
-        cls_logits, bbox_pred_out = self.rcnn(
-            self._roi_features([p.permute(0, 2, 3, 1) for p in pyramid[:4]], samples.rois))
-        return train_losses(
+        feats = [p.permute(0, 2, 3, 1) for p in pyramid[:4]]
+        cls_logits, bbox_pred_out = self.rcnn(self._roi_features(feats, samples.rois))
+        total, aux = train_losses(
             cfg, rpn_logits, rpn_deltas, atgt, samples, props.valid, cls_logits, bbox_pred_out
         )
+        if cfg.network.USE_MASK:
+            mask_loss, mask_aux = self._mask_loss(feats, samples, gt_boxes, gt_masks)
+            total = total + mask_loss
+            aux.update(mask_aux)
+        return total, aux
 
     # ------------------------------------------------------------------ test
     def test_forward(self, images: torch.Tensor, im_info: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,9 @@
 MXNet's ``smooth_l1`` (``scalar`` = sigma) and ``SoftmaxOutput`` with
 ``ignore_label=-1``, as plain torch ops.  The divisor of every loss comes
 from the caller through ``norm``: ``train_forward`` divides the RPN losses
-by ``RPN_BATCH_SIZE·B`` and both RCNN losses by ``BATCH_ROIS·B``.
+by ``RPN_BATCH_SIZE·B`` and both RCNN losses by ``BATCH_ROIS·B``.  The
+mask loss's pieces are :func:`select_class` (JAX's ``one_hot_select``) and
+:func:`sigmoid_bce` (``optax_sigmoid_bce`` of ``mx_rcnn_tpu/models/fpn.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,19 @@ def weighted_smooth_l1(
     return torch.sum(weight * smooth_l1(pred, target, sigma)) / norm
 
 
+def select_class(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` over the minor axis, ``idx`` broadcast against
+    ``x``'s leading dims (JAX's ``one_hot_select``, a compare-and-sum that
+    avoids a TPU gather; one match per row, so both are exact)."""
+    return torch.gather(x, -1, idx.long().expand(x.shape[:-1])[..., None])[..., 0]
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid binary cross-entropy on logits, in the stable
+    form ``max(x, 0) − x·y + log1p(exp(−|x|))``."""
+    return torch.clamp_min(logits, 0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
 def softmax_cross_entropy(
     logits: torch.Tensor,
     labels: torch.Tensor,
@@ -47,7 +62,7 @@ def softmax_cross_entropy(
     safe_labels = torch.where(valid, labels, 0).long()
     shifted = logits - logits.amax(-1, keepdim=True)
     logz = torch.log(torch.sum(torch.exp(shifted), -1))
-    ll = torch.gather(shifted, -1, safe_labels[..., None])[..., 0]
+    ll = select_class(shifted, safe_labels)
     nll = (logz - ll) * valid
     if norm is None:
         norm = valid.sum().clamp_min(1)

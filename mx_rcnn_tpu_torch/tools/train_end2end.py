@@ -5,16 +5,21 @@ the same names).
     python -m mx_rcnn_tpu_torch.tools.train_end2end --network resnet \\
         --dataset PascalVOC --synthetic 64 --epochs 1 --max_steps 20
 
-``--network resnet_fpn`` trains ResNet-50 FPN (box-only) through the same
-loop.  Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
+``--network resnet_fpn`` trains ResNet-50 FPN and ``--network
+mask_resnet_fpn`` (with ``--dataset coco``) Mask R-CNN ResNet-101 FPN, whose
+batches carry the gt masks, through the same loop.  The roidb comes from
+``utils/load_data.py::load_gt_roidb`` with flipped copies (TRAIN.FLIP).  Runs
+on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
 on the CPU instead.  Every step runs through ``fit``'s pipeline: the device
 feed (``--feed_depth``), the deferred aux check (``--aux_interval``) and the
 divergence guard (``--spike_factor``, ``--max_bad_batches``,
 ``--snapshot_every``, ``--step_timeout``), over a loader with a failure
 budget (``--loader_failure_budget``; ``MX_RCNN_ASSEMBLY_WORKERS`` sizes its
 assembly pool).  The log, the Speedometer lines included, goes to standard
-output.  Only synthetic data is ported (``--synthetic N``), and the weights
-are seeded random (``--seed``): no checkpoint is written yet.
+output.  The dataset readers (VOC, COCO) are ported but not an image decoder,
+so a run without ``--synthetic N`` stops at the first image (ROADMAP queue 1
+item 7); the weights are seeded random (``--seed``): no checkpoint is
+written yet.
 """
 
 from __future__ import annotations
@@ -30,14 +35,15 @@ import torch
 from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy
-from mx_rcnn_tpu_torch.data.imdb import IMDB, filter_roidb
-from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset
+from mx_rcnn_tpu_torch.data.loader import load_record_image
 from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train Faster R-CNN end-to-end (PyTorch port)")
-    p.add_argument("--network", default="resnet", choices=["resnet", "resnet50", "resnet152", "resnet_fpn"])
+    p.add_argument("--network", default="resnet",
+                   choices=["resnet", "resnet50", "resnet152", "resnet_fpn", "mask_resnet_fpn"])
     p.add_argument("--dataset", default="PascalVOC", choices=["PascalVOC", "PascalVOC0712", "coco"])
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--lr", type=float, default=None)
@@ -90,13 +96,12 @@ def train_net(args) -> Dict:
         overrides["SHUFFLE"] = False
     if overrides:
         cfg = cfg.replace(TRAIN=dataclasses.replace(cfg.TRAIN, **overrides))
-    if not args.synthetic:
-        raise NotImplementedError("only --synthetic data is ported; the dataset readers are not")
-    roidb = SyntheticDataset(num_images=args.synthetic, num_classes=cfg.dataset.NUM_CLASSES).gt_roidb()
-    if cfg.TRAIN.FLIP:
-        roidb = IMDB.append_flipped_images(roidb)
-    roidb = filter_roidb(roidb)
+    _, roidb = load_gt_roidb(cfg, flip=cfg.TRAIN.FLIP, synthetic_size=args.synthetic)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
+    if not args.synthetic:
+        # a dataset's images need a decoder: fail at the first one here rather
+        # than spend the loader's failure budget
+        load_record_image(roidb[0])
     model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,

@@ -1,9 +1,9 @@
 """Dataset factory and gt roidb assembly (port of ``get_imdb`` and
 ``load_gt_roidb`` in ``mx_rcnn_tpu/utils/load_data.py``).
 
-Synthetic data and Pascal VOC are ported; COCO's reader is not (ROADMAP
-queue 1 item 8), nor are the proposal roidbs of alternate training (item
-14).
+Synthetic data, Pascal VOC and COCO are ported (the readers of the
+annotations; reading the image files waits for a decoder, ROADMAP queue 1
+item 7); the proposal roidbs of alternate training are not (item 14).
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ def get_imdb(cfg: Config, image_set: Optional[str] = None, synthetic_size: int =
 
             imdbs.append(PascalVOC(split, ds.root_path, ds.dataset_path))
         elif ds.name == "coco":
-            raise NotImplementedError(
-                "the COCO reader is not ported: ROADMAP queue 1 item 8"
-            )
+            from mx_rcnn_tpu_torch.data.coco import COCO
+
+            imdbs.append(COCO(split, ds.root_path, ds.dataset_path))
         else:
             raise ValueError(f"unknown dataset {ds.name!r}")
     return imdbs

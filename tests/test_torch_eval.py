@@ -194,9 +194,15 @@ def test_imdb_base_and_load_data(tmp_path):
     imdbs, roidb = load_data.load_gt_roidb(cfg, flip=True, synthetic_size=3)
     assert len(imdbs) == 1 and imdbs[0].num_classes == 21 and len(roidb) == 6
     assert [r["flipped"] for r in roidb] == [False] * 3 + [True] * 3
-    coco = cfg.replace(dataset=dataclasses.replace(cfg.dataset, name="coco"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_data.get_imdb(coco)
+    # the coco branch reaches the COCO reader (tests/test_torch_mask_train.py
+    # holds it against JAX's)
+    (tmp_path / "annotations").mkdir()
+    (tmp_path / "annotations" / "instances_val2017.json").write_text(
+        '{"images": [], "annotations": [], "categories": [{"id": 1, "name": "a"}]}')
+    coco = cfg.replace(dataset=dataclasses.replace(cfg.dataset, name="coco",
+                                                   dataset_path=str(tmp_path)))
+    (reader,) = load_data.get_imdb(coco, "val2017")
+    assert type(reader).__name__ == "COCO" and reader.classes == ["__background__", "a"]
 
 
 # ------------------------------------------------------------ host decode

@@ -1,6 +1,7 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
 package cannot be imported (it serves a request and a mask request, trains a
-step through its CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py`` refuses
+step of the C4 and of the mask network through its CLI and evaluates through
+``tools/test.py``), and ``chip_smoke.py`` refuses
 to report without a card or outside the repository."""
 
 import json
@@ -132,6 +133,38 @@ cli.generate_config = tiny
 out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1"])
 assert out["steps"] == 1, out
 assert all(math.isfinite(v) for v in out["history"][0].values()), out
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_trains_a_mask_step_without_jax():
+    """``--network mask_resnet_fpn --dataset coco``: one step on synthetic
+    polygon records and their flipped copies, the gt masks rasterized by the
+    C RLE library."""
+    r = run_blocked("""
+import dataclasses, math, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.train_end2end as cli
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.native import rle
+def tiny(network, dataset):
+    cfg = generate_config(network, dataset)
+    assert cfg.network.USE_MASK
+    return cfg.replace(network=dataclasses.replace(cfg.network, depth=50),
+                       dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                       SHAPE_BUCKETS=((96, 128), (128, 96)),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32))
+cli.generate_config = tiny
+out = cli.main(["--network", "mask_resnet_fpn", "--dataset", "coco", "--cpu", "1",
+                "--synthetic", "2", "--max_steps", "1"])
+assert out["steps"] == 1, out
+hist = out["history"][0]
+assert "MaskBCELoss" in hist and all(math.isfinite(v) for v in hist.values()), out
+assert rle.backend() == "c"
 print("ok")
 """)
     assert r.returncode == 0, r.stderr

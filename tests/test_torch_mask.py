@@ -173,13 +173,6 @@ def test_mask_test_forward_matches_jax(mask_setup):
     assert 0.05 < frac < 0.95, frac
 
 
-def test_train_forward_of_a_mask_model_raises(mask_setup):
-    model = mask_setup[2]
-    x, info = torch.zeros((1, 64, 64, 3)), torch.tensor([[64.0, 64.0, 1.0]])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model(x, info, torch.zeros((1, 2, 5)), torch.zeros((1, 2), dtype=torch.bool), train=True)
-
-
 def _run(pp, out, batch, canvas_hw, jax_side):
     """``pp`` on host outputs → host outputs; ``canvas_hw`` only for a
     ``paste`` postprocess."""
