@@ -93,7 +93,29 @@
    1: one batch skipped, one window rollback, and the same final parameters.
    Printed: loop images/s, the step thread's wait for a batch, feed and
    pool occupancy, the aux sink's fetches and stalls, the guard snapshot's
-   cost, host syncs in one step (``set_sync_debug_mode``) and nproc;
+   cost, host syncs in one step (``set_sync_debug_mode``; at aux_interval 1
+   they must be 1, the guard's aux fetch, here and in ``[mask train]``) and
+   nproc;
+   ``[checkpoint]``: the Mask R-CNN ``[mask train]`` run's final state is
+   saved (``core/checkpoint.py``), loaded into a freshly built model and
+   optimizer and held bitwise; then, from the calibrated C4 weights, under
+   cuDNN's deterministic mode, on 4 synthetic images, batch 1, 2 epochs:
+   ``fit(prefix=A)`` uninterrupted; ``fit(prefix=B)`` stopped by a real
+   SIGTERM from a helper thread once its stream log has 5 lines
+   (``stall@5:10`` holds it there), which must commit a ``step_0001_B``
+   dump; ``fit(prefix=B, resume=True)``.  The concatenated stream log must
+   equal the golden one line for line, the epoch dumps' checksums A's, the
+   final ``state_dict``, momentum and count the golden run's bitwise, and
+   the resumed run must launch NMS and kernels 2 and 3 once a step; a
+   one-epoch ``fit(step_timeout=3)`` whose step 2 is followed on the card
+   by a 10 s spin kernel must see the watchdog commit its dump from the
+   snapshot's host mirror and exit while the spin still runs, and the
+   dump's resume must write the golden ``epoch_0001`` checksum.  Then
+   ``tools/test.py --synthetic 8`` on the card evaluates A's newest dump,
+   its ``--epoch 1`` and ``--params`` of the golden run's final weights:
+   the newest dump's detections must equal ``--params``' bitwise, and NMS
+   and kernel 2 launch.  Printed: each dump's bytes and save / load
+   seconds, the stop position and the seconds from SIGTERM to the commit;
 8. ``[eval]``: ``pred_eval`` over 32 synthetic VOC-sized (375 × 500) images
    with the calibrated C4 weights the ``[train]`` run started from, in five
    settings: serial (batch 1, no feed, one forward in flight), the JAX
@@ -154,11 +176,15 @@ import importlib
 import json
 import math
 import os
+import pickle
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -166,6 +192,14 @@ import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.checkpoint import (
+    DATA_FILE,
+    latest_checkpoint,
+    load_checkpoint,
+    read_manifest,
+    restorable_checkpoints,
+    save_checkpoint,
+)
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.core.metrics import METRIC_NAMES
 from mx_rcnn_tpu_torch.core.pipeline import PipelinedLoop, batch_to_device
@@ -200,10 +234,14 @@ from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve import runner as runner_mod
 from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepare_request
+from mx_rcnn_tpu_torch.tools import test as test_cli
 from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
 from mx_rcnn_tpu_torch.utils import faults
+from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
+from mx_rcnn_tpu_torch.utils.combine_model import save_params
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
+from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -1166,8 +1204,8 @@ def train_path(cfg, dev, groups, per_step, roidb=None, keep=2):
     kernel must launch ``per_step`` times a step dispatched; the first
     ``keep`` calls of each ROIAlign kernel are captured.  Returns the
     captured kernel inputs, the launch counts of the run, the model, the
-    roidb, the step statistics and the calibrated weights the run started
-    from (on the host)."""
+    roidb, the step statistics, the calibrated weights the run started
+    from (on the host) and the run's final train state."""
     if roidb is None:
         roidb = SyntheticDataset(num_images=8, image_size=(480, 640)).gt_roidb()
     model = make_model(cfg)
@@ -1252,7 +1290,7 @@ def train_path(cfg, dev, groups, per_step, roidb=None, keep=2):
         f"{stats['loop_images_per_s']:.3f} images/s; first step {stats['first_step_ms']:.3f} ms")
     log(f"  max_memory_allocated: {peak_mib:.1f} MiB (of which {captured_mib:.1f} MiB are "
         f"this script's copies of kernel inputs)")
-    return cap, launches, model, roidb, stats, before
+    return cap, launches, model, roidb, stats, before, out["state"]
 
 
 def loop_images_per_s(cfg, out) -> float:
@@ -1404,6 +1442,10 @@ def host_syncs_per_step(model, weights, cfg, roidb, dev, k):
 
 
 PIPELINE_IMAGES = 16
+# host synchronisations in one step at aux_interval 1: the guard's aux fetch
+# (core/resilience.py::fetch_host); the samplers' constant vectors are built
+# once per device (ops/targets.py::device_constant)
+HOST_SYNCS_PER_STEP = 1
 
 
 def pipeline_phase(name, cfg, weights, dev, per_step, workers):
@@ -1440,6 +1482,9 @@ def pipeline_phase(name, cfg, weights, dev, per_step, workers):
         top = sorted(lines.items(), key=lambda kv: -kv[1])[:6]
         log(f"  host syncs in one step at aux_interval {k}: {n}; by line {top}")
         figures["host_syncs"][k] = {"count": n, "top": top}
+        if k == 1 and n != HOST_SYNCS_PER_STEP:
+            raise AssertionError(f"{name}: a step at aux_interval 1 synchronised the host {n} "
+                                 f"times, not {HOST_SYNCS_PER_STEP}: {top}")
     return figures
 
 
@@ -1478,6 +1523,299 @@ def recovery_check(model, weights, cfg, roidb, dev, per_step, tmp):
         raise AssertionError("the card-side recovery from nan_loss@5 failed its checks")
     return {"K4": p, "K1": guarded["pipeline"], "dispatched": {
         "K4": late["fig"]["dispatched_steps"], "K1": guarded["fig"]["dispatched_steps"]}}
+
+
+# -------------------------------------------------------- checkpoint phase
+CHECKPOINT_IMAGES = 4
+# the preempted run is signalled once its stream log has this many lines
+# (batch 0 of epoch 2 in hand); the stall holds the next step, so the signal
+# cannot land after the last one
+CHECKPOINT_SIGNAL_LINES = 5
+CHECKPOINT_FAULTS = "stall@5:10"
+# the watchdog check: a spin kernel of WATCHDOG_HANG_S seconds queued on the
+# card after step WATCHDOG_HANG_STEP holds that step's aux fetch past
+# WATCHDOG_TIMEOUT_S
+WATCHDOG_HANG_STEP = 2
+WATCHDOG_HANG_S = 10.0
+WATCHDOG_TIMEOUT_S = 3.0
+
+
+class SigtermAfter:
+    """A thread that sends this process SIGTERM once ``log_path`` has
+    ``lines`` lines, unless ``cancel()`` comes first; ``at`` is the host
+    clock at the send."""
+
+    def __init__(self, log_path: str, lines: int):
+        self.log_path, self.lines, self.at = log_path, lines, None
+        self._cancel = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _count(self) -> int:
+        try:
+            with open(self.log_path) as f:
+                return sum(1 for _ in f)
+        except FileNotFoundError:
+            return 0
+
+    def _run(self):
+        while not self._cancel.wait(0.002):
+            if self._count() >= self.lines:
+                self.at = time.perf_counter()
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+
+    def cancel(self):
+        self._cancel.set()
+        self._thread.join(timeout=30)
+
+
+def hung_card_watchdog(cfg, model, weights, roidb, dev, tmp, golden_prefix) -> dict:
+    """``fit(prefix=W, step_timeout=WATCHDOG_TIMEOUT_S)`` for one epoch, with
+    a spin kernel (``torch.cuda._sleep``) of WATCHDOG_HANG_S seconds queued
+    on the card after step WATCHDOG_HANG_STEP: the guard's aux fetch waits
+    on the hung card, the watchdog fires, saves the guard's snapshot from
+    its host mirror and calls ``os._exit`` (replaced here by a recorder).
+    Gates: the exit came while the spin still ran (an event queued after it
+    had not completed), the dump is committed at the hung step's position,
+    and its resume ends the epoch with the golden run's ``epoch_0001``
+    checksum."""
+    import mx_rcnn_tpu_torch.core.fit as fit_module
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    stop.record()
+    stop.synchronize()
+    cycles = int(WATCHDOG_HANG_S * 1e3 / start.elapsed_time(stop) * 1e8)
+    real_step, real_exit = fit_module.train_step, os._exit
+    hang, exits = {}, []
+
+    def hung_step(state, batch, rng, lr_scale=None, **kw):
+        out = real_step(state, batch, rng, lr_scale, **kw)
+        if state.optimizer.count == WATCHDOG_HANG_STEP + 1 and not hang:
+            torch.cuda._sleep(cycles)
+            hang["end"] = torch.cuda.Event()
+            hang["end"].record()
+            hang["at"] = time.perf_counter()
+        return out
+
+    def recorded_exit(code):
+        exits.append((code, hang["end"].query(), time.perf_counter()))
+
+    w = os.path.join(tmp, "W")
+    knobs = {"seed": 0, "device": dev, "frequent": 100, "epochs": 1}
+    model.load_state_dict(weights)
+    fit_module.train_step, os._exit = hung_step, recorded_exit
+    try:
+        hung = fit(model, cfg, roidb, prefix=w, step_timeout=WATCHDOG_TIMEOUT_S,
+                   max_steps=CHECKPOINT_IMAGES, **knobs)
+    finally:
+        fit_module.train_step, os._exit = real_step, real_exit
+    want = (0, WATCHDOG_HANG_STEP)
+    dumps = [x for x in hung["saves"] if (x["epoch"], x["batch"]) == want]
+    log(f"  hung card: a {WATCHDOG_HANG_S:.0f} s spin kernel after step {WATCHDOG_HANG_STEP}, "
+        f"step_timeout {WATCHDOG_TIMEOUT_S:.0f} s: exits {[(c, busy) for c, busy, _ in exits]} "
+        f"(code, spin completed at the exit), "
+        f"{[round(t - hang['at'], 3) for *_, t in exits]} s after the spin was queued; dumps "
+        f"{[(os.path.basename(x['path']), x['bytes'], round(x['seconds'], 3)) for x in hung['saves']]}"
+        f"; restorable {restorable_checkpoints(w)}; step_ms "
+        f"{[round(h.get('step_ms', float('nan')), 3) for h in hung['history']]}")
+    if len(exits) != 1 or exits[0][0] != 75 or exits[0][1]:
+        raise AssertionError(f"the watchdog did not exit while the card was hung: {exits}")
+    if len(dumps) != 1 or restorable_checkpoints(w) != [want]:
+        raise AssertionError(f"no committed watchdog dump at {want}: {hung['saves']}")
+    model.load_state_dict(weights)
+    res = fit(model, cfg, roidb, prefix=w, resume=True, **knobs)
+    checksums = [read_manifest(os.path.join(p, "epoch_0001"))["checksum"]
+                 for p in (golden_prefix, w)]
+    log(f"  resumed from the watchdog dump at {res['begin']}: {res['steps']} steps; epoch_0001 "
+        f"checksum equal to the golden run's: {checksums[0] == checksums[1]}")
+    if res["begin"] != want or res["steps"] != CHECKPOINT_IMAGES - want[1] or \
+            checksums[0] != checksums[1]:
+        raise AssertionError("the resume from the watchdog dump lost or repeated a batch")
+    return {"exit_after_hang_s": exits[0][2] - hang["at"], "dump": dumps[0],
+            "resumed_steps": res["steps"]}
+
+
+def tree_diff(a, b) -> list:
+    """The names where two checkpoint trees differ: a ``state_dict`` tensor,
+    a momentum buffer, or the count."""
+    bad = [] if a["count"] == b["count"] else ["count"]
+    for part in ("model", "momentum"):
+        if a[part].keys() != b[part].keys():
+            bad.append(f"{part} names")
+            continue
+        for k, v in a[part].items():
+            w = b[part][k]
+            if (v is None) != (w is None) or (v is not None and not torch.equal(v, w)):
+                bad.append(f"{part}.{k}")
+    return bad
+
+
+def state_round_trip(cfg, state, dev):
+    """Save a full-width train state from the card, load it into a freshly
+    built model and optimizer on the card, and hold every ``state_dict``
+    tensor, momentum buffer and the count bitwise.  Returns the dump's bytes
+    and the save's and load's seconds (the load verifies the checksum)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, state, 1)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, DATA_FILE))
+        model = make_model(cfg, seed=1).to(dev, memory_format=torch.channels_last)
+        fresh = create_train_state(model, make_optimizer(cfg, model, make_lr_schedule(cfg, 8)))
+        t0 = time.perf_counter()
+        load_checkpoint(tmp, 1, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fresh_tree = fresh.state_tree()
+        bad = tree_diff(state.state_tree(), fresh_tree)
+    n_momentum = sum(v is not None for v in fresh_tree["momentum"].values())
+    log(f"  {len(state.model.state_dict())} state_dict tensors, {n_momentum} momentum buffers, "
+        f"count {state.optimizer.count}: {nbytes} bytes, saved in {save_s:.3f} s, loaded with its "
+        f"checksum in {load_s:.3f} s; bitwise equal after the load: {not bad}")
+    if bad:
+        raise AssertionError(f"the loaded state differs from the saved one: {bad[:5]}")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s, "count": state.optimizer.count}
+
+
+def checkpoint_phase(cfg, weights, dev):
+    """The training-state cycle at full width on CHECKPOINT_IMAGES records,
+    batch 1, 2 epochs, from ``weights``: a golden ``fit(prefix=A)``; a run
+    under B that a real SIGTERM stops mid epoch 2 (CHECKPOINT_FAULTS holds
+    it there), which must leave a committed ``step_0001_BBBBBB`` dump; its
+    ``fit(resume=True)``.  Gates: the concatenated stream log equals the
+    golden one line for line, ``epoch_0002``'s checksum under B equals A's
+    (and ``epoch_0001``'s), the final ``state_dict``, momentum and count
+    equal the golden run's bitwise, and the resumed run launches NMS and
+    kernels 2 and 3 once a step.  Then ``tools/test.py`` evaluates A's
+    newest dump, its ``epoch_0001`` and ``--params`` of the golden run's
+    final weights on the card: the newest dump's detections equal
+    ``--params``' bitwise (and the mAPs), and NMS and kernel 2 launch in
+    each run."""
+    roidb = SyntheticDataset(num_images=CHECKPOINT_IMAGES, image_size=(480, 640)).gt_roidb()
+    model = make_model(cfg)
+    knobs = {"epochs": 2, "seed": 0, "device": dev, "frequent": 100}
+    late = []
+    # a signal that lands after fit has uninstalled its guard must not end
+    # the script: the guard restores this handler
+    prev = signal.signal(signal.SIGTERM, lambda signum, frame: late.append(signum))
+    tmp = tempfile.mkdtemp()
+    try:
+        a, b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        log_a, log_b = os.path.join(tmp, "a.log"), os.path.join(tmp, "b.log")
+        model.load_state_dict(weights)
+        golden = fit(model, cfg, roidb, prefix=a, stream_log=log_a, **knobs)
+        golden_tree = golden["state"].state_tree()
+        params = os.path.join(tmp, "P", "params.pkl")
+        os.makedirs(os.path.dirname(params))
+        save_params(params, torch_to_flax(model))
+        step_ms = statistics.median(h["step_ms"] for h in golden["history"][TRAIN_WARMUP:])
+        saves = [(os.path.basename(x["path"]), x["bytes"], round(x["seconds"], 3))
+                 for x in golden["saves"]]
+        log(f"  golden run: {golden['steps']} steps, step median {step_ms:.3f} ms after "
+            f"{TRAIN_WARMUP} warm-up, saves (dump, bytes, seconds) {saves}")
+
+        model.load_state_dict(weights)
+        os.environ[faults.ENV_VAR] = CHECKPOINT_FAULTS
+        faults.reset()
+        sig = SigtermAfter(log_b, CHECKPOINT_SIGNAL_LINES)
+        try:
+            pre = fit(model, cfg, roidb, prefix=b, stream_log=log_b, **knobs)
+        finally:
+            sig.cancel()
+            del os.environ[faults.ENV_VAR]
+            faults.reset()
+        stop = pre["stopped_at"]
+        if sig.at is None or not pre["preempted"] or stop[0] != 1 or late:
+            raise AssertionError(f"the SIGTERM did not stop the run mid epoch 2: sent "
+                                 f"{sig.at is not None}, stopped at {stop}, late {late}")
+        dump = pre["saves"][-1]
+        if latest_checkpoint(b) != stop or os.path.basename(dump["path"]) != \
+                f"step_{stop[0]:04d}_{stop[1]:06d}":
+            raise AssertionError(f"no committed step dump at {stop}: {pre['saves']}")
+        commit_s = dump["at"] - sig.at
+        log(f"  preempted run: SIGTERM once its log had {CHECKPOINT_SIGNAL_LINES} lines "
+            f"({CHECKPOINT_FAULTS}); stopped at epoch {stop[0]} batch {stop[1]} after "
+            f"{pre['steps']} steps; committed {os.path.basename(dump['path'])} ({dump['bytes']} "
+            f"bytes, saved in {dump['seconds']:.3f} s), {commit_s:.3f} s after the signal")
+
+        model.load_state_dict(weights)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = fit(model, cfg, roidb, prefix=b, resume=True, stream_log=log_b, **knobs)
+        launches = read_launches()
+        want = {k: n * res["dispatched_steps"] for k, n in C4_LAUNCHES_PER_STEP.items()}
+        with open(log_a) as fa, open(log_b) as fb:
+            lines_a, lines_b = fa.read().splitlines(), fb.read().splitlines()
+        checksums = {(p, e): read_manifest(os.path.join(p, f"epoch_{e:04d}"))["checksum"]
+                     for p in (a, b) for e in (1, 2)}
+        bad = tree_diff(golden_tree, res["state"].state_tree())
+        t0 = time.perf_counter()
+        load_checkpoint(a, 2, res["state"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"  resumed run: from {res['begin']}, {res['steps']} steps; stream log equal to the "
+            f"golden one line for line: {lines_a == lines_b} ({len(lines_b)} lines); epoch_0002 "
+            f"checksum equal: {checksums[(a, 2)] == checksums[(b, 2)]} ({checksums[(b, 2)][:16]}), "
+            f"epoch_0001: {checksums[(a, 1)] == checksums[(b, 1)]}; state_dict, momentum and "
+            f"count bitwise equal: {not bad}; launches {launches} (expected {want}); "
+            f"epoch_0002 loaded with its checksum in {load_s:.3f} s")
+        if lines_a != lines_b or len(lines_a) != 2 * CHECKPOINT_IMAGES:
+            raise AssertionError("the preempted and resumed runs did not consume the golden stream")
+        if checksums[(a, 2)] != checksums[(b, 2)] or checksums[(a, 1)] != checksums[(b, 1)]:
+            raise AssertionError(f"the epoch dumps' checksums differ: {checksums}")
+        if bad:
+            raise AssertionError(f"the resumed run's state differs from the golden run's: {bad[:5]}")
+        if launches != want or res["begin"] != stop:
+            raise AssertionError(f"the resumed run from {res['begin']} launched {launches}, not "
+                                 f"{want}")
+        watchdog = hung_card_watchdog(cfg, model, weights, roidb, dev, tmp, a)
+
+        save_run_meta(a, cfg)
+        shutil.copy(os.path.join(a, "run_meta.json"), os.path.dirname(params))
+        evals = {}
+        for label, extra in (("newest dump", ["--prefix", a]),
+                             ("--epoch 1", ["--prefix", a, "--epoch", "1"]),
+                             ("--params", ["--params", params])):
+            dets = os.path.join(tmp, f"{len(evals)}.pkl")
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            results = test_cli.test_rcnn(test_cli.parse_args(
+                ["--network", "resnet", "--dataset", "PascalVOC", "--synthetic", "8",
+                 "--dump", dets] + extra))
+            secs = time.perf_counter() - t0
+            with open(dets, "rb") as f:
+                evals[label] = {"mAP": results["mAP"], "launches": read_launches(),
+                                "seconds": secs, "dets": pickle.load(f)}
+            log(f"  tools/test.py {' '.join(extra[:1] + extra[2:])}: mAP {results['mAP']:.6f}, "
+                f"{secs:.3f} s, launches {evals[label]['launches']}")
+        picked = (test_cli.pick_checkpoint(a, None), test_cli.pick_checkpoint(a, 1))
+        newest, params_run = evals["newest dump"], evals["--params"]
+        same = len(newest["dets"]) == len(params_run["dets"]) and all(
+            len(ca) == len(cb) and all(np.array_equal(x, y) for x, y in zip(ca, cb))
+            for ca, cb in zip(newest["dets"], params_run["dets"]))
+        log(f"  picked dumps (newest, --epoch 1): {picked}; newest dump's detections bitwise "
+            f"equal to --params': {same}, mAP {newest['mAP']} vs {params_run['mAP']}")
+        if picked != ((2, 0), (1, 0)) or not same or newest["mAP"] != params_run["mAP"]:
+            raise AssertionError("tools/test.py --prefix did not evaluate the dump as --params")
+        for label in ("newest dump", "--epoch 1"):
+            n = evals[label]["launches"]
+            if not (n["nms"] > 0 and n["roi_align_fwd"] > 0):
+                raise AssertionError(f"tools/test.py {label} launched {n}")
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "golden_step_ms_median": step_ms, "golden_saves": golden["saves"],
+        "stopped_at": stop, "preempted_steps": pre["steps"], "stop_dump": dump,
+        "sigterm_to_commit_s": commit_s, "resumed_steps": res["steps"],
+        "resumed_launches": launches, "load_s": load_s, "watchdog": watchdog,
+        "eval": {k: {kk: vv for kk, vv in v.items() if kk != "dets"} for k, v in evals.items()},
+    }
 
 
 def _train_layer_of(kernel_name: str) -> str:
@@ -2577,7 +2915,7 @@ def main() -> int:
     log(f"[train] ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, BATCH_IMAGES "
         f"{t.BATCH_IMAGES}, BATCH_ROIS {t.BATCH_ROIS}, {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} "
         f"proposals, {TRAIN_STEPS} steps of fit on synthetic 480x640 images")
-    train_cap, launches, model, roidb, train_stats, c4_weights = train_path(
+    train_cap, launches, model, roidb, train_stats, c4_weights, _ = train_path(
         cfg, dev, TRAINED_GROUPS, C4_LAUNCHES_PER_STEP)
     log("[train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff, stream_diff))
@@ -2591,7 +2929,7 @@ def main() -> int:
         f"{fn.FPN_FEAT_STRIDES}, pooled {fn.POOLED_SIZE}), {fcfg.dataset.NUM_CLASSES} classes, "
         f"BATCH_ROIS {ft.BATCH_ROIS}, {ft.RPN_PRE_NMS_TOP_N}->{ft.RPN_POST_NMS_TOP_N} proposals, "
         f"{TRAIN_STEPS} steps of fit on synthetic 480x640 images")
-    fpn_cap, fpn_launches, fpn_model, fpn_roidb, fpn_stats, fpn_weights = train_path(
+    fpn_cap, fpn_launches, fpn_model, fpn_roidb, fpn_stats, fpn_weights, _ = train_path(
         fcfg, dev, FPN_TRAINED_GROUPS, FPN_LAUNCHES_PER_STEP)
     log("[fpn train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, fpn_cap, bwd_diff, stream_diff))
@@ -2609,9 +2947,13 @@ def main() -> int:
         f"MASK_GT_SIZE {mt.MASK_GT_SIZE}, {TRAIN_STEPS} steps of fit on {MASK_TRAIN_IMAGES} "
         f"synthetic 480x640 polygon images and their flipped copies (load_gt_roidb)")
     _, mask_roidb = load_gt_roidb(mcfg, flip=True, synthetic_size=MASK_TRAIN_IMAGES)
-    mtrain_cap, mask_launches, mask_model, mask_roidb, mask_stats, mask_train_weights = \
-        train_path(mcfg, dev, MASK_TRAINED_GROUPS, MASK_LAUNCHES_PER_STEP, roidb=mask_roidb,
-                   keep=4)
+    mtrain_cap, mask_launches, mask_model, mask_roidb, mask_stats, mask_train_weights, \
+        mask_state = train_path(mcfg, dev, MASK_TRAINED_GROUPS, MASK_LAUNCHES_PER_STEP,
+                                roidb=mask_roidb, keep=4)
+    log("[checkpoint] Mask R-CNN: the [mask train] run's final state saved, then loaded into a "
+        "freshly built model and optimizer")
+    mask_ckpt = state_round_trip(mcfg, mask_state, dev)
+    del mask_state
     log("[mask train] kernels vs plain on the captured tensors (the first step's calls of both "
         "branches)")
     if not all(any(e[1].shape[1] == nfg for e in calls) for calls in (
@@ -2626,6 +2968,9 @@ def main() -> int:
     top = sorted(sync_lines.items(), key=lambda kv: -kv[1])[:6]
     log(f"[mask train] host syncs in one step at aux_interval 1: {n_syncs}; by line {top}")
     mask_stats["host_syncs"] = {"count": n_syncs, "top": top}
+    if n_syncs != HOST_SYNCS_PER_STEP:
+        raise AssertionError(f"a Mask R-CNN step at aux_interval 1 synchronised the host "
+                             f"{n_syncs} times, not {HOST_SYNCS_PER_STEP}: {top}")
 
     nproc, affinity = os.cpu_count(), len(os.sched_getaffinity(0))
     workers = assembly_workers_for(affinity)
@@ -2645,6 +2990,17 @@ def main() -> int:
                                                FPN_LAUNCHES_PER_STEP, workers)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+
+    log(f"[checkpoint] ResNet-{cfg.network.depth} C4 at full width from the calibrated weights "
+        f"the [train] run started from, cuDNN deterministic: {CHECKPOINT_IMAGES} synthetic "
+        f"480x640 images, batch 1, 2 epochs of fit with checkpoints (golden), a run stopped by "
+        f"SIGTERM mid epoch 2, its resume; tools/test.py on the dumps")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        checkpoint_stats = checkpoint_phase(cfg, c4_weights, dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    checkpoint_stats["mask"] = mask_ckpt
 
     te = cfg.TEST
     log(f"[eval] ResNet-{cfg.network.depth} C4 pred_eval from the calibrated weights the [train] "
@@ -2741,6 +3097,12 @@ def main() -> int:
     log("[profile] where one Mask R-CNN train step's device time goes, and its mask branch's")
     mask_stats["profile"] = profile_train_step(mask_model, mcfg, mask_roidb, dev)
     mask_stats["branch"] = mask_branch_profile(mask_model, mcfg, mask_roidb, dev)
+    for label, st in (("C4", train_stats), ("FPN", fpn_stats), ("Mask R-CNN", mask_stats)):
+        busy = st["profile"].get("busy_ms")
+        if busy:
+            st["idle"] = 1 - busy / st["step_ms_median"]
+            log(f"[profile] {label}: step median {st['step_ms_median']:.3f} ms beside one "
+                f"profiled step's device busy {busy:.3f} ms: idle {100 * st['idle']:.1f}%")
 
     log("[reference] small request, card vs CPU")
     small_request_agrees(cfg, dev)
@@ -2770,6 +3132,7 @@ def main() -> int:
     log(f"[fpn train] stats {json.dumps(fpn_stats)}")
     log(f"[mask train] stats {json.dumps(mask_stats)}")
     log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
+    log(f"[checkpoint] stats {json.dumps(checkpoint_stats)}")
     log(f"[eval] stats {json.dumps(eval_stats)}")
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")

@@ -8,9 +8,10 @@ in the reference's Speedometer format.
 
 from __future__ import annotations
 
+import json
 import logging
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -50,11 +51,15 @@ class MetricTracker:
 
 
 class Speedometer:
-    """Images/s and the running metrics, logged every ``frequent`` steps."""
+    """Images/s and the running metrics, logged every ``frequent`` steps.
+    ``jsonl_path`` also appends one JSON line per log event, with the JAX
+    package's keys (``time``, ``epoch``, ``step``, ``samples_per_sec`` and
+    the metric names)."""
 
-    def __init__(self, batch_size: int, frequent: int = 20):
+    def __init__(self, batch_size: int, frequent: int = 20, jsonl_path: Optional[str] = None):
         self.batch_size = batch_size
         self.frequent = frequent
+        self.jsonl_path = jsonl_path
         self._tic = time.time()
         self._last = 0
 
@@ -67,6 +72,14 @@ class Speedometer:
             "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec\t%s",
             epoch, step, speed, tracker.format(),
         )
+        if self.jsonl_path:
+            rec = {
+                "time": time.time(), "epoch": epoch, "step": step,
+                "samples_per_sec": round(speed, 3),
+                **{k: round(v, 6) for k, v in tracker.get().items()},
+            }
+            with open(self.jsonl_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
         tracker.reset()
         self._tic = time.time()
         self._last = step

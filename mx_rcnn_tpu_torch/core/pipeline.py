@@ -359,6 +359,7 @@ class PipelinedLoop:
         self.sink = AsyncAuxSink()
         self._entries: List[_Entry] = []
         self._win_snapshot = None
+        self._win_index = 0  # the stream index of the window's first step
         self._win_buf = None  # the buffers every window snapshot reuses
         self._idx = 0
         self.window_rollbacks = 0
@@ -384,9 +385,17 @@ class PipelinedLoop:
 
     @property
     def last_snapshot(self):
+        got = self.snapshot_for_dump()
+        return None if got is None else got[1]
+
+    def snapshot_for_dump(self):
+        """``(index, host tree)`` of the newest verified state, or None (see
+        :meth:`GuardedLoop.snapshot_for_dump`): at ``aux_interval`` > 1 the
+        window snapshot, which stands before the window's first step until
+        the window is verified, also while it is being flushed."""
         if self.aux_interval > 1 and self._win_snapshot is not None:
-            return snapshot_on_host(self._win_snapshot)
-        return self.guard.last_snapshot
+            return snapshot_on_host(self._win_snapshot, self._win_index)
+        return self.guard.snapshot_for_dump()
 
     @property
     def next_index(self) -> int:
@@ -394,9 +403,10 @@ class PipelinedLoop:
         return self._idx if self.aux_interval > 1 else self.guard.step_index
 
     # -- step execution
-    def _window_snapshot(self, state) -> None:
-        self._win_buf = take_snapshot(state, self._win_buf)
+    def _window_snapshot(self, state, index: int) -> None:
+        self._win_buf = take_snapshot(state, self._win_buf, index)
         self._win_snapshot = self._win_buf
+        self._win_index = index
 
     def _dispatch(self, state, batch, rng, tag: str):
         wd = self.guard.watchdog
@@ -419,7 +429,7 @@ class PipelinedLoop:
         self._idx += 1
         self.guard.step_index = self._idx  # shared step coordinate space
         if self._win_snapshot is None:
-            self._window_snapshot(state)  # BEFORE the window's first step
+            self._window_snapshot(state, idx)  # BEFORE the window's first step
         faults.stall(idx)  # test injection, no-op in production
         state, aux = self._dispatch(state, batch, rng, tag=str(idx))
         self._entries.append(_Entry(idx, batch, rng, aux, ready_event(aux)))
@@ -492,7 +502,7 @@ class PipelinedLoop:
                 self.replayed_steps += 1
                 entries.append(_Entry(e.idx, e.batch, e.rng, aux, ready_event(aux)))
         # the window is verified: its end state anchors the next window
-        self._window_snapshot(state)
+        self._window_snapshot(state, self._idx)
         return state, ready, ok
 
     def stats(self) -> Dict[str, Any]:

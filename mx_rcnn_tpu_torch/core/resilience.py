@@ -64,11 +64,12 @@ def host_copy(tree):
     return tree
 
 
-def take_snapshot(state, reuse=None):
+def take_snapshot(state, reuse=None, index: int = 0):
     """An owned copy of ``state``: on its device into ``reuse``'s buffers
-    when the state knows how (``TrainState.snapshot``), else on the host."""
+    when the state knows how (``TrainState.snapshot``, which notes the
+    stream ``index`` it stands for), else on the host."""
     take = getattr(state, "snapshot", None)
-    return take(reuse) if take is not None else host_copy(state)
+    return take(reuse, index) if take is not None else host_copy(state)
 
 
 def restore_snapshot(snap):
@@ -78,12 +79,15 @@ def restore_snapshot(snap):
     return back() if back is not None else snap
 
 
-def snapshot_on_host(snap):
-    """A host tree of a snapshot (what a watchdog dump reads)."""
+def snapshot_on_host(snap, index: int):
+    """``(stream index, host tree)`` of a snapshot, or None (what a watchdog
+    dump reads): a snapshot with a host mirror gives its newest complete one
+    and the index it was taken at (``TrainSnapshot.host``, None without a
+    mirror); a host tree is its own, taken at ``index``."""
     if snap is None:
         return None
     host = getattr(snap, "host", None)
-    return host() if host is not None else snap
+    return host() if host is not None else (index, snap)
 
 
 def fetch_host(trees: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
@@ -213,6 +217,7 @@ class GuardedLoop:
         self._place = place_fn or restore_snapshot
         self._lr_scale_ok = supports_lr_scale(step_fn)
         self._snapshot = None
+        self._snapshot_index = 0  # the stream index of the step it precedes
         self._snap_buf = None  # the buffers every snapshot of this loop reuses
         self._since_snapshot = 0
         self._ema: Optional[float] = None
@@ -226,11 +231,20 @@ class GuardedLoop:
     @property
     def last_snapshot(self):
         """Newest good state as a host tree — what a watchdog dumps."""
-        return snapshot_on_host(self._snapshot)
+        got = self.snapshot_for_dump()
+        return None if got is None else got[1]
 
-    def take_snapshot(self, state) -> None:
-        self._snap_buf = take_snapshot(state, self._snap_buf)
+    def snapshot_for_dump(self):
+        """``(index, host tree)`` of the newest good state, or None: the
+        index is the stream index of the first step the tree does not hold,
+        so a dump is named at the position it stands for and a resume
+        consumes the steps since then again.  Reads no device memory."""
+        return snapshot_on_host(self._snapshot, self._snapshot_index)
+
+    def take_snapshot(self, state, index: int) -> None:
+        self._snap_buf = take_snapshot(state, self._snap_buf, index)
         self._snapshot = self._snap_buf
+        self._snapshot_index = index
         self._since_snapshot = 0
 
     def _is_bad(self, loss: float) -> Tuple[bool, str]:
@@ -265,7 +279,7 @@ class GuardedLoop:
         idx = self.step_index
         self.step_index += 1
         if self._snapshot is None or self._since_snapshot >= self.snapshot_every:
-            self.take_snapshot(state)  # BEFORE the step mutates the state
+            self.take_snapshot(state, idx)  # BEFORE the step mutates the state
 
         aux_host: Dict[str, Any] = {}
         try:

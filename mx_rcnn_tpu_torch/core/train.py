@@ -122,24 +122,69 @@ def make_optimizer(
     return MXNetSGD(trainable, lr_schedule, t.MOMENTUM, t.WD, t.CLIP_GRADIENT)
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """An owned host copy of a tensor (from a card, a blocking copy)."""
+    return t.detach().to("cpu", copy=True)
+
+
+class _HostMirror:
+    """One host copy of a snapshot: the trainable tensors and momentum
+    buffers (pinned when they come from a card, so the copy is queued), the
+    update count and the stream index the snapshot stands for.  The buffers
+    are allocated once; ``has_momentum`` says which momenta this copy holds.
+    ``seq`` numbers the copies, -1 while one is being queued; ``event``
+    completes with the copy (None: it was made synchronously)."""
+
+    def __init__(self):
+        self.params: List[torch.Tensor] = []
+        self.momenta: List[Optional[torch.Tensor]] = []
+        self.has_momentum: List[bool] = []
+        self.count = self.index = 0
+        self.event = None
+        self.seq = -1
+
+    def complete(self) -> bool:
+        return self.seq >= 0 and (self.event is None or self.event.query())
+
+
+def _host_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty_strided(tuple(t.shape), t.stride(), dtype=t.dtype, device="cpu",
+                               pin_memory=t.is_cuda)
+
+
 class TrainSnapshot:
     """An owned copy of everything a step changes: the trainable
     parameters, every momentum buffer (``None`` before a parameter's first
-    update) and the update count, which the samplers' seed folds in.  The
-    copies stay on the parameters' device."""
+    update) and the update count, which the samplers' seed folds in, with
+    ``index``, the stream index of the first step it does not hold.  The
+    copies stay on the parameters' device.
+
+    When its state mirrors snapshots (:meth:`TrainState.mirror_snapshots`),
+    every fill also queues a copy of the snapshot to the host, on a side
+    stream on a card, into one of two mirrors: the one still being copied
+    if there is one, else the older.  The newest complete mirror is never
+    written, so :meth:`host` always has one to give while the card is
+    hung."""
 
     def __init__(self, state: "TrainState"):
         self.state = state
         self.params = [torch.empty_like(p) for p in state.optimizer.params]
         self.momenta: List[Optional[torch.Tensor]] = [None] * len(self.params)
-        self.count = 0
+        self.count = self.index = 0
+        self._mirrors = [_HostMirror(), _HostMirror()] if state.mirror else None
+        self._seq = 0
+        self._stream = None  # the side stream of the host copies (on a card)
+        self._copied = None  # the newest host copy's event: it reads self.params
 
     @torch.no_grad()
-    def fill(self) -> "TrainSnapshot":
+    def fill(self, index: int = 0) -> "TrainSnapshot":
         """Copy the live state in: one ``_foreach_copy_`` for the parameters
         and one for the momentum buffers, queued on the current stream (no
-        synchronisation; a later step on the stream runs after them)."""
+        synchronisation; a later step on the stream runs after them).
+        ``index`` is the stream index the snapshot stands for."""
         opt = self.state.optimizer
+        if self._copied is not None:  # a host copy may still read the buffers
+            torch.cuda.current_stream(self.params[0].device).wait_event(self._copied)
         torch._foreach_copy_(self.params, opt.params)
         dst, src = [], []
         for i, p in enumerate(opt.params):
@@ -154,7 +199,41 @@ class TrainSnapshot:
         if dst:
             torch._foreach_copy_(dst, src)
         self.count = opt.count
+        self.index = index
+        if self._mirrors is not None:
+            self._mirror()
         return self
+
+    def _mirror(self) -> None:
+        busy = [m for m in self._mirrors if not m.complete()]
+        m = busy[0] if busy else min(self._mirrors, key=lambda m: m.seq)
+        m.seq = -1  # no reader takes it until this copy completes
+        if not m.params:
+            m.params = [_host_like(t) for t in self.params]
+            m.momenta = [None] * len(self.params)
+        for i, t in enumerate(self.momenta):
+            if t is not None and m.momenta[i] is None:
+                m.momenta[i] = _host_like(t)
+        pairs = [(m.params[i], t) for i, t in enumerate(self.params)]
+        pairs += [(m.momenta[i], t) for i, t in enumerate(self.momenta) if t is not None]
+        if self.params and self.params[0].is_cuda:
+            dev = self.params[0].device
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                for d, t in pairs:
+                    d.copy_(t, non_blocking=True)
+                m.event = self._copied = torch.cuda.Event()
+                m.event.record(self._stream)
+        else:
+            for d, t in pairs:
+                d.copy_(t)
+            m.event = None
+        m.count, m.index = self.count, self.index
+        m.has_momentum = [t is not None for t in self.momenta]
+        self._seq += 1
+        m.seq = self._seq
 
     @torch.no_grad()
     def restore(self) -> "TrainState":
@@ -177,15 +256,32 @@ class TrainSnapshot:
         opt.count = self.count
         return self.state
 
-    def host(self) -> Dict:
-        """The snapshot as a host tree (a watchdog dump reads this)."""
+    def host(self) -> Optional[Tuple[int, Dict]]:
+        """``(index, tree)`` of the newest complete host mirror, or None:
+        the tree a whole checkpoint (the layout of
+        :meth:`TrainState.state_tree`), its frozen tensors and buffers from
+        the state's host copy of them.  What a watchdog dump writes, from
+        its timer thread: it reads host memory only (a mirror's event is
+        queried, never waited on), so it completes on a hung card."""
+        if self._mirrors is None:
+            return None
         names = self.state.names
-        return {
-            "params": {n: t.detach().cpu() for n, t in zip(names, self.params)},
-            "momentum": {n: None if t is None else t.detach().cpu()
-                         for n, t in zip(names, self.momenta)},
-            "count": self.count,
-        }
+        for _ in range(len(self._mirrors) + 1):
+            done = [m for m in self._mirrors if m.complete()]
+            if not done:
+                return None
+            m = max(done, key=lambda m: m.seq)
+            seq = m.seq
+            params = [t.clone() for t in m.params]
+            momenta = [t.clone() if has else None for t, has in zip(m.momenta, m.has_momentum)]
+            count, index = m.count, m.index
+            if m.seq != seq:  # queued over while it was read: take the other
+                continue
+            model = dict(self.state.frozen_host)
+            model.update(zip(names, params))
+            return index, {"model": model, "momentum": dict(zip(names, momenta)),
+                           "count": count}
+        return None
 
 
 class TrainState:
@@ -193,30 +289,105 @@ class TrainState:
     ``TrainState``): the model and its optimizer, mutated in place by
     :func:`train_step`.  ``snapshot(into)`` gives an owned copy of what a
     step changes, into ``into``'s buffers when it is a snapshot of this
-    state (no new allocation, no synchronisation)."""
+    state (no new allocation, no synchronisation).  ``state_tree`` /
+    ``load_state_tree`` carry the whole state to and from a checkpoint."""
 
     def __init__(self, model: nn.Module, optimizer: MXNetSGD):
         self.model = model
         self.optimizer = optimizer
         ids = {id(p) for p in optimizer.params}
         self.names = [n for n, p in model.named_parameters() if id(p) in ids]
+        self.mirror = False  # snapshots keep host copies (mirror_snapshots)
+        self.frozen_host: Dict[str, torch.Tensor] = {}
 
     @property
     def step(self) -> int:
         return self.optimizer.count
 
-    def snapshot(self, into: Optional[TrainSnapshot] = None) -> TrainSnapshot:
+    def state_tree(self) -> Dict:
+        """The checkpoint's tree, copied to the host: ``model``, the whole
+        ``state_dict`` (the frozen tensors and BN buffers too: a seeded or
+        calibrated model cannot be rebuilt without them); ``momentum``, each
+        trainable tensor's momentum buffer by name (None before its first
+        update); ``count``, the update count (the learning-rate schedule's
+        and the samplers' step)."""
+        opt = self.optimizer
+        return {
+            "model": {k: _host(v) for k, v in self.model.state_dict().items()},
+            "momentum": {n: None if (buf := opt.sgd.state[p].get("momentum_buffer")) is None
+                         else _host(buf) for n, p in zip(self.names, opt.params)},
+            "count": opt.count,
+        }
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict) -> "TrainState":
+        """Write a :meth:`state_tree` into the live model and optimizer, in
+        place on their device: every ``state_dict`` tensor, the momentum
+        buffers (recreated on the parameter's device, with the saved
+        buffer's strides, where the tree has one; dropped where it has None)
+        and the update count."""
+        opt = self.optimizer
+        momentum = tree["momentum"]
+        if set(momentum) != set(self.names):
+            raise ValueError(
+                f"the tree's momentum names differ from the trainable tensors: "
+                f"{sorted(set(momentum) ^ set(self.names))[:5]}")
+        self.model.load_state_dict(tree["model"])
+        for n, p in zip(self.names, opt.params):
+            st, buf = opt.sgd.state[p], momentum[n]
+            if buf is None:
+                st.pop("momentum_buffer", None)
+                continue
+            if tuple(buf.shape) != tuple(p.shape):
+                raise ValueError(f"{n}: momentum {tuple(buf.shape)} != parameter {tuple(p.shape)}")
+            dst = st.get("momentum_buffer")
+            if dst is None or dst.stride() != buf.stride():
+                # the saved buffer's strides, which SGD chose: an update's
+                # rounding can depend on whether its operands' layouts agree
+                dst = st["momentum_buffer"] = torch.empty_strided(
+                    tuple(buf.shape), buf.stride(), dtype=p.dtype, device=p.device)
+            dst.copy_(buf)
+        opt.count = int(tree["count"])
+        if self.mirror:
+            self._take_frozen()
+        return self
+
+    def _take_frozen(self) -> None:
+        trainable = set(self.names)
+        self.frozen_host = {k: _host(v) for k, v in self.model.state_dict().items()
+                            if k not in trainable}
+
+    def mirror_snapshots(self) -> None:
+        """Have every snapshot made from now on keep a host copy of itself
+        (:meth:`TrainSnapshot.host`), and copy the ``state_dict`` tensors
+        no step changes (the frozen parameters and the buffers) to the host
+        now, and again at each :meth:`load_state_tree`: a watchdog dump then
+        reads no device memory."""
+        self.mirror = True
+        self._take_frozen()
+
+    def snapshot(self, into: Optional[TrainSnapshot] = None, index: int = 0) -> TrainSnapshot:
         if into is None or into.state is not self:
             into = TrainSnapshot(self)
-        return into.fill()
+        return into.fill(index)
 
 
 def create_train_state(model: nn.Module, optimizer: MXNetSGD) -> TrainState:
     return TrainState(model, optimizer)
 
 
+def _loss_and_aux(model: nn.Module, batch: Dict, rng: int,
+                  draws: Optional[Dict[str, torch.Tensor]]) -> Tuple[torch.Tensor, Dict]:
+    # the batch's keys are the model's arguments, as in the JAX step
+    masks = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
+    return model(
+        batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+        train=True, sample_seeds=batch.get("sample_seeds"), rng=rng, draws=draws, **masks,
+    )
+
+
 def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[float] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None):
+               draws: Optional[Dict[str, torch.Tensor]] = None, accum_steps: int = 1):
     """One train step, the JAX step's contract: ``(state, aux)``, the state
     updated in place.  Forward in train mode, backward, one optimizer update
     (``lr_scale`` scales this update only).  ``batch`` holds device tensors
@@ -224,17 +395,37 @@ def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[floa
     ``gt_masks`` and, optionally, host ``sample_seeds``; the samplers' seed
     is ``fold_in(rng, update count)``, as the JAX step folds its step into
     the sampling key, unless ``draws`` hands them their uniforms.  ``aux``
-    gains ``loss``; its values stay on the device."""
+    gains ``loss``; its values stay on the device.
+
+    ``accum_steps`` > 1 splits the batch's leading axis (and ``draws``')
+    into that many microbatches, averages their gradients and their aux,
+    then makes one update (JAX ``make_train_step(accum_steps=)``).  With
+    per-image ``sample_seeds`` each microbatch draws as the unaccumulated
+    step does; without them microbatch i folds i into the step's seed."""
     model, optimizer = state.model, state.optimizer
     optimizer.zero_grad()
-    # the batch's keys are the model's arguments, as in the JAX step
-    masks = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
-    loss, aux = model(
-        batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-        train=True, sample_seeds=batch.get("sample_seeds"),
-        rng=fold_in(rng, optimizer.count), draws=draws, **masks,
-    )
-    loss.backward()
+    seed = fold_in(rng, optimizer.count)
+    if accum_steps == 1:
+        loss, aux = _loss_and_aux(model, batch, seed, draws)
+        loss.backward()
+    else:
+        b = batch["images"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"a batch of {b} images does not split into {accum_steps} microbatches")
+        m = b // accum_steps
+        losses, auxes = [], []
+        for i in range(accum_steps):
+            part = slice(i * m, (i + 1) * m)
+            micro = {k: v[part] for k, v in batch.items()}
+            mseed = seed if "sample_seeds" in batch else fold_in(seed, i)
+            mdraws = None if draws is None else {k: v[part] for k, v in draws.items()}
+            mloss, maux = _loss_and_aux(model, micro, mseed, mdraws)
+            # the gradients add up in .grad: their mean is the sum of loss / n's
+            (mloss / accum_steps).backward()
+            losses.append(mloss.detach())
+            auxes.append(maux)
+        loss = torch.stack(losses).mean()
+        aux = {k: torch.stack([a[k].detach().float() for a in auxes]).mean(0) for k in auxes[0]}
     optimizer.step(lr_scale)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["loss"] = loss.detach()

@@ -23,6 +23,7 @@ from __future__ import annotations
 import logging
 import os
 import queue
+import signal
 import threading
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -353,6 +354,10 @@ _WORKER_STATE: Dict[str, object] = {}
 
 
 def _init_assembly_worker(roidb: List[Dict], cfg: Config, retry: RetryPolicy) -> None:
+    # a preemption signal to the process group is the trainer's to handle:
+    # its workers live on until it has saved and closes the pool
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
     _WORKER_STATE.update(roidb=roidb, cfg=cfg, retry=retry)
 
 

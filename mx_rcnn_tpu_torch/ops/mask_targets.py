@@ -16,21 +16,18 @@ multiplication by its reciprocal.
 
 from __future__ import annotations
 
-from typing import Dict
-
 import numpy as np
 import torch
 
-_FRACTIONS: Dict = {}
+from mx_rcnn_tpu_torch.ops.targets import device_constant
 
 
 def _cell_fractions(size: int, device) -> torch.Tensor:
-    """(S,) float32 ``(arange(S) + 0.5) / S``, built once per device."""
-    key = (size, torch.device(device))
-    if key not in _FRACTIONS:
-        fr = (np.arange(size, dtype=np.float32) + np.float32(0.5)) / np.float32(size)
-        _FRACTIONS[key] = torch.from_numpy(fr).to(device)
-    return _FRACTIONS[key]
+    """(S,) float32 ``(arange(S) + 0.5) / S``, built once per device
+    (``device_constant``; float32 → Python float is exact, so the tensor
+    holds numpy's rounding)."""
+    fr = (np.arange(size, dtype=np.float32) + np.float32(0.5)) / np.float32(size)
+    return device_constant(tuple(fr.tolist()), device)
 
 
 def _extent(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

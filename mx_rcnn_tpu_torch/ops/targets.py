@@ -15,7 +15,7 @@ where the JAX package puts them.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -23,6 +23,18 @@ from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.ops.boxes import bbox_overlaps, bbox_transform
 
 _BIG = 1e9
+_CONSTANTS: Dict = {}
+
+
+def device_constant(values, device) -> torch.Tensor:
+    """A config vector or table (nested tuples of floats) as a float32
+    tensor, built once per (values, device), for every module of the step:
+    a host → device copy at every step would hold the host until the card
+    caught up.  Never written in place."""
+    key = (values, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return _CONSTANTS[key]
 
 
 def _uniforms(u: Optional[Sequence[torch.Tensor]], count: int, shape, generator, device):
@@ -121,11 +133,7 @@ def assign_anchor(
     labels = torch.where(fg, 1, torch.where(bg, 0, -1)).to(torch.int32)
     matched = torch.gather(gt_boxes[..., :4], 1, argmax_gt[..., None].expand(b, n, 4))
     targets = torch.where(fg[..., None], bbox_transform(anchors, matched), 0.0)
-    weights = torch.where(
-        fg[..., None],
-        torch.tensor(t.RPN_BBOX_WEIGHTS, dtype=torch.float32, device=anchors.device),
-        0.0,
-    )
+    weights = torch.where(fg[..., None], device_constant(t.RPN_BBOX_WEIGHTS, anchors.device), 0.0)
     return AnchorTargets(labels, targets.float(), weights)
 
 
@@ -204,11 +212,11 @@ def sample_rois(
     dev = rois.device
     if t.BBOX_STDS_PER_CLASS is not None:
         cls = labels.clamp_min(0).long()
-        means = torch.tensor(t.BBOX_MEANS_PER_CLASS, dtype=torch.float32, device=dev)[cls]
-        stds = torch.tensor(t.BBOX_STDS_PER_CLASS, dtype=torch.float32, device=dev)[cls]
+        means = device_constant(t.BBOX_MEANS_PER_CLASS, dev)[cls]
+        stds = device_constant(t.BBOX_STDS_PER_CLASS, dev)[cls]
     else:
-        means = torch.tensor(t.BBOX_MEANS, dtype=torch.float32, device=dev)
-        stds = torch.tensor(t.BBOX_STDS, dtype=torch.float32, device=dev)
+        means = device_constant(t.BBOX_MEANS, dev)
+        stds = device_constant(t.BBOX_STDS, dev)
     raw = torch.where(picked_fg[..., None], (raw - means) / stds, 0.0)
 
     cls_onehot = torch.nn.functional.one_hot(

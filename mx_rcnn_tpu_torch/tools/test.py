@@ -3,19 +3,22 @@ network the COCO segm stats (port of ``mx_rcnn_tpu/tools/test.py``, the
 routes the port supports, under the same flags).
 
     python -m mx_rcnn_tpu_torch.tools.test --network resnet --dataset PascalVOC \\
-        --synthetic 32 --params params.pkl
+        --synthetic 32 --prefix model/e2e --epoch 10
     python -m mx_rcnn_tpu_torch.tools.test --network mask_resnet_fpn --dataset coco \\
         --synthetic 32 --params params.pkl
 
-Builds the test graph, loads ``--params`` (a pickle of a Flax parameter
-tree with numpy leaves, bridged by ``utils/bridge.py::flax_to_torch``),
-applies the run's ``run_meta.json`` beside it, runs ``pred_eval`` over the
-test set and logs each class's AP and the mAP to standard output.  Runs on
-the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels on the
-CPU.  The ResNet C4, ResNet FPN and Mask R-CNN FPN networks are ported
-(``--synthetic`` COCO runs read polygon records); checkpoints (``--prefix`` /
-``--epoch`` without ``--params``, ROADMAP queue 1 item 8) and ``--vis``
-(item 7) are not.
+Builds the test graph and loads its weights: with ``--params``, a pickle of
+a Flax parameter tree with numpy leaves (bridged by
+``utils/bridge.py::flax_to_torch``); else the checkpoint under ``--prefix``
+that ``tools/train_end2end.py`` wrote, ``epoch_EEEE`` with ``--epoch E``,
+else the newest committed dump, mid-epoch step dumps included (with none, it
+warns and evaluates the seeded random model).  It applies the run's
+``run_meta.json`` (beside the pickle, or in the prefix), runs ``pred_eval``
+over the test set and logs each class's AP and the mAP to standard output.
+Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the
+kernels on the CPU.  The ResNet C4, ResNet FPN and Mask R-CNN FPN networks
+are ported (``--synthetic`` COCO runs read polygon records); ``--vis``
+(ROADMAP queue 1 item 7) is not.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.checkpoint import latest_checkpoint, load_checkpoint
 from mx_rcnn_tpu_torch.core.tester import Predictor, pred_eval, resolve_device
 from mx_rcnn_tpu_torch.data.loader import TestLoader
 from mx_rcnn_tpu_torch.models import build_model
@@ -55,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--max_images", type=int, default=0)
     p.add_argument("--params", default=None,
-                   help="params pickle: a Flax parameter tree with numpy leaves")
+                   help="params pickle (a Flax parameter tree with numpy leaves) instead of a "
+                        "checkpoint")
     p.add_argument("--dump", default=None, help="save the all_boxes pickle")
     p.add_argument("--vis", default=None, metavar="DIR",
                    help="render detection overlays into DIR (not ported)")
@@ -94,6 +99,13 @@ def load_flax_params(path: str) -> Dict:
     return params
 
 
+def pick_checkpoint(prefix: str, epoch: Optional[int]) -> Optional[Tuple[int, int]]:
+    """The (epoch, batch) of the dump an evaluation loads: ``epoch_EEEE`` for
+    ``--epoch E``, else the newest committed dump; a run preempted after its
+    last boundary save evaluates its step dump."""
+    return (epoch, 0) if epoch is not None else latest_checkpoint(prefix)
+
+
 def test_rcnn(args) -> Dict:
     from mx_rcnn_tpu_torch.utils.run_meta import apply_run_meta, load_run_meta
 
@@ -104,13 +116,10 @@ def test_rcnn(args) -> Dict:
                                   f"{_UNPORTED[args.network]}")
     if args.vis:
         raise NotImplementedError("--vis needs an image writer: ROADMAP queue 1 item 7")
-    if not args.params:
-        raise NotImplementedError(
-            "checkpoints (--prefix/--epoch) are not ported: ROADMAP queue 1 item 8; "
-            "pass --params")
     device = resolve_device("cpu" if args.cpu else None)
     cfg = generate_config(args.network, args.dataset)
-    meta = load_run_meta(args.params)
+    # the training run's preprocessing and normalization stats
+    meta = load_run_meta(args.params if args.params else args.prefix)
     if meta:
         cfg = apply_run_meta(cfg, meta)
         logger.info("applied run_meta overrides: %s", meta)
@@ -121,8 +130,18 @@ def test_rcnn(args) -> Dict:
         roidb = roidb[: args.max_images]
         imdb.image_set_index = imdb.image_set_index[: args.max_images]
 
-    model = flax_to_torch(load_flax_params(args.params), build_model(cfg))
-    logger.info("loaded params pickle %s", args.params)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    if args.params:
+        flax_to_torch(load_flax_params(args.params), model)
+        logger.info("loaded params pickle %s", args.params)
+    elif (found := pick_checkpoint(args.prefix, args.epoch)) is not None:
+        epoch, batch_in_epoch = found
+        load_checkpoint(args.prefix, epoch, model, batch_in_epoch)
+        logger.info("loaded checkpoint epoch %d%s", epoch,
+                    f" batch {batch_in_epoch}" if batch_in_epoch else "")
+    else:
+        logger.warning("no checkpoint found at %s: evaluating the seeded random model",
+                       args.prefix)
     predictor = Predictor(model, device=device)
     loader = TestLoader(roidb, cfg, batch_size=args.test_batch)
     _, results = pred_eval(predictor, loader, imdb, cfg, thresh=args.thresh, dump_path=args.dump)

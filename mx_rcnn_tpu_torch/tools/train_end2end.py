@@ -3,23 +3,31 @@
 the same names).
 
     python -m mx_rcnn_tpu_torch.tools.train_end2end --network resnet \\
-        --dataset PascalVOC --synthetic 64 --epochs 1 --max_steps 20
+        --dataset PascalVOC --synthetic 64 --epochs 2 --prefix model/e2e
 
 ``--network resnet_fpn`` trains ResNet-50 FPN and ``--network
 mask_resnet_fpn`` (with ``--dataset coco``) Mask R-CNN ResNet-101 FPN, whose
 batches carry the gt masks, through the same loop.  The roidb comes from
-``utils/load_data.py::load_gt_roidb`` with flipped copies (TRAIN.FLIP).  Runs
-on the card; ``--cpu 1`` runs the plain PyTorch versions of the kernels
-on the CPU instead.  Every step runs through ``fit``'s pipeline: the device
-feed (``--feed_depth``), the deferred aux check (``--aux_interval``) and the
-divergence guard (``--spike_factor``, ``--max_bad_batches``,
-``--snapshot_every``, ``--step_timeout``), over a loader with a failure
-budget (``--loader_failure_budget``; ``MX_RCNN_ASSEMBLY_WORKERS`` sizes its
-assembly pool).  The log, the Speedometer lines included, goes to standard
-output.  The dataset readers (VOC, COCO) are ported but not an image decoder,
+``utils/load_data.py::load_gt_roidb`` (``--image_set``) with flipped copies
+(TRAIN.FLIP, unless ``--no_flip``).  Runs on the card; ``--cpu 1`` runs the
+plain PyTorch versions of the kernels on the CPU instead.  Every step runs
+through ``fit``'s pipeline: the device feed (``--feed_depth``), the deferred
+aux check (``--aux_interval``) and the divergence guard (``--spike_factor``,
+``--max_bad_batches``, ``--snapshot_every``, ``--step_timeout``), over a
+loader with a failure budget (``--loader_failure_budget``;
+``MX_RCNN_ASSEMBLY_WORKERS`` sizes its assembly pool); ``--grad_accum N``
+averages N microbatches' gradients into each update.
+
+Checkpoints go under ``--prefix`` (``core/checkpoint.py``): ``run_meta.json``
+before training, ``epoch_EEEE`` at each epoch end, ``step_EEEE_BBBBBB`` when
+SIGTERM/SIGINT stops the run mid-epoch or the watchdog aborts a hung step
+(exit code 75); ``--resume`` continues from the newest restorable dump, and
+``tools/test.py --prefix`` evaluates one.  The log, the Speedometer lines
+included, goes to standard output (``--metrics_jsonl`` also writes them as
+JSON lines); ``--profile DIR`` writes a ``torch.profiler`` trace of steps
+10–20.  The dataset readers (VOC, COCO) are ported but not an image decoder,
 so a run without ``--synthetic N`` stops at the first image (ROADMAP queue 1
-item 7); the weights are seeded random (``--seed``): no checkpoint is
-written yet.
+item 7); the weights start seeded random (``--seed``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy
 from mx_rcnn_tpu_torch.data.loader import load_record_image
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
+from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
 
 
 def parse_args(argv=None):
@@ -45,22 +54,35 @@ def parse_args(argv=None):
     p.add_argument("--network", default="resnet",
                    choices=["resnet", "resnet50", "resnet152", "resnet_fpn", "mask_resnet_fpn"])
     p.add_argument("--dataset", default="PascalVOC", choices=["PascalVOC", "PascalVOC0712", "coco"])
+    p.add_argument("--image_set", default=None)
+    p.add_argument("--prefix", default="model/e2e", help="checkpoint dir")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--lr", type=float, default=None)
-    p.add_argument("--batch_images", type=int, default=None, help="images per step")
+    p.add_argument("--batch_images", type=int, default=None, help="images per microbatch")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="microbatches per optimizer update (gradient accumulation for big "
+                        "effective batches)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--no_flip", action="store_true")
     p.add_argument("--no_shuffle", action="store_true")
     p.add_argument("--frequent", type=int, default=20, help="logging interval")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic images (no dataset needed)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--max_steps", type=int, default=0, help="stop after N steps (smoke runs)")
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="stop after N steps (smoke runs; the unfinished epoch is not saved)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
                    help="run on the CPU (the plain versions of the kernels) instead of the "
                         "card; N > 1 devices needs data parallel, which is not ported")
+    p.add_argument("--metrics_jsonl", default=None, metavar="PATH",
+                   help="append one JSON line of metrics per logging interval (structured twin "
+                        "of the Speedometer log)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of steps 10-20 to DIR/trace.json")
     # resilience (core/resilience.py): divergence recovery + hang watchdog
     p.add_argument("--step_timeout", type=float, default=0.0, metavar="SECS",
-                   help="wall-clock watchdog per train step: a step that exceeds this exits "
-                        "with code 75 instead of hanging (0 = off)")
+                   help="wall-clock watchdog per train step: a step that exceeds this dumps a "
+                        "resumable checkpoint and exits with code 75 instead of hanging (0 = off)")
     p.add_argument("--snapshot_every", type=int, default=10, metavar="N",
                    help="refresh the guarded loop's rollback snapshot every N accepted steps "
                         "(1 = exact rollback)")
@@ -96,13 +118,15 @@ def train_net(args) -> Dict:
         overrides["SHUFFLE"] = False
     if overrides:
         cfg = cfg.replace(TRAIN=dataclasses.replace(cfg.TRAIN, **overrides))
-    _, roidb = load_gt_roidb(cfg, flip=cfg.TRAIN.FLIP, synthetic_size=args.synthetic)
+    _, roidb = load_gt_roidb(cfg, args.image_set, flip=cfg.TRAIN.FLIP and not args.no_flip,
+                             synthetic_size=args.synthetic)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
     if not args.synthetic:
         # a dataset's images need a decoder: fail at the first one here rather
         # than spend the loader's failure budget
         load_record_image(roidb[0])
     model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
+    save_run_meta(args.prefix, cfg)
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,
         frequent=args.frequent, device="cpu" if args.cpu else None,
@@ -111,6 +135,8 @@ def train_net(args) -> Dict:
         step_timeout=args.step_timeout, snapshot_every=args.snapshot_every,
         aux_interval=args.aux_interval or (1 if args.cpu else 8),
         feed_depth=args.feed_depth, loader_failure_budget=args.loader_failure_budget,
+        prefix=args.prefix, resume=args.resume, accum_steps=args.grad_accum,
+        metrics_jsonl=args.metrics_jsonl, profile=args.profile,
     )
 
 

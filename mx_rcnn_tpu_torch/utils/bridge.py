@@ -13,11 +13,17 @@ the tensor ``a.b.weight``:
   ``ConvTranspose2d`` weight (in, out, kh, kw), flipped in both spatial axes
   (``models/heads.py::MaskHead``);
 - biases and the frozen-BN ``scale/bias/mean/var`` map one to one.
+
+A whole train state crosses too (:func:`flax_state_to_torch`,
+:func:`torch_state_to_flax`): the JAX ``TrainState``'s ``step`` is the
+port's update count, its ``params`` the model's tensors, and the optax
+``trace`` under ``multi_transform``'s ``"train"`` branch each trainable
+tensor's momentum buffer, in the same layouts as the weights.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +100,66 @@ def grads_to_flax(model: nn.Module) -> Dict:
     """The ``.grad`` of every parameter that has one, as a Flax-layout tree
     of numpy arrays (the same transposes as :func:`torch_to_flax`)."""
     return _flax_tree((k, p.grad) for k, p in model.named_parameters() if p.grad is not None)
+
+
+def _torch_path(name: str) -> Tuple[str, ...]:
+    """A dotted tensor name → its Flax path (``weight`` is ``kernel``)."""
+    *mods, leaf = name.split(".")
+    return tuple(mods) + ("kernel" if leaf == "weight" else leaf,)
+
+
+def _jax_state_parts(state_np: Any) -> Tuple[int, Dict, Dict]:
+    """(step, params, trace) of a JAX ``TrainState`` with numpy leaves (its
+    ``opt_state`` the ``multi_transform`` of ``mx_rcnn_tpu/core/train.py``:
+    the trace is the ``TraceState`` in the ``"train"`` branch's chain, where
+    the frozen leaves are ``MaskedNode``s) or of a
+    :func:`torch_state_to_flax` dict."""
+    if isinstance(state_np, dict):
+        return int(state_np["step"]), state_np["params"], state_np["trace"]
+    chain = state_np.opt_state.inner_states["train"].inner_state
+    traces = [s.trace for s in chain if hasattr(s, "trace")]
+    if len(traces) != 1:
+        raise ValueError(f"the train branch holds {len(traces)} trace states, not 1")
+    return int(np.asarray(state_np.step)), state_np.params, traces[0]
+
+
+def flax_state_to_torch(state_np: Any, train_state) -> Any:
+    """Load a JAX train state (numpy leaves, see :func:`_jax_state_parts`)
+    into the port's ``TrainState`` in place: the weights
+    (:func:`flax_to_torch`), every trainable tensor's momentum buffer from
+    the trace (none at step 0, as before the port's first update: optax's
+    first trace is the gradient, as from a zero trace) and the count."""
+    step, params, trace = _jax_state_parts(state_np)
+    flax_to_torch(params, train_state.model)
+    leaves = dict(_leaves(trace))
+    momentum = {}
+    for name, p in zip(train_state.names, train_state.optimizer.params):
+        path = _torch_path(name)
+        if step == 0:
+            momentum[name] = None
+            continue
+        if path not in leaves:
+            raise KeyError(f"{name}: no trace leaf {'/'.join(path)} in the JAX state")
+        t = np.array(_to_torch_layout(path, leaves[path]), dtype=np.float32, order="C")
+        if t.shape != tuple(p.shape):
+            raise ValueError(f"{name}: trace {t.shape} != parameter {tuple(p.shape)}")
+        momentum[name] = torch.from_numpy(t)
+    return train_state.load_state_tree({
+        "model": {k: v.detach() for k, v in train_state.model.state_dict().items()},
+        "momentum": momentum,
+        "count": step,
+    })
+
+
+def torch_state_to_flax(train_state) -> Dict:
+    """The port's train state as ``{"step", "params", "trace"}``: the update
+    count, the model's tensors (:func:`torch_to_flax`) and the trainable
+    tensors' momentum buffers as a Flax-layout tree (zeros before a tensor's
+    first update, optax's initial trace)."""
+    opt = train_state.optimizer
+    named = []
+    for name, p in zip(train_state.names, opt.params):
+        buf = opt.sgd.state[p].get("momentum_buffer")
+        named.append((name, torch.zeros_like(p) if buf is None else buf))
+    return {"step": np.int32(opt.count), "params": torch_to_flax(train_state.model),
+            "trace": _flax_tree(iter(named))}

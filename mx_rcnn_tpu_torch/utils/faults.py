@@ -3,7 +3,7 @@ kinds of ``mx_rcnn_tpu/utils/faults.py``).
 
 Every injector is driven by the ``MX_RCNN_FAULTS`` environment variable and
 keyed on deterministic run coordinates (guarded step index, roidb record
-index), never on wall clock or an RNG, so a replayed run injects the same
+index, save-call ordinal), never on wall clock or an RNG, so a replayed run injects the same
 faults at the same points.
 
 Spec grammar, the JAX package's: comma-separated entries
@@ -16,11 +16,14 @@ Spec grammar, the JAX package's: comma-separated entries
                            transient spike that a retry survives)
     record_fail@IDX[xN]    raise IOError loading roidb record IDX
                            (unbounded = permanently corrupt record)
+    save_crash@NCALL       raise SimulatedCrash inside the NCALLth
+                           save_checkpoint (1-based), after the data is
+                           written but before the atomic commit: the
+                           "killed mid-save" torn state
     stall@STEP:SECONDS     sleep SECONDS at guarded step STEP (drives the
                            step past the watchdog deadline)
 
-The JAX package's other kinds (checkpoint, serving, swap and device faults)
-belong to paths the port does not have: a spec naming one raises
+The JAX package's other kinds (serving, swap and device faults) belong to paths the port does not have: a spec naming one raises
 ``NotImplementedError``, and a kind neither package knows raises
 ``ValueError``, so no entry is ignored.  Injection sites cost one
 environment lookup when the variable is unset.
@@ -41,11 +44,15 @@ class InjectedFault(IOError):
     treats it exactly like a disk or decode failure)."""
 
 
-_PORTED_KINDS = frozenset({"nan_loss", "spike", "record_fail", "stall"})
+class SimulatedCrash(RuntimeError):
+    """Raised by the save injector: stands in for SIGKILL mid-save (the
+    writer cannot clean up, the ``.tmp`` dir is left uncommitted)."""
+
+
+_PORTED_KINDS = frozenset({"nan_loss", "spike", "record_fail", "save_crash", "stall"})
 
 # the JAX package's kinds whose injection sites the port does not have yet
 _UNPORTED_KINDS = frozenset({
-    "save_crash",
     "predict_fail", "predict_stall", "replica_wedge",
     "poison_fail", "poison_stall", "poison_wedge",
     "swap_verify_fail", "swap_warm_fail", "canary_fail",
@@ -74,6 +81,7 @@ class _Fault:
 class _Registry:
     spec: str
     faults: List[_Fault] = field(default_factory=list)
+    save_calls: int = 0
 
 
 _registry: Optional[_Registry] = None
@@ -152,6 +160,20 @@ def fail_record(index: int) -> None:
     for f in reg.faults:
         if f.kind == "record_fail" and f.key == index and f.fire():
             raise InjectedFault(f"injected read failure for record {index}")
+
+
+def crash_save() -> None:
+    """The checkpoint hook, called once per ``save_checkpoint`` after the
+    data write and before the atomic commit."""
+    reg = _active()
+    if reg is None:
+        return
+    reg.save_calls += 1
+    for f in reg.faults:
+        if f.kind == "save_crash" and f.key == reg.save_calls and f.fire():
+            raise SimulatedCrash(
+                f"injected crash during save #{reg.save_calls} (uncommitted .tmp left behind)"
+            )
 
 
 def stall(step: int) -> None:

@@ -1,12 +1,11 @@
 """Run metadata sidecar: the config facts eval must reuse (port of
-``meta_path_for``, ``load_run_meta`` and ``apply_run_meta`` in
 ``mx_rcnn_tpu/utils/run_meta.py``).
 
 A trained model is only decodable with the preprocessing and target
 normalization it was trained with (PIXEL_MEANS/STDS and BBOX_MEANS/STDS).
-The JAX package's trainers write them to a ``run_meta.json`` next to their
-checkpoints and params pickles; ``tools/test.py`` reads it and applies it
-to the config.
+The trainers write them to a ``run_meta.json`` next to their checkpoints
+and params pickles; ``tools/test.py`` reads it and applies it to the
+config.  The file is the JAX package's, key for key.
 """
 
 from __future__ import annotations
@@ -27,6 +26,24 @@ def meta_path_for(prefix_or_file: str) -> str:
     if os.path.isdir(prefix_or_file) or not os.path.splitext(prefix_or_file)[1]:
         return os.path.join(prefix_or_file, META_NAME)
     return os.path.join(os.path.dirname(prefix_or_file) or ".", META_NAME)
+
+
+def save_run_meta(prefix_or_file: str, cfg: Config) -> str:
+    path = meta_path_for(prefix_or_file)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    meta = {
+        "PIXEL_MEANS": list(cfg.network.PIXEL_MEANS),
+        "PIXEL_STDS": list(cfg.network.PIXEL_STDS),
+        "BBOX_MEANS": list(cfg.TRAIN.BBOX_MEANS),
+        "BBOX_STDS": list(cfg.TRAIN.BBOX_STDS),
+        "COMPUTE_DTYPE": cfg.network.COMPUTE_DTYPE,
+    }
+    if cfg.TRAIN.BBOX_STDS_PER_CLASS is not None:
+        meta["BBOX_MEANS_PER_CLASS"] = [list(row) for row in cfg.TRAIN.BBOX_MEANS_PER_CLASS]
+        meta["BBOX_STDS_PER_CLASS"] = [list(row) for row in cfg.TRAIN.BBOX_STDS_PER_CLASS]
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=1)
+    return path
 
 
 def load_run_meta(prefix_or_file: str) -> Optional[Dict]:

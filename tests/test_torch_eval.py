@@ -383,8 +383,6 @@ def test_cli_refuses_what_is_not_ported(params_pickle, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             test_cli.main(base)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        test_cli.main(["--synthetic", "2", "--cpu", "1"])
     with pytest.raises(NotImplementedError, match="item 11"):
         test_cli.main(base + ["--cpu", "1", "--network", "vgg"])
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -2,7 +2,7 @@
 ``tiny_cfg`` size: the pooled, prefetched, K-late loop trains bit for bit
 as the serial K = 1 loop, through the same batches; a poison batch is
 skipped and the run ends where the guarded K = 1 run ends; the CLI's
-pipeline flags train a step; checkpoints are refused.
+pipeline flags train a step.
 
 The CPU convolutions' backward splits its sums over threads, and a split
 can change from run to run, so these runs hold torch to one thread."""
@@ -104,22 +104,17 @@ def test_poison_batch_is_skipped_as_in_the_guarded_loop(pristine, tmp_path, monk
     assert (guarded["dispatched_steps"], piped["dispatched_steps"]) == (7, 10)
 
 
-def test_cli_pipeline_flags_train_one_cpu_step(monkeypatch):
+def test_cli_pipeline_flags_train_one_cpu_step(monkeypatch, tmp_path):
     from mx_rcnn_tpu_torch.tools import train_end2end as cli
 
     monkeypatch.setattr(cli, "generate_config", lambda network, dataset: small_cfg())
     out = cli.main(["--cpu", "1", "--synthetic", "2", "--max_steps", "1", "--aux_interval", "2",
                     "--feed_depth", "2", "--spike_factor", "10", "--max_bad_batches", "2",
                     "--snapshot_every", "1", "--step_timeout", "600",
-                    "--loader_failure_budget", "4"])
+                    "--loader_failure_budget", "4", "--prefix", str(tmp_path / "e2e")])
     assert out["steps"] == 1 and len(out["history"]) == 1
     assert out["pipeline"]["aux_interval"] == 2 and out["pipeline"]["fetches"] == 1
     assert out["feed"][0]["depth"] == 2
     assert all(math.isfinite(v) for v in out["history"][0].values())
     assert cli.parse_args([]).aux_interval == 0  # auto: 1 on the CPU, 8 on the card
 
-
-@pytest.mark.parametrize("kw", [{"prefix": "model/e2e"}, {"resume": True}])
-def test_checkpoint_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        fit(torch.nn.Linear(1, 1), small_cfg(), [], epochs=1, device="cpu", **kw)

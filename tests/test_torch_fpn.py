@@ -488,7 +488,7 @@ def test_fpn_step_updated_params_match(fpn_step):
                for path in new if path not in frozen and path[-1] == "kernel")
 
 
-def test_cli_trains_the_fpn_network_on_the_cpu(monkeypatch):
+def test_cli_trains_the_fpn_network_on_the_cpu(monkeypatch, tmp_path):
     """``--network resnet_fpn`` builds the FPN model through build_model and
     trains one step through ``fit`` on the CPU (a small canvas)."""
     from mx_rcnn_tpu_torch.tools import train_end2end as cli
@@ -503,6 +503,7 @@ def test_cli_trains_the_fpn_network_on_the_cpu(monkeypatch):
                                       BATCH_ROIS=16, RPN_BATCH_SIZE=32))
 
     monkeypatch.setattr(cli, "generate_config", small)
-    out = cli.main(["--network", "resnet_fpn", "--cpu", "1", "--synthetic", "4", "--max_steps", "1"])
+    out = cli.main(["--network", "resnet_fpn", "--cpu", "1", "--synthetic", "4", "--max_steps", "1",
+                    "--prefix", str(tmp_path / "e2e")])
     assert out["steps"] == 1
     assert all(math.isfinite(v) for v in out["history"][0].values())

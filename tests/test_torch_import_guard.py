@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # makes every import of the named top-level packages fail in the child
 BLOCK = """
 import sys
-_BLOCKED = ("jax", "jaxlib", "flax", "mx_rcnn_tpu", "cv2")
+_BLOCKED = ("jax", "jaxlib", "flax", "orbax", "mx_rcnn_tpu", "cv2")
 class _Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in _BLOCKED:
@@ -116,8 +116,8 @@ print("ok")
     assert r.stdout.split()[-1] == "ok"
 
 
-def test_port_trains_a_step_without_jax():
-    r = run_blocked("""
+def test_port_trains_a_step_without_jax(tmp_path):
+    r = run_blocked(f"""
 import dataclasses, math, torch
 torch.set_num_threads(2)
 import mx_rcnn_tpu_torch.tools.train_end2end as cli
@@ -130,7 +130,8 @@ def tiny(network, dataset):
                                                  RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
                                                  RPN_BATCH_SIZE=32))
 cli.generate_config = tiny
-out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1"])
+out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1",
+                "--prefix", {str(tmp_path / "e2e")!r}])
 assert out["steps"] == 1, out
 assert all(math.isfinite(v) for v in out["history"][0].values()), out
 print("ok")
@@ -139,11 +140,11 @@ print("ok")
     assert r.stdout.split()[-1] == "ok"
 
 
-def test_port_trains_a_mask_step_without_jax():
+def test_port_trains_a_mask_step_without_jax(tmp_path):
     """``--network mask_resnet_fpn --dataset coco``: one step on synthetic
     polygon records and their flipped copies, the gt masks rasterized by the
     C RLE library."""
-    r = run_blocked("""
+    r = run_blocked(f"""
 import dataclasses, math, torch
 torch.set_num_threads(2)
 import mx_rcnn_tpu_torch.tools.train_end2end as cli
@@ -160,7 +161,7 @@ def tiny(network, dataset):
                                                  RPN_BATCH_SIZE=32))
 cli.generate_config = tiny
 out = cli.main(["--network", "mask_resnet_fpn", "--dataset", "coco", "--cpu", "1",
-                "--synthetic", "2", "--max_steps", "1"])
+                "--synthetic", "2", "--max_steps", "1", "--prefix", {str(tmp_path / "e2e")!r}])
 assert out["steps"] == 1, out
 hist = out["history"][0]
 assert "MaskBCELoss" in hist and all(math.isfinite(v) for v in hist.values()), out
@@ -168,6 +169,44 @@ assert rle.backend() == "c"
 print("ok")
 """)
     assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_checkpoints_resumes_and_evaluates_without_jax(tmp_path):
+    """A C4 CLI step saved under ``--prefix`` (``epoch_0001``), one more
+    after ``--resume`` (``epoch_0002``), then ``tools/test.py --prefix``
+    on the newest dump."""
+    r = run_blocked(f"""
+import dataclasses, os, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.test as test_cli
+import mx_rcnn_tpu_torch.tools.train_end2end as train_cli
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.checkpoint import restorable_checkpoints
+def tiny(network, dataset):
+    cfg = generate_config("resnet50", dataset)
+    return cfg.replace(dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                       SHAPE_BUCKETS=((96, 128), (128, 96)),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32),
+                       TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100,
+                                                RPN_POST_NMS_TOP_N=16))
+train_cli.generate_config = test_cli.generate_config = tiny
+prefix = {str(tmp_path / "e2e")!r}
+args = ["--cpu", "1", "--synthetic", "1", "--no_flip", "--prefix", prefix]
+first = train_cli.main(args + ["--epochs", "1"])
+assert first["steps"] == 1 and restorable_checkpoints(prefix) == [(1, 0)], first
+again = train_cli.main(args + ["--epochs", "2", "--resume"])
+assert again["begin"] == (1, 0) and again["steps"] == 1, again
+assert restorable_checkpoints(prefix) == [(2, 0), (1, 0)]
+assert os.path.exists(os.path.join(prefix, "run_meta.json"))
+out = test_cli.main(["--cpu", "1", "--synthetic", "1", "--prefix", prefix])
+assert 0.0 <= out["mAP"] <= 1.0, out
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert "loaded checkpoint epoch 2" in r.stdout
     assert r.stdout.split()[-1] == "ok"
 
 

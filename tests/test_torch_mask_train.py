@@ -685,7 +685,7 @@ def small_mask_cfg(network, dataset):
                                   BATCH_ROIS=16, RPN_BATCH_SIZE=32))
 
 
-def test_cli_trains_the_mask_network_on_the_cpu(monkeypatch):
+def test_cli_trains_the_mask_network_on_the_cpu(monkeypatch, tmp_path):
     """``--network mask_resnet_fpn --dataset coco --synthetic 2`` trains one
     step through ``fit`` on polygon records and their flipped copies, its
     batches carrying ``gt_masks``; every loss finite, ``MaskBCELoss``
@@ -702,7 +702,7 @@ def test_cli_trains_the_mask_network_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cli, "generate_config", small_mask_cfg)
     monkeypatch.setattr("mx_rcnn_tpu_torch.core.fit.train_step", spy)
     out = cli.main(["--network", "mask_resnet_fpn", "--dataset", "coco", "--cpu", "1",
-                    "--synthetic", "2", "--max_steps", "1"])
+                    "--synthetic", "2", "--max_steps", "1", "--prefix", str(tmp_path / "e2e")])
     assert out["steps"] == 1 and seen == [(1, 100, 64, 64)]
     hist = out["history"][0]
     assert "MaskBCELoss" in hist and hist["MaskBCELoss"] > 0
@@ -723,7 +723,7 @@ def test_cli_on_coco_reaches_the_reader_then_the_decoder(monkeypatch, coco_tree,
     monkeypatch.setattr(cli, "generate_config", on_fixture)
     with pytest.raises(NotImplementedError, match="decoder"):
         cli.main(["--network", "mask_resnet_fpn", "--dataset", "coco", "--cpu", "1",
-                  "--max_steps", "1"])
+                  "--max_steps", "1", "--prefix", str(tmp_path / "e2e")])
     assert (tmp_path / "cache" / "coco_val2017_gt_roidb.pkl").exists()
     with open(tmp_path / "cache" / "coco_val2017_gt_roidb.pkl", "rb") as f:
         assert len(pickle.load(f)) == 3

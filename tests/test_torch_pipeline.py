@@ -188,6 +188,7 @@ def test_train_state_snapshot_restores_params_momentum_and_count():
     restored state equals the first run bit for bit; a second snapshot
     reuses the first one's buffers."""
     model, opt, state = _tiny_state()
+    state.mirror_snapshots()
     x = torch.randn(5, 3)
     before = state.snapshot()
     assert all(m is None for m in before.momenta) and before.count == 0
@@ -204,10 +205,12 @@ def test_train_state_snapshot_restores_params_momentum_and_count():
     buffers = [t.data_ptr() for t in mid.params + mid.momenta]
     _sgd_step(model, opt, x)
     assert all(torch.equal(a, p) for a, p in zip(first, model.parameters()))
-    again = state.snapshot(mid)
+    again = state.snapshot(mid, 5)
     assert again is mid and [t.data_ptr() for t in mid.params + mid.momenta] == buffers
-    assert mid.count == 2 and mid.host()["count"] == 2
-    assert set(mid.host()["params"]) == {n for n, _ in model.named_parameters()}
+    index, tree = mid.host()
+    assert mid.count == 2 and tree["count"] == 2 and index == mid.index == 5
+    assert set(tree["model"]) == set(model.state_dict())
+    assert set(tree["momentum"]) == {n for n, _ in model.named_parameters()}
 
 
 def test_lr_scale_scales_one_update_and_keeps_momentum():
@@ -348,7 +351,7 @@ def test_fault_grammar_matches_jax(monkeypatch):
         m.fail_record(7)  # x1: fired once
 
 
-@pytest.mark.parametrize("spec,exc", [("save_crash@2", NotImplementedError),
+@pytest.mark.parametrize("spec,exc", [("predict_fail@0.1", NotImplementedError),
                                       ("device_lost@4.2", NotImplementedError),
                                       ("nan_los@3", ValueError)])
 def test_fault_kinds_the_port_lacks_raise(monkeypatch, spec, exc):

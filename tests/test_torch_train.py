@@ -568,10 +568,11 @@ def test_train_trajectory_matches_jax_over_three_steps(one_step):
         assert float(np.abs(got[path] - ref).max()) <= 2e-5 * scale + 1e-7, "/".join(path)
 
 
-def test_cli_refuses_data_parallel_cpu_runs():
+def test_cli_refuses_data_parallel_cpu_runs(tmp_path):
     from mx_rcnn_tpu_torch.tools import train_end2end as cli
     with pytest.raises(NotImplementedError, match="data-parallel"):
-        cli.train_net(cli.parse_args(["--cpu", "2", "--synthetic", "2"]))
+        cli.train_net(cli.parse_args(["--cpu", "2", "--synthetic", "2",
+                                      "--prefix", str(tmp_path / "e2e")]))
 
 
 def test_fit_defaults_to_the_card():
