@@ -116,6 +116,28 @@
    the newest dump's detections must equal ``--params``' bitwise, and NMS
    and kernel 2 launch.  Printed: each dump's bytes and save / load
    seconds, the stop position and the seconds from SIGTERM to the commit;
+   ``[alternate]``: the four-stage schedule (``tools/train_alternate.py``)
+   at full width, ResNet-101 C4 on 8 synthetic 480 × 640 images and their
+   flipped copies, 6 steps of ``fit`` a training stage, from the calibrated
+   ``[train]`` weights as the donor: each stage's launch counts are reset
+   just before it and read just after (RPN stages launch nothing, Fast
+   R-CNN kernel 2 once a step and kernel 3 once a step of stage 3 (stage 5
+   freezes the whole backbone, so no gradient reaches the feature map),
+   each proposal pass
+   (``test_rpn``, 1 × 20000 → 2000 at IoU 0.7) one NMS an image); every
+   proposal pass's NMS and the first Fast R-CNN steps' ROIAlign calls are
+   held against their plain versions; losses finite and under the 100×
+   gate; every stage's frozen leaves (FIXED_PARAMS in stages 1 and 3,
+   FIXED_PARAMS_SHARED in stages 4 and 5) bitwise its donor's and
+   ``final.pkl``'s backbone bitwise RPN-2's; ``tools/test.py --params
+   final.pkl --synthetic 8`` applies the run's per-class statistics and
+   launches NMS 16 and kernel 2 8 times; the finite differences of Fast
+   R-CNN-1's groups; printed: recall@300/1000/2000 of both passes, each
+   stage's step median, the passes' images/s, peak memory.  ``[frozen
+   fpn]``: ResNet-50 FPN's frozen-proposal mode at full width, the
+   ``[fpn train]`` weights' own proposals (20000 → 2000) over the 8 images
+   and their flips, 4 steps of ``fit(proposal_count=2000)``: no NMS, kernels
+   2–5 twice a step, the captured calls held against the plain versions;
 8. ``[eval]``: ``pred_eval`` over 32 synthetic VOC-sized (375 × 500) images
    with the calibrated C4 weights the ``[train]`` run started from, in five
    settings: serial (batch 1, no feed, one forward in flight), the JAX
@@ -160,7 +182,10 @@
    bound for the work this data needs; and NMS (the levels' union, the
    classes) and kernel 2 (P2..P5, and the mask branch's P2) at the FPN and
    mask serving shapes, and kernels 2–5 at P2..P5 on the mask branch's
-   train tensors (R = 32);
+   train tensors (R = 32), and the proposal dump's NMS (1 × 20000 → 2000)
+   and Fast R-CNN's kernels 2 and 3 on the ``[alternate]`` run's tensors;
+   small RPNOnly and Fast R-CNN steps run on the card and on the CPU and
+   must agree;
 11. prints one JSON line with each kernel's launches, max error, times and
    bound, then the ``nvidia-smi`` line, then the device line last.
 
@@ -212,6 +237,7 @@ from mx_rcnn_tpu_torch.core.train import (
     make_optimizer,
     train_step,
 )
+from mx_rcnn_tpu_torch.data.imdb import IMDB
 from mx_rcnn_tpu_torch.data.loader import (
     TestLoader,
     _orientation_bucket,
@@ -226,6 +252,7 @@ from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.fpn import mask_bce
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, normalize_images
+from mx_rcnn_tpu_torch.models.stage_models import FastRCNN, RPNOnly
 from mx_rcnn_tpu_torch.native import hostops
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
@@ -235,13 +262,16 @@ from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve import runner as runner_mod
 from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepare_request
 from mx_rcnn_tpu_torch.tools import test as test_cli
+from mx_rcnn_tpu_torch.tools import test_rpn as test_rpn_mod
+from mx_rcnn_tpu_torch.tools import train_alternate as alt_mod
 from mx_rcnn_tpu_torch.tools.kernel_bench import fpn_union, graph_ms
 from mx_rcnn_tpu_torch.utils import faults
-from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
-from mx_rcnn_tpu_torch.utils.combine_model import save_params
+from mx_rcnn_tpu_torch.utils.bridge import _leaves as tree_leaves
+from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch, torch_to_flax
+from mx_rcnn_tpu_torch.utils.combine_model import load_params, save_params
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
-from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
-from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
+from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, load_gt_roidb
+from mx_rcnn_tpu_torch.utils.run_meta import load_run_meta, save_run_meta
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -631,16 +661,19 @@ def runtime_s_synthetic(dev):
 
 
 # ------------------------------------------------------------ main path
-def make_model(cfg, seed: int = 0):
-    """The config's model (``build_model``) with seeded random weights (no
-    checkpoint is on disk).  The RPN output layers are scaled down 1000× so
+def make_model(cfg, seed: int = 0, cls=None):
+    """The config's model (``build_model``, or the graph ``cls``: a stage
+    model) with seeded random weights (no checkpoint is on disk).  The RPN
+    output layers, where the graph has them, are scaled down 1000× so
     proposals stay near their anchors: the lecun-initialized head on
     raw-pixel inputs emits deltas of ~75, which would clip nearly every
     proposal to the whole image."""
-    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
-    with torch.no_grad():
-        for layer in (model.rpn.rpn_cls_score, model.rpn.rpn_bbox_pred):
-            layer.weight.mul_(1e-3)
+    gen = torch.Generator().manual_seed(seed)
+    model = build_model(cfg, generator=gen) if cls is None else cls(cfg, generator=gen)
+    if hasattr(model, "rpn"):
+        with torch.no_grad():
+            for layer in (model.rpn.rpn_cls_score, model.rpn.rpn_bbox_pred):
+                layer.weight.mul_(1e-3)
     return model
 
 
@@ -828,7 +861,10 @@ def hold_captured(diff, cap, bwd_diff, stream_diff):
     """Each kernel against its plain version on the tensors the path fed it
     (NMS into ``diff``, the ROIAlign backward into ``bwd_diff``, the
     streamed kernels into ``stream_diff``); returns the ROIAlign forward's
-    max |Δ|."""
+    max |Δ|.  A captured adjoint g is divided by its max |g| first: the
+    path's g are often far below 1, where the backward's bar
+    (|Δ| / max(1, Σ|terms|)) would be an absolute 1e-4 that a wrong
+    kernel could pass."""
     nms_bad = 0
     for boxes, valid, thresh, max_keep in cap.nms:
         got = nms_mod.nms_mask_sorted(boxes, valid.bool(), thresh, max_keep)
@@ -846,12 +882,18 @@ def hold_captured(diff, cap, bwd_diff, stream_diff):
     if not roi_err <= ROI_TOL:
         raise AssertionError(f"ROIAlign kernel disagrees on the path's tensors: {roi_err}")
     for i, (g, rois, shape, pooled, scale, s, valid_hw) in enumerate(cap.roi_bwd):
-        bwd_diff.add(g, rois, shape, pooled, scale, s, valid_hw, f"captured call {i}")
+        bwd_diff.add(unit_max(g), rois, shape, pooled, scale, s, valid_hw,
+                     f"captured call {i}, g / max|g|")
     for i, (feat, rois, pooled, scale, s) in enumerate(cap.stream):
         stream_diff.fwd(feat, rois, pooled, scale, s, f"captured call {i}")
     for i, (g, rois, shape, pooled, scale, s) in enumerate(cap.stream_bwd):
-        stream_diff.bwd(g, rois, shape, pooled, scale, s, f"captured call {i}")
+        stream_diff.bwd(unit_max(g), rois, shape, pooled, scale, s, f"captured call {i}, g / max|g|")
     return roi_err
+
+
+def unit_max(g):
+    """``g`` scaled to a max |g| of 1 (an all-zero g stays zero)."""
+    return g / g.abs().max().clamp_min(torch.finfo(g.dtype).tiny)
 
 
 def roi_bwd_work(g, rois, shape, valid_hw):
@@ -1025,10 +1067,13 @@ CALIBRATION_IMAGES = 8
 
 
 def train_batch(cfg, roidb, i, dev):
+    """Record ``i``'s train batch on ``dev``; from a proposal roidb it
+    carries the proposals, padded to TRAIN.RPN_POST_NMS_TOP_N."""
     rec = roidb[i]
+    count = cfg.TRAIN.RPN_POST_NMS_TOP_N if "proposals" in rec else 0
     return batch_to_device(
         make_batch([rec], cfg, _orientation_bucket(rec, cfg.SHAPE_BUCKETS), seeds=[i],
-                   with_masks=cfg.network.USE_MASK), dev)
+                   with_masks=cfg.network.USE_MASK, proposal_count=count), dev)
 
 
 def calibration_batch(cfg, roidb, dev):
@@ -1048,9 +1093,10 @@ def calibration_batch(cfg, roidb, dev):
                    with_masks=cfg.network.USE_MASK), dev)
 
 
-def masks_of(batch) -> dict:
-    """A mask network's batch passes its gt masks to the model."""
-    return {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
+def model_extras(batch) -> dict:
+    """The batch's tensors that only some graphs take: a mask network's gt
+    masks, a proposal roidb's proposals."""
+    return {k: batch[k] for k in ("gt_masks", "proposals", "prop_valid") if k in batch}
 
 
 def _calibration_forward(model, batch):
@@ -1059,7 +1105,7 @@ def _calibration_forward(model, batch):
     with torch.no_grad():
         if "gt_boxes" in batch:
             model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                  train=True, sample_seeds=batch["sample_seeds"], **masks_of(batch))
+                  train=True, sample_seeds=batch["sample_seeds"], **model_extras(batch))
         else:
             model(batch["images"], batch["im_info"])
 
@@ -1144,7 +1190,7 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
 
     def loss_fn():
         return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                     train=True, sample_seeds=batch["sample_seeds"], rng=5, **masks_of(batch))[0]
+                     train=True, sample_seeds=batch["sample_seeds"], rng=5, **model_extras(batch))[0]
 
     model_mod.sample_rois = sample_once
     try:
@@ -1861,7 +1907,7 @@ def profile_train_step(model, cfg, roidb, dev):
     def forward():
         opt.zero_grad()
         return model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                     train=True, sample_seeds=batch["sample_seeds"], rng=1, **masks_of(batch))[0]
+                     train=True, sample_seeds=batch["sample_seeds"], rng=1, **model_extras(batch))[0]
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
@@ -1926,7 +1972,7 @@ def mask_branch_profile(model, cfg, roidb, dev):
     try:
         with torch.no_grad():
             model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-                  train=True, sample_seeds=batch["sample_seeds"], rng=1, **masks_of(batch))
+                  train=True, sample_seeds=batch["sample_seeds"], rng=1, **model_extras(batch))
             images = normalize_images(batch["images"], batch["im_info"], cfg)
             feats = [p.permute(0, 2, 3, 1).detach().requires_grad_()
                      for p in model._pyramid(images)[:4]]
@@ -2028,7 +2074,22 @@ def small_gt_masks(gts, m: int):
     return torch.from_numpy(out)
 
 
-def train_step_agrees(dev, cfg, gts, label):
+def small_proposals(gts, n: int) -> torch.Tensor:
+    """(1, n, 4) proposals in a 128 × 128 image: jittered copies of the
+    first two of ``gts``, then seeded random boxes."""
+    rng = np.random.RandomState(6)
+    rows = []
+    for k in range(n):
+        if k < n // 2:
+            box = np.asarray(gts[k % 2][:4]) + rng.randn(4) * 4
+        else:
+            x1, y1 = rng.rand(2) * 88
+            box = [x1, y1, x1 + 10 + rng.rand() * 30, y1 + 10 + rng.rand() * 30]
+        rows.append(np.clip(box, 0, 127))
+    return torch.from_numpy(np.asarray(rows, np.float32)[None])
+
+
+def train_step_agrees(dev, cfg, gts, label, cls=None):
     """One small train step (128 × 128, the same weights and the same
     sampling draws) on the card (kernels, cuDNN) and on the CPU (plain
     versions): identical sampled labels and anchor labels, rois within
@@ -2037,8 +2098,10 @@ def train_step_agrees(dev, cfg, gts, label):
     f32 convolution algorithms, its split reductions in the weight gradients
     and the atomics of the ROIAlign backward sum in other orders than the
     CPU).  ``gts``: the image's (x1, y1, x2, y2, class) boxes; a mask
-    network gets the polygon gt masks of :func:`small_gt_masks`."""
-    model = make_model(cfg, seed=3)
+    network gets the polygon gt masks of :func:`small_gt_masks`.  ``cls``:
+    a stage graph instead of the config's model (its sampler's labels are
+    compared; Fast R-CNN gets :func:`small_proposals`)."""
+    model = make_model(cfg, seed=3, cls=cls)
     model_mod = importlib.import_module(type(model).__module__)
     rng = np.random.RandomState(4)
     # tests/test_model.py::tiny_batch's inputs: pixels in [0, 1), two gts
@@ -2051,9 +2114,12 @@ def train_step_agrees(dev, cfg, gts, label):
                               cfg.TRAIN.RPN_POST_NMS_TOP_N + 4, "cpu")
     masks = ({"gt_masks": small_gt_masks(gts, cfg.TRAIN.MASK_GT_SIZE)}
              if cfg.network.USE_MASK else {})
+    if cls is FastRCNN:
+        masks = {"proposals": small_proposals(gts, cfg.TRAIN.RPN_POST_NMS_TOP_N),
+                 "prop_valid": torch.ones((1, cfg.TRAIN.RPN_POST_NMS_TOP_N), dtype=torch.bool)}
 
     runs = {}
-    orig = (model_mod.assign_anchor, model_mod.sample_rois)
+    orig = (getattr(model_mod, "assign_anchor", None), getattr(model_mod, "sample_rois", None))
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
         m = copy.deepcopy(model).to(d, memory_format=torch.channels_last)
         make_optimizer(cfg, m, make_lr_schedule(cfg, 10))
@@ -2069,13 +2135,15 @@ def train_step_agrees(dev, cfg, gts, label):
         loss.backward()
         runs[name] = {
             "loss": float(loss.detach()), "aux": {k: float(v.detach()) for k, v in aux.items()},
-            "anchor_labels": got["anchor"].labels.cpu(), "labels": got["rois"].labels.cpu(),
-            "rois": got["rois"].rois.cpu(),
+            "anchor_labels": got["anchor"].labels.cpu() if "anchor" in got else None,
+            "labels": got["rois"].labels.cpu() if "rois" in got else None,
+            "rois": got["rois"].rois.cpu() if "rois" in got else torch.zeros(1),
             "grads": {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None},
         }
     card, cpu = runs["card"], runs["cpu"]
-    same_labels = torch.equal(card["labels"], cpu["labels"]) and torch.equal(
-        card["anchor_labels"], cpu["anchor_labels"])
+    same_labels = all(
+        (card[k] is None and cpu[k] is None) or torch.equal(card[k], cpu[k])
+        for k in ("labels", "anchor_labels"))
     roi_err = float((card["rois"] - cpu["rois"]).abs().max())
     loss_rel = {k: abs(card["aux"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["aux"].items()}
     loss_rel["loss"] = abs(card["loss"] - cpu["loss"]) / max(abs(cpu["loss"]), 1e-6)
@@ -2086,8 +2154,9 @@ def train_step_agrees(dev, cfg, gts, label):
     worst = sorted(leaf.items(), key=lambda kv: -kv[1][0])[:4]
     grad_rel = worst[0][1][0]
     grad_max_rel = max(v[1] for v in leaf.values())
-    log(f"  small {label} train step card vs CPU: fg rois {int(cpu['aux']['num_fg_rois'])}, fg anchors "
-        f"{int(cpu['aux']['num_fg_anchors'])}, same labels {same_labels}, rois max|d| {roi_err:.3g} px, "
+    log(f"  small {label} train step card vs CPU: fg rois {int(cpu['aux'].get('num_fg_rois', -1))}, "
+        f"fg anchors {int(cpu['aux'].get('num_fg_anchors', -1))}, same labels {same_labels}, rois "
+        f"max|d| {roi_err:.3g} px, "
         f"loss {cpu['loss']:.6f} vs {card['loss']:.6f}, max relative loss/aux diff "
         f"{max(loss_rel.values()):.3g}, gradients over {len(cpu['grads'])} leaves: max "
         f"||d||/||g|| {grad_rel:.3g}, max max|d|/max|g| {grad_max_rel:.3g}")
@@ -2099,8 +2168,290 @@ def train_step_agrees(dev, cfg, gts, label):
     if (not same_labels or roi_err > 1e-3 or max(loss_rel.values()) > 1e-4 or grad_rel > 1e-3
             or grad_max_rel > 3e-3):
         raise AssertionError("the small train step disagrees between the card and the CPU")
-    if cpu["aux"]["num_fg_rois"] <= 0 or cpu["aux"]["num_fg_anchors"] <= 0:
+    if any(cpu["aux"].get(k, 1) <= 0 for k in ("num_fg_rois", "num_fg_anchors")):
         raise AssertionError("the small train step sampled no fg rois or anchors")
+
+
+# --------------------------------------------------------- alternate phase
+ALT_IMAGES = 8
+# the steps of each training stage, and of the frozen FPN run
+ALT_STEPS = 6
+FROZEN_STEPS = 4
+# the groups Fast R-CNN-1 trains (FIXED_PARAMS), which the finite
+# differences move
+FAST_RCNN_GROUPS = ("backbone.stage2", "backbone.stage3", "top_head", "rcnn")
+# launches a stage's train step makes: an RPN stage none (no proposals);
+# Fast R-CNN one ROIAlign forward, and one backward in stage 3 only: stage 5
+# freezes every backbone tensor (FIXED_PARAMS_SHARED), so no gradient
+# reaches the feature map and the adjoint is not run (the JAX graph's
+# stop-gradient at the frozen prefix drops it too).  A proposal pass
+# launches one NMS an image.
+NO_LAUNCHES = {"nms": 0, "roi_align_fwd": 0, "roi_align_bwd": 0, "roi_align_stream_fwd": 0,
+               "roi_align_stream_bwd": 0}
+STAGE_LAUNCHES_PER_STEP = {
+    "rpn1": NO_LAUNCHES,
+    "rcnn1": dict(NO_LAUNCHES, roi_align_fwd=1, roi_align_bwd=1),
+    "rpn2": NO_LAUNCHES,
+    "rcnn2": dict(NO_LAUNCHES, roi_align_fwd=1),
+}
+# FPN's frozen step pools the given proposals through both routes and runs
+# no proposal NMS
+FROZEN_FPN_LAUNCHES_PER_STEP = dict(FPN_LAUNCHES_PER_STEP, nms=0)
+
+
+class StageRecorder:
+    """Wraps ``tools/train_alternate.py``'s stage calls while it runs: each
+    call resets the launch counts just before and reads them just after; a
+    training stage hands ``fit``'s result to its record (``report``), a
+    proposal pass its recalls and the seconds of ``generate_proposals``."""
+
+    NAMES = ("train_rpn", "test_rpn", "train_rcnn")
+
+    def __init__(self):
+        self.records = []
+        self._orig = {n: getattr(alt_mod, n) for n in self.NAMES}
+        self._gen = test_rpn_mod.generate_proposals
+
+    def _wrap(self, name):
+        fn = self._orig[name]
+
+        def run(*a, **k):
+            rec = {"stage": name}
+            if name != "test_rpn":
+                k["report"] = rec.setdefault("fit", {})
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["seconds"] = time.perf_counter() - t0
+            rec["launches"] = read_launches()
+            # the stage's train state would keep its model and momenta on
+            # the card through the later stages
+            rec.get("fit", {}).pop("state", None)
+            if name == "test_rpn":
+                rec["recalls"], rec["images"] = out[1], len(out[0])
+                rec["counts"] = [len(p) for p in out[0]]
+            self.records.append(rec)
+            return out
+
+        return run
+
+    def _timed_generate(self, *a, **k):
+        t0 = time.perf_counter()
+        out = self._gen(*a, **k)
+        torch.cuda.synchronize()
+        self.gen_seconds.append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        self.gen_seconds = []
+        for n in self.NAMES:
+            setattr(alt_mod, n, self._wrap(n))
+        test_rpn_mod.generate_proposals = self._timed_generate
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(alt_mod, n, fn)
+        test_rpn_mod.generate_proposals = self._gen
+        return False
+
+
+def frozen_leaves_equal(tree, donor, fixed) -> int:
+    """How many of ``tree``'s leaves the freeze set ``fixed`` holds that the
+    donor also has; raises unless each is bitwise the donor's."""
+    ref = dict(tree_leaves(donor))
+    held = [(p, a) for p, a in tree_leaves(tree) if is_frozen_path(p, fixed) and p in ref]
+    bad = ["/".join(p) for p, a in held if not np.array_equal(a, ref[p])]
+    if bad or not held:
+        raise AssertionError(f"frozen leaves differ from their donor's ({len(held)} held): "
+                             f"{bad[:5]}")
+    return len(held)
+
+
+def stage_train_checks(name, rec, per_step) -> dict:
+    """A training stage's gates, after its line is logged: it dispatched
+    ALT_STEPS steps and launched ``per_step`` a step; finite losses, none
+    above 100× the first step's.  Returns its step statistics."""
+    out = rec["fit"]
+    hist = out["history"]
+    want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
+    losses = [h["loss"] for h in hist]
+    growth = max(losses) / losses[0] if losses and losses[0] > 0 else math.inf
+    timed = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    worst = max(hist, key=lambda h: h["loss"]) if hist else {}
+    log(f"  {name}: losses {[round(v, 5) for v in losses]} (largest / first {growth:.3f}), "
+        f"the largest step's aux "
+        f"{ {k: round(v, 5) for k, v in worst.items() if k not in ('index', 'wait_ms')} }, "
+        f"step median {statistics.median(timed) if timed else math.nan:.3f} ms after "
+        f"{TRAIN_WARMUP} warm-up, launches {rec['launches']}")
+    if rec["launches"] != want or out["dispatched_steps"] != ALT_STEPS or len(hist) != ALT_STEPS:
+        raise AssertionError(f"{name} dispatched {out['dispatched_steps']} steps, ran "
+                             f"{len(hist)} and launched {rec['launches']}, not {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    if not growth <= LOSS_GROWTH_MAX:
+        raise AssertionError(f"{name}: the loss grew {growth:.3g}x")
+    return {"losses": losses, "growth": growth, "step_ms": timed,
+            "step_ms_median": statistics.median(timed), "launches": rec["launches"],
+            "dispatched_steps": out["dispatched_steps"]}
+
+
+def alternate_phase(cfg, weights, dev):
+    """The four-stage schedule (``tools/train_alternate.py::
+    alternate_train``) at full width: ResNet-101 C4, ALT_IMAGES synthetic
+    480 × 640 images and their flipped copies, ALT_STEPS steps of ``fit`` a
+    training stage, from the calibrated weights the ``[train]`` run started
+    from (its BN moments from ``calibration_batch`` on these images) as the
+    donor of stages 1 and 3; then ``tools/test.py --params final.pkl`` with
+    the run's per-class statistics.  Gates: each stage's launches (RPN
+    stages none, Fast R-CNN kernel 2 once a step and kernel 3 once a step
+    of stage 3 (:data:`STAGE_LAUNCHES_PER_STEP`), each proposal
+    pass one NMS an image), losses, the frozen leaves of every stage bitwise
+    its donor's, the final backbone bitwise RPN-2's, the evaluation's
+    launches and statistics.  Returns the captured kernel inputs, the
+    stats, and the Fast R-CNN-1 model and proposal roidb for the finite
+    differences."""
+    roidb = SyntheticDataset(num_images=ALT_IMAGES, image_size=(480, 640)).gt_roidb()
+    donor_model = make_model(cfg)
+    donor_model.load_state_dict(weights)
+    donor = torch_to_flax(donor_model)
+    del donor_model
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_alt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Capture(keep=2) as cap, StageRecorder() as rec:
+        alt_mod.alternate_train(cfg, roidb, epochs_rpn=1, epochs_rcnn=1, pretrained_donor=donor,
+                                out_dir=out_dir, max_steps=ALT_STEPS, device=dev,
+                                frequent=ALT_STEPS)
+    seconds = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    names = ["rpn1", "test_rpn1", "rcnn1", "rpn2", "test_rpn2", "rcnn2"]
+    if [r["stage"] for r in rec.records] != ["train_rpn", "test_rpn", "train_rcnn", "train_rpn",
+                                             "test_rpn", "train_rcnn"]:
+        raise AssertionError(f"the schedule ran {[r['stage'] for r in rec.records]}")
+    stats = {"seconds": seconds, "peak_mib": peak_mib, "stages": {}}
+    for name, r in zip(names, rec.records):
+        if r["stage"] == "test_rpn":
+            want = dict(NO_LAUNCHES, nms=ALT_IMAGES)
+            gen_s = rec.gen_seconds[len([k for k in stats["stages"] if k.startswith("test_rpn")])]
+            st = {"launches": r["launches"], "recalls": r["recalls"], "counts": r["counts"],
+                  "seconds": r["seconds"], "images_per_s": r["images"] / gen_s}
+            log(f"  {name}: {r['images']} images, proposals per image {r['counts']}, "
+                f"{st['images_per_s']:.3f} images/s (generate_proposals), recalls "
+                f"{ {k: round(v, 4) for k, v in r['recalls'].items()} }, launches {r['launches']}")
+            if r["launches"] != want:
+                raise AssertionError(f"{name} launched {r['launches']}, not {want}")
+        else:
+            st = stage_train_checks(name, r, STAGE_LAUNCHES_PER_STEP[name])
+        stats["stages"][name] = st
+
+    trees = {n: load_params(os.path.join(out_dir, f"{n}.pkl"))
+             for n in ("rpn1", "rcnn1", "rpn2", "rcnn2", "final")}
+    net = cfg.network
+    held = {
+        "rpn1 (FIXED_PARAMS) vs the donor": frozen_leaves_equal(trees["rpn1"], donor,
+                                                                net.FIXED_PARAMS),
+        "rcnn1 (FIXED_PARAMS) vs the donor": frozen_leaves_equal(trees["rcnn1"], donor,
+                                                                 net.FIXED_PARAMS),
+        "rpn2 (FIXED_PARAMS_SHARED) vs rcnn1": frozen_leaves_equal(
+            trees["rpn2"], trees["rcnn1"], net.FIXED_PARAMS_SHARED),
+        "rcnn2 (FIXED_PARAMS_SHARED) vs rpn2": frozen_leaves_equal(
+            trees["rcnn2"], trees["rpn2"], net.FIXED_PARAMS_SHARED),
+        "final backbone vs rpn2": frozen_leaves_equal(
+            {"backbone": trees["final"]["backbone"]}, trees["rpn2"], ("backbone",)),
+    }
+    log(f"  frozen leaves bitwise their donor's: {held}")
+    stats["frozen_leaves_held"] = held
+    start = dict(tree_leaves(donor))
+    if not any(not np.array_equal(a, start[p]) for p, a in tree_leaves(trees["rcnn1"])
+               if p[:2] == ("backbone", "stage3") and p[-1] == "kernel"):
+        raise AssertionError("Fast R-CNN-1 did not move the shared convolutions it trains")
+
+    meta = load_run_meta(out_dir)
+    seen = {}
+    real_eval = test_cli.pred_eval
+
+    def spy(predictor, loader, imdb, cfg_used, **kw):
+        seen["cfg"] = cfg_used
+        return real_eval(predictor, loader, imdb, cfg_used, **kw)
+
+    test_cli.pred_eval = spy
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        results = test_cli.test_rcnn(test_cli.parse_args(
+            ["--network", "resnet", "--dataset", "PascalVOC", "--synthetic", "8",
+             "--params", os.path.join(out_dir, "final.pkl")]))
+        eval_s = time.perf_counter() - t0
+    finally:
+        test_cli.pred_eval = real_eval
+    eval_launches = read_launches()
+    per_class = tuple(tuple(r) for r in meta["BBOX_STDS_PER_CLASS"])
+    log(f"  tools/test.py --params final.pkl --synthetic 8: mAP {results['mAP']:.6f}, "
+        f"{eval_s:.3f} s, launches {eval_launches}; per-class stats applied "
+        f"{seen['cfg'].TRAIN.BBOX_STDS_PER_CLASS == per_class}")
+    if seen["cfg"].TRAIN.BBOX_STDS_PER_CLASS != per_class:
+        raise AssertionError("tools/test.py did not apply final.pkl's run_meta statistics")
+    if eval_launches != dict(NO_LAUNCHES, nms=16, roi_align_fwd=8):
+        raise AssertionError(f"tools/test.py launched {eval_launches}")
+    stats["eval"] = {"mAP": results["mAP"], "seconds": eval_s, "launches": eval_launches}
+    log(f"  the schedule {seconds:.1f} s; max_memory_allocated {peak_mib:.1f} MiB")
+
+    props1 = load_params(os.path.join(out_dir, "proposals1.pkl"))
+    prop_roidb = IMDB.append_flipped_images(attach_proposals(roidb, props1))
+    rcnn1 = flax_to_torch(trees["rcnn1"], make_model(cfg, cls=FastRCNN))
+    rcnn1.to(dev, memory_format=torch.channels_last)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return cap, stats, rcnn1, prop_roidb
+
+
+def frozen_fpn_phase(fcfg, weights, dev):
+    """FPN's frozen-proposal mode at full width (ResNet-50 FPN): the
+    calibrated ``[fpn train]`` weights' own proposals over ALT_IMAGES
+    synthetic 480 × 640 images (``generate_proposals`` at the dump's
+    TEST.PROPOSAL_* budgets), attached and flipped, then FROZEN_STEPS steps
+    of ``fit(proposal_count=TRAIN.RPN_POST_NMS_TOP_N)``.  Gates: no NMS in
+    the steps, kernels 2–5 twice a step, the losses.  Returns the captured
+    kernel inputs, the launches and the stats."""
+    roidb = SyntheticDataset(num_images=ALT_IMAGES, image_size=(480, 640)).gt_roidb()
+    pcfg = test_rpn_mod.proposal_cfg(fcfg)
+    model = make_model(pcfg)
+    model.load_state_dict(weights)
+    props = tester_mod.generate_proposals(Predictor(model, device=dev), TestLoader(roidb, pcfg),
+                                          pcfg)
+    del model
+    counts = [len(p) for p in props]
+    frozen = IMDB.append_flipped_images(attach_proposals(roidb, props))
+    model = make_model(fcfg)
+    model.load_state_dict(weights)
+    torch.cuda.synchronize()
+    reset_launches()
+    with Capture(keep=2) as cap:
+        out = fit(model, fcfg, frozen, epochs=1, seed=0, max_steps=FROZEN_STEPS,
+                  frequent=FROZEN_STEPS, device=dev,
+                  proposal_count=fcfg.TRAIN.RPN_POST_NMS_TOP_N)
+    launches = read_launches()
+    hist = out["history"]
+    want = {k: n * out["dispatched_steps"] for k, n in FROZEN_FPN_LAUNCHES_PER_STEP.items()}
+    losses = [h["loss"] for h in hist]
+    log(f"  proposals per image {counts}; {len(frozen)} records; losses "
+        f"{[round(v, 5) for v in losses]}; valid proposals a step "
+        f"{[int(h['num_valid_props']) for h in hist]}; launches {launches} (expected {want})")
+    if launches != want or out["dispatched_steps"] != FROZEN_STEPS:
+        raise AssertionError(f"the frozen FPN run dispatched {out['dispatched_steps']} steps and "
+                             f"launched {launches}, not {want}")
+    growth = max(losses) / losses[0] if losses[0] > 0 else math.inf
+    if not all(math.isfinite(v) for v in losses) or not growth <= LOSS_GROWTH_MAX:
+        raise AssertionError(f"the frozen FPN run's losses {losses}")
+    timed = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    stats = {"proposals_per_image": counts, "losses": losses, "growth": growth,
+             "step_ms": timed, "step_ms_median": statistics.median(timed), "launches": launches}
+    log(f"  frozen FPN step median {stats['step_ms_median']:.3f} ms after {TRAIN_WARMUP} warm-up")
+    return cap, launches, stats
 
 
 # -------------------------------------------------------------- eval phase
@@ -3002,6 +3353,34 @@ def main() -> int:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
     checkpoint_stats["mask"] = mask_ckpt
 
+    dump = (cfg.TEST.PROPOSAL_PRE_NMS_TOP_N, cfg.TEST.PROPOSAL_POST_NMS_TOP_N)
+    log(f"[alternate] ResNet-{cfg.network.depth} C4 four-stage alternate training at full width: "
+        f"{ALT_IMAGES} synthetic 480x640 images and their flipped copies, {ALT_STEPS} steps of "
+        f"fit a training stage, proposal passes at {dump[0]}->{dump[1]} (IoU "
+        f"{cfg.TEST.PROPOSAL_NMS}), Fast R-CNN batches padded to "
+        f"{cfg.TRAIN.RPN_POST_NMS_TOP_N} proposals; the calibrated [train] weights as the donor")
+    alt_cap, alt_stats, rcnn1_model, prop_roidb = alternate_phase(cfg, c4_weights, dev)
+    log("[alternate] kernels vs plain on the captured tensors (every proposal pass's NMS, the "
+        "first Fast R-CNN steps' ROIAlign)")
+    if not alt_cap.nms or any((tuple(c[0].shape), c[3]) != ((1, dump[0], 4), dump[1])
+                              for c in alt_cap.nms):
+        raise AssertionError(f"the proposal passes' NMS calls are not 1 x {dump[0]} -> {dump[1]}: "
+                             f"{[(tuple(c[0].shape), c[3]) for c in alt_cap.nms]}")
+    roi_err = max(roi_err, hold_captured(nms_diff, alt_cap, bwd_diff, stream_diff))
+    log("[alternate] full-width Fast R-CNN-1 gradient vs finite differences of the loss")
+    alt_stats["fd_worst"] = gradient_matches_finite_differences(
+        rcnn1_model, cfg, prop_roidb, dev, FAST_RCNN_GROUPS)
+    del rcnn1_model, prop_roidb
+    ft = fcfg.TRAIN
+    log(f"[frozen fpn] ResNet-{fcfg.network.depth} FPN frozen-proposal training at full width: "
+        f"the [fpn train] weights' own proposals over {ALT_IMAGES} synthetic 480x640 images "
+        f"({fcfg.TEST.PROPOSAL_PRE_NMS_TOP_N}->{fcfg.TEST.PROPOSAL_POST_NMS_TOP_N}), "
+        f"{FROZEN_STEPS} steps of fit with proposal_count {ft.RPN_POST_NMS_TOP_N}")
+    frozen_cap, frozen_launches, frozen_stats = frozen_fpn_phase(fcfg, fpn_weights, dev)
+    log("[frozen fpn] kernels vs plain on the captured tensors")
+    roi_err = max(roi_err, hold_captured(nms_diff, frozen_cap, bwd_diff, stream_diff))
+    del frozen_cap
+
     te = cfg.TEST
     log(f"[eval] ResNet-{cfg.network.depth} C4 pred_eval from the calibrated weights the [train] "
         f"run started from: {EVAL_IMAGES} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} images, "
@@ -3086,7 +3465,12 @@ def main() -> int:
     fpn_serve_roi = {f"p{lv}": roi_fwd_timing(at_scale(fpn_serve_cap.roi, 0.5 ** lv),
                                               f"FPN serving P{lv}") for lv in (2, 3, 4, 5)}
     mask_roi = roi_fwd_timing(at_scale(mask_cap.roi, 0.25), "Mask R-CNN mask branch P2")
-    del fpn_serve_cap, mask_cap, cap_in, mtrain_cap
+    log("[timing] the proposal dump's NMS (1 x 20000 -> 2000) and Fast R-CNN's kernels 2 and 3, "
+        "on the [alternate] run's captured tensors")
+    dump_nms = nms_timing(alt_cap.nms[-1], "proposal dump")
+    alt_roi = roi_fwd_timing(alt_cap.roi[-1], "Fast R-CNN train")
+    alt_bwd = roi_bwd_timing(alt_cap.roi_bwd[-1], "Fast R-CNN train")
+    del fpn_serve_cap, mask_cap, cap_in, mtrain_cap, alt_cap
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
@@ -3125,6 +3509,12 @@ def main() -> int:
         "masks), card vs CPU")
     train_step_agrees(dev, small_mask_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
                                               [50.0, 60.0, 120.0, 110.0, 2.0]], "Mask R-CNN")
+    log("[alternate reference] small RPNOnly and Fast R-CNN train steps (ResNet-50 depth), card "
+        "vs CPU")
+    for cls in (RPNOnly, FastRCNN):
+        train_step_agrees(dev, small_c4_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
+                                                [60.0, 60.0, 120.0, 110.0, 2.0]],
+                          cls.__name__, cls=cls)
     log("[eval reference] small eval, card vs CPU")
     small_eval_agrees(dev)
 
@@ -3133,6 +3523,8 @@ def main() -> int:
     log(f"[mask train] stats {json.dumps(mask_stats)}")
     log(f"[pipeline] stats {json.dumps(pipeline_stats)}")
     log(f"[checkpoint] stats {json.dumps(checkpoint_stats)}")
+    log(f"[alternate] stats {json.dumps(alt_stats)}")
+    log(f"[frozen fpn] stats {json.dumps(frozen_stats)}")
     log(f"[eval] stats {json.dumps(eval_stats)}")
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
@@ -3143,6 +3535,18 @@ def main() -> int:
                 "mask_serve_launches": mask_serve_launches[kernel],
                 "mask_eval_launches": mask_eval_stats["launches"][kernel],
                 "mask_train_launches": mask_launches[kernel]}
+
+    stages = alt_stats["stages"]
+
+    def alt_launches(kernel):
+        """The [alternate] and [frozen fpn] runs' launches of a kernel."""
+        return {"alternate_test_rpn_launches": sum(stages[n]["launches"][kernel]
+                                                   for n in ("test_rpn1", "test_rpn2")),
+                "alternate_rpn_launches": sum(stages[n]["launches"][kernel]
+                                              for n in ("rpn1", "rpn2")),
+                "alternate_fast_rcnn_launches": sum(stages[n]["launches"][kernel]
+                                                    for n in ("rcnn1", "rcnn2")),
+                "frozen_fpn_launches": frozen_launches[kernel]}
 
     def mask_train_timing(kernel):
         return {k: v for lv, e in mtrain[kernel].items()
@@ -3162,6 +3566,7 @@ def main() -> int:
             **_prefixed("serve", serve_nms), **_prefixed("class", classes),
             **_prefixed("fpn", fpn_nms), **_prefixed("fpn_serve_union", fpn_union),
             **_prefixed("fpn_serve_classes", fpn_classes),
+            **alt_launches("nms"), **_prefixed("proposal_dump", dump_nms),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -3177,6 +3582,7 @@ def main() -> int:
             **{k: v for lv, e in fpn_serve_roi.items() for k, v in
                _prefixed(f"fpn_serve_{lv}", e).items()},
             **_prefixed("mask_serve_p2", mask_roi), **mask_train_timing("roi_fwd"),
+            **alt_launches("roi_align_fwd"), **_prefixed("fast_rcnn", alt_roi),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -3191,6 +3597,7 @@ def main() -> int:
             **train_bwd, "library_ms": None,
             **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
             **mask_train_timing("roi_bwd"),
+            **alt_launches("roi_align_bwd"), **_prefixed("fast_rcnn", alt_bwd),
         },
         {
             "name": "roi_align_stream_fwd", "route": "cuda",
@@ -3202,6 +3609,7 @@ def main() -> int:
             "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
             **stream_p2, "library_ms": None,
             **_prefixed("p3", stream_p3), **mask_train_timing("stream_fwd"),
+            **alt_launches("roi_align_stream_fwd"),
         },
         {
             "name": "roi_align_stream_bwd", "route": "cuda",
@@ -3216,6 +3624,7 @@ def main() -> int:
             f"s{RUNTIME_S}_bitwise_repeatable": s5_stream.repeatable,
             **stream_bwd_p2, "library_ms": None,
             **_prefixed("p3", stream_bwd_p3), **mask_train_timing("stream_bwd"),
+            **alt_launches("roi_align_stream_bwd"),
         },
     ]}), flush=True)
     print(smi, flush=True)

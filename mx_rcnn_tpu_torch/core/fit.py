@@ -4,6 +4,10 @@ the card on its own stream while step N runs) → :class:`PipelinedLoop`
 (every step guarded against a NaN or spiking loss, the aux check
 ``aux_interval`` steps late) → metrics, with checkpoints at epoch ends, on a
 preemption signal and from the watchdog (``core/checkpoint.py``), and resume.
+One loop serves every graph: FasterRCNN, FPN and the stage models of
+alternate training (``models/stage_models.py``), whose batches carry the
+proposal roidb's ``proposals`` (``proposal_count``) and whose init may take
+subtrees of an earlier stage's tree (``init_donor``, :func:`merge_params`).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import logging
 import math
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,16 @@ logger = logging.getLogger(__name__)
 
 # the steps a ``profile`` trace covers: from the 10th step done to the 20th
 PROFILE_STEPS = (10, 20)
+
+
+def merge_params(model: nn.Module, donor: Dict) -> nn.Module:
+    """Load into ``model`` the top-level subtrees (``backbone``,
+    ``top_head``, ``rpn``, ``rcnn``) of the Flax tree ``donor`` that the
+    model also has, leaving its other tensors as they are: the stage models
+    share those names, so an RPN stage's tree seeds a Fast R-CNN init, and
+    the other way round, on their intersection."""
+    own = {k.split(".")[0] for k in model.state_dict()}
+    return flax_to_torch({k: v for k, v in donor.items() if k in own}, model, partial=True)
 
 
 def batch_digest(batch: Dict[str, np.ndarray]) -> str:
@@ -105,7 +119,9 @@ def fit(
     max_steps: int = 0,
     frequent: int = 20,
     device=None,
-    init_params: Optional[Dict] = None,
+    init_donor: Optional[Dict] = None,
+    fixed_params: Optional[Sequence[str]] = None,
+    proposal_count: int = 0,
     guard_policy: Optional[DivergencePolicy] = None,
     step_timeout: float = 0.0,
     snapshot_every: int = 1,
@@ -122,8 +138,14 @@ def fit(
     profile: Optional[str] = None,
 ) -> Dict:
     """Train ``model`` in place on ``device`` (default: the card, which must
-    be present).  The model starts from its own weights or, with
-    ``init_params``, from a Flax parameter tree (numpy leaves).
+    be present).  The model starts from its own weights, except for the
+    top-level subtrees of the Flax tree ``init_donor`` (numpy leaves) that
+    it shares, which replace its own (:func:`merge_params`: a whole tree,
+    an earlier stage's tree, or a pretrained backbone).  ``fixed_params``
+    overrides the freeze set (``make_optimizer``; FIXED_PARAMS_SHARED in
+    the later stages of alternate training).  ``proposal_count`` > 0 gives every batch the
+    records' ``proposals`` / ``prop_valid`` padded to that count (Fast
+    R-CNN, FPN's frozen mode).
 
     Every step runs under a :class:`PipelinedLoop` (``guard_policy``
     overrides the divergence defaults; ``snapshot_every`` is the guard's
@@ -170,17 +192,18 @@ def fit(
     dict per dump: ``path``, ``epoch``, ``batch``, ``seconds``, ``bytes``,
     ``at``, the host clock at its commit)."""
     dev = resolve_device(device)
-    if init_params is not None:
-        flax_to_torch(init_params, model)
+    if init_donor is not None:
+        merge_params(model, init_donor)
     # channels_last: the NHWC images and pooled rois enter the convs as views
     model.to(dev, memory_format=torch.channels_last).train()
     images_per_step = cfg.TRAIN.BATCH_IMAGES * accum_steps
     loader = TrainLoader(
         roidb, cfg, images_per_step, shuffle=cfg.TRAIN.SHUFFLE, seed=seed,
         prefetch=prefetch, failure_budget=loader_failure_budget,
-        assembly_workers=assembly_workers,
+        assembly_workers=assembly_workers, proposal_count=proposal_count,
     )
-    optimizer = make_optimizer(cfg, model, make_lr_schedule(cfg, max(len(loader), 1)))
+    optimizer = make_optimizer(cfg, model, make_lr_schedule(cfg, max(len(loader), 1)),
+                               fixed_params)
     state = create_train_state(model, optimizer)
     rng = seed + 123
     dispatched = 0

@@ -1,6 +1,6 @@
-"""Inference: Predictor, the pipelined eval loop, im_detect and pred_eval
-(port of ``Predictor``, ``pipelined``, ``im_detect`` and ``pred_eval`` in
-``mx_rcnn_tpu/core/tester.py``).
+"""Inference: Predictor, the pipelined eval loop, im_detect, pred_eval and
+generate_proposals (port of ``Predictor``, ``pipelined``, ``im_detect``,
+``pred_eval`` and ``generate_proposals`` in ``mx_rcnn_tpu/core/tester.py``).
 
 The forward runs eagerly under ``torch.inference_mode()`` on one explicit
 device, with the device postprocess fused after it when the Predictor has
@@ -109,7 +109,9 @@ class Predictor:
     whenever the batch carries ``orig_hw``; one that ``wants_canvas`` (the
     mask paste) also gets the batch's padded image extent, the bucket
     canvas.  A batch may hold numpy arrays or tensors already on the device
-    (a ``DeviceFeed`` stages them), which are used without another copy."""
+    (a ``DeviceFeed`` stages them), which are used without another copy.
+    A batch's ``proposals`` / ``prop_valid`` (``TestLoader(proposal_count)``)
+    go to the model too (Fast R-CNN's test forward)."""
 
     def __init__(self, model: nn.Module, postprocess=None, device=None):
         self.device = resolve_device(device)
@@ -124,7 +126,9 @@ class Predictor:
         with torch.inference_mode():
             images = _on_device(batch["images"], self.device)
             im_info = _on_device(batch["im_info"], self.device, torch.float32)
-            out = self.model(images, im_info)
+            extra = {k: _on_device(batch[k], self.device) for k in ("proposals", "prop_valid")
+                     if k in batch}
+            out = self.model(images, im_info, **extra)
             orig_hw = batch.get("orig_hw")
             if self.postprocess is not None and orig_hw is not None:
                 orig_hw = _on_device(orig_hw, self.device, torch.float32)
@@ -399,3 +403,30 @@ def pred_eval(
                        type(imdb).__name__)
         return all_boxes, imdb.evaluate_detections(all_boxes)
     return all_boxes, imdb.evaluate_detections(all_boxes, all_masks=all_masks)
+
+
+def generate_proposals(predictor: Predictor, loader, cfg: Config,
+                       dump_path: Optional[str] = None) -> List[np.ndarray]:
+    """The RPN over a dataset (the reference's ``generate_proposals``): for
+    each image, in dataset order, its valid proposals in original image
+    coordinates with their scores, an (n, 5) float32 [x1, y1, x2, y2,
+    score] array, score-descending.  ``loader`` is a ``TestLoader``, run
+    through ``pipelined`` in its ``iter_batched`` batches; ``dump_path``
+    pickles the list (numpy arrays only, readable by the JAX package's
+    ``load_proposal_roidb``)."""
+    proposals: List[Optional[np.ndarray]] = [None] * len(loader)
+    # the payload carries each batch's host im_info: the staged batch is on
+    # the device
+    for (idxs, info), _, out in pipelined(
+        predictor,
+        (((idxs, batch["im_info"]), batch) for idxs, _, batch in loader.iter_batched()),
+    ):
+        for k, i in enumerate(idxs):
+            valid = out["roi_valid"][k].astype(bool)
+            boxes = out["rois"][k][valid] / float(info[k][2])
+            scores = np.asarray(out["roi_scores"][k])[valid]
+            proposals[i] = np.hstack([boxes, scores[:, None]]).astype(np.float32)
+    if dump_path:
+        with open(dump_path, "wb") as f:
+            pickle.dump(proposals, f, pickle.HIGHEST_PROTOCOL)
+    return proposals

@@ -99,15 +99,19 @@ def make_optimizer(
     cfg: Config,
     model: nn.Module,
     lr_schedule: Callable[[int], float],
+    fixed_params: Optional[Sequence[str]] = None,
 ) -> MXNetSGD:
-    """Freeze ``model``'s FIXED_PARAMS tensors (``requires_grad`` off, so no
-    gradient is computed for them) and return the MXNet SGD over the rest.
+    """Freeze ``model``'s tensors of the freeze set (``requires_grad`` off,
+    so no gradient is computed for them) and return the MXNet SGD over the
+    rest.  The set is ``fixed_params`` when given (the later stages of
+    alternate training freeze FIXED_PARAMS_SHARED), else
+    ``cfg.network.FIXED_PARAMS``.
 
     The frozen BN affines are buffers here (``models/layers.py``), never
     trained; a freeze set without ``"bn"`` would have the JAX package train
     them, so it raises."""
     t = cfg.TRAIN
-    fixed = cfg.network.FIXED_PARAMS
+    fixed = cfg.network.FIXED_PARAMS if fixed_params is None else tuple(fixed_params)
     if "bn" not in fixed:
         raise NotImplementedError(
             "FIXED_PARAMS without 'bn' trains the BN affines, which the port keeps "
@@ -379,10 +383,10 @@ def create_train_state(model: nn.Module, optimizer: MXNetSGD) -> TrainState:
 def _loss_and_aux(model: nn.Module, batch: Dict, rng: int,
                   draws: Optional[Dict[str, torch.Tensor]]) -> Tuple[torch.Tensor, Dict]:
     # the batch's keys are the model's arguments, as in the JAX step
-    masks = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
+    extra = {k: batch[k] for k in ("gt_masks", "proposals", "prop_valid") if k in batch}
     return model(
         batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
-        train=True, sample_seeds=batch.get("sample_seeds"), rng=rng, draws=draws, **masks,
+        train=True, sample_seeds=batch.get("sample_seeds"), rng=rng, draws=draws, **extra,
     )
 
 
@@ -392,7 +396,8 @@ def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[floa
     updated in place.  Forward in train mode, backward, one optimizer update
     (``lr_scale`` scales this update only).  ``batch`` holds device tensors
     ``images``, ``im_info``, ``gt_boxes``, ``gt_valid``, for a mask network
-    ``gt_masks`` and, optionally, host ``sample_seeds``; the samplers' seed
+    ``gt_masks``, from a proposal roidb ``proposals`` / ``prop_valid``
+    (Fast R-CNN, FPN's frozen mode) and, optionally, host ``sample_seeds``; the samplers' seed
     is ``fold_in(rng, update count)``, as the JAX step folds its step into
     the sampling key, unless ``draws`` hands them their uniforms.  ``aux``
     gains ``loss``; its values stay on the device.

@@ -147,6 +147,7 @@ def make_batch(
     images: Optional[Sequence[np.ndarray]] = None,
     uint8_images: bool = False,
     with_masks: bool = False,
+    proposal_count: int = 0,
 ) -> Dict[str, np.ndarray]:
     """One padded batch: normalized images in ``bucket`` (or, with
     ``uint8_images``, the resized pixels quantized to uint8, which the model
@@ -158,7 +159,11 @@ def make_batch(
     (n, MAX_GT_BOXES, M, M) uint8 box-frame bitmaps (M = TRAIN.MASK_GT_SIZE,
     ``data/masks.py::record_gt_masks``); a record without ``segmentation``
     gets all ones (rectangle targets).  The bitmaps are box-relative, so
-    the resize does not touch them."""
+    the resize does not touch them.  ``proposal_count`` > 0 adds
+    ``proposals`` (n, proposal_count, 4), each record's ``proposals``
+    scaled by the resize factor and cut to the count, and ``prop_valid``
+    (n, proposal_count) (Fast R-CNN batches from a proposal roidb, the
+    reference's ``get_rcnn_batch``)."""
     target, max_size = cfg.dataset.SCALES[0]
     g = cfg.dataset.MAX_GT_BOXES
     n = len(records)
@@ -170,6 +175,9 @@ def make_batch(
     if with_masks:
         msize = cfg.TRAIN.MASK_GT_SIZE
         gt_masks = np.zeros((n, g, msize, msize), np.uint8)
+    if proposal_count:
+        proposals = np.zeros((n, proposal_count, 4), np.float32)
+        prop_valid = np.zeros((n, proposal_count), bool)
     for i, rec in enumerate(records):
         # only loader-owned loads are cached: a caller's ``images`` may hold
         # substituted slots, whose pixels no longer match the record's key
@@ -197,11 +205,19 @@ def make_batch(
         if with_masks:
             rec_masks = record_gt_masks(rec, g, msize)
             gt_masks[i] = 1 if rec_masks is None else rec_masks
+        if proposal_count:
+            p = np.asarray(rec["proposals"], np.float32) * info[2]
+            k = min(len(p), proposal_count)
+            proposals[i, :k] = p[:k]
+            prop_valid[i, :k] = True
     out = {"images": out_images, "im_info": im_info, "gt_boxes": gt_boxes, "gt_valid": gt_valid}
     if with_masks:
         out["gt_masks"] = gt_masks
     if seeds is not None:
         out["sample_seeds"] = np.asarray(seeds, np.int32)
+    if proposal_count:
+        out["proposals"] = proposals
+        out["prop_valid"] = prop_valid
     return out
 
 
@@ -311,7 +327,7 @@ class PrefetchIterator:
 
 def build_batch(
     roidb: List[Dict], cfg: Config, retry: RetryPolicy, bucket: Tuple[int, int],
-    idxs: List[int], injected: Dict[int, int],
+    idxs: List[int], injected: Dict[int, int], proposal_count: int = 0,
 ) -> Tuple[Optional[Dict[str, np.ndarray]], List[Tuple[int, str]], int]:
     """One plan entry's batch, a pure function of its arguments (so it runs
     the same in an assembly process): each record's image loads with
@@ -321,7 +337,8 @@ def build_batch(
     consistent; the batch keeps its shape).  Returns ``(batch or None when
     no record loads, [(record, error)] of the failed records, substituted
     slots)``; the loader does the accounting.  A mask network's batch
-    carries ``gt_masks``."""
+    carries ``gt_masks``, and ``proposal_count`` > 0 adds the records'
+    ``proposals`` / ``prop_valid`` (``make_batch``)."""
     failures: List[Tuple[int, str]] = []
     images: List[Optional[np.ndarray]] = []
     for i in idxs:
@@ -345,7 +362,7 @@ def build_batch(
         filled.append(i)
         imgs.append(im)
     batch = make_batch([roidb[i] for i in filled], cfg, bucket, seeds=filled, images=imgs,
-                       with_masks=cfg.network.USE_MASK)
+                       with_masks=cfg.network.USE_MASK, proposal_count=proposal_count)
     return batch, failures, len(idxs) - len(good)
 
 
@@ -353,18 +370,20 @@ def build_batch(
 _WORKER_STATE: Dict[str, object] = {}
 
 
-def _init_assembly_worker(roidb: List[Dict], cfg: Config, retry: RetryPolicy) -> None:
+def _init_assembly_worker(roidb: List[Dict], cfg: Config, retry: RetryPolicy,
+                          proposal_count: int = 0) -> None:
     # a preemption signal to the process group is the trainer's to handle:
     # its workers live on until it has saved and closes the pool
     signal.signal(signal.SIGINT, signal.SIG_IGN)
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
-    _WORKER_STATE.update(roidb=roidb, cfg=cfg, retry=retry)
+    _WORKER_STATE.update(roidb=roidb, cfg=cfg, retry=retry, proposal_count=proposal_count)
 
 
 def _assemble(task):
     bucket, idxs, injected = task
     w = _WORKER_STATE
-    return build_batch(w["roidb"], w["cfg"], w["retry"], bucket, idxs, injected)
+    return build_batch(w["roidb"], w["cfg"], w["retry"], bucket, idxs, injected,
+                       w["proposal_count"])
 
 
 class _AssembledStream:
@@ -420,7 +439,9 @@ class TrainLoader:
     ``failure_budget`` raise :class:`LoaderFaultBudgetExceeded`.  Injected
     read faults (``record_fail``) are drawn from the fault registry in plan
     order as each batch is handed to its worker, so a pooled stream fails
-    the same reads as the serial one."""
+    the same reads as the serial one.  ``proposal_count`` > 0 gives every
+    batch the records' ``proposals`` / ``prop_valid`` padded to that count
+    (Fast R-CNN on a proposal roidb)."""
 
     def __init__(
         self,
@@ -433,10 +454,12 @@ class TrainLoader:
         retry: Optional[RetryPolicy] = None,
         failure_budget: Optional[int] = None,
         assembly_workers: Optional[int] = None,
+        proposal_count: int = 0,
     ):
         self.roidb = roidb
         self.cfg = cfg
         self.batch_size = batch_size
+        self.proposal_count = proposal_count
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
@@ -532,7 +555,8 @@ class TrainLoader:
             if self._pool is None:
                 self._pool = AssemblyPool(workers, name="train-assembly",
                                           initializer=_init_assembly_worker,
-                                          initargs=(self.roidb, self.cfg, self.retry))
+                                          initargs=(self.roidb, self.cfg, self.retry,
+                                                    self.proposal_count))
             # the faults are drawn lazily, as each entry is submitted: in
             # plan order, as the serial loop draws them
             tasks = ((bucket, idxs, self._injected(idxs)) for bucket, idxs in plan)
@@ -540,8 +564,9 @@ class TrainLoader:
             return _AssembledStream(self, self._pool, self._pool.imap(_assemble, tasks, window))
         source = (
             batch for bucket, idxs in plan
-            if (batch := self._account(build_batch(self.roidb, self.cfg, self.retry, bucket,
-                                                   idxs, self._injected(idxs)))) is not None
+            if (batch := self._account(build_batch(
+                self.roidb, self.cfg, self.retry, bucket, idxs, self._injected(idxs),
+                self.proposal_count))) is not None
         )
         return PrefetchIterator(source, self.prefetch)
 
@@ -570,24 +595,28 @@ class TrainLoader:
 # ------------------------------------------------------------------ TestLoader
 def build_test_batch(
     roidb: List[Dict], cfg: Config, bucket: Tuple[int, int], chunk: List[int],
+    proposal_count: int = 0,
 ) -> Tuple[List[int], List[Dict], Dict[str, np.ndarray]]:
     """One eval batch of the records ``chunk`` in ``bucket``, a pure
     function of its arguments: ``(chunk, records, batch)``, the batch with
-    uint8 images under TEST.UINT8_TRANSFER and ``orig_hw`` (n, 2), each
-    image's pre-resize (height, width)."""
+    uint8 images under TEST.UINT8_TRANSFER, ``orig_hw`` (n, 2), each
+    image's pre-resize (height, width), and with ``proposal_count`` > 0 the
+    records' ``proposals`` / ``prop_valid`` (``make_batch``)."""
     recs = [roidb[i] for i in chunk]
-    batch = make_batch(recs, cfg, bucket, uint8_images=cfg.TEST.UINT8_TRANSFER)
+    batch = make_batch(recs, cfg, bucket, uint8_images=cfg.TEST.UINT8_TRANSFER,
+                       proposal_count=proposal_count)
     batch["orig_hw"] = np.asarray([[r["height"], r["width"]] for r in recs], np.float32)
     return chunk, recs, batch
 
 
-def _init_test_worker(roidb: List[Dict], cfg: Config) -> None:
-    _WORKER_STATE.update(roidb=roidb, cfg=cfg)
+def _init_test_worker(roidb: List[Dict], cfg: Config, proposal_count: int = 0) -> None:
+    _WORKER_STATE.update(roidb=roidb, cfg=cfg, proposal_count=proposal_count)
 
 
 def _assemble_test(task):
     bucket, chunk = task
-    return build_test_batch(_WORKER_STATE["roidb"], _WORKER_STATE["cfg"], bucket, chunk)
+    w = _WORKER_STATE
+    return build_test_batch(w["roidb"], w["cfg"], bucket, chunk, w["proposal_count"])
 
 
 class _PooledTestStream:
@@ -630,18 +659,15 @@ class TestLoader:
     time (on the consumer's thread); :meth:`iter_batched` yields
     ``(dataset_indices, records, batch)`` of up to ``batch_size``
     same-orientation-bucket images, the ragged tail of each bucket group at
-    its own smaller size.  ``proposal_count`` > 0 (Fast R-CNN test mode,
-    dumped proposals) raises: it is ROADMAP queue 1 item 14."""
+    its own smaller size.  ``proposal_count`` > 0 (Fast R-CNN test mode)
+    gives every batch the records' dumped ``proposals`` / ``prop_valid``,
+    scaled by the resize factor and padded to that count."""
 
     def __init__(self, roidb: List[Dict], cfg: Config, proposal_count: int = 0,
                  batch_size: int = 1):
-        if proposal_count:
-            raise NotImplementedError(
-                "proposal_count > 0 (Fast R-CNN test batches) is not ported: "
-                "ROADMAP queue 1 item 14"
-            )
         self.roidb = roidb
         self.cfg = cfg
+        self.proposal_count = proposal_count
         self.batch_size = batch_size
 
     def __len__(self) -> int:
@@ -650,7 +676,8 @@ class TestLoader:
     def __iter__(self):
         for i, rec in enumerate(self.roidb):
             bucket = _orientation_bucket(rec, self.cfg.SHAPE_BUCKETS)
-            _, _, batch = build_test_batch(self.roidb, self.cfg, bucket, [i])
+            _, _, batch = build_test_batch(self.roidb, self.cfg, bucket, [i],
+                                           self.proposal_count)
             yield rec, batch
 
     def _plan(self) -> List[Tuple[Tuple[int, int], List[int]]]:
@@ -678,8 +705,9 @@ class TestLoader:
         )
         if workers > 0:
             pool = AssemblyPool(workers, name="test-assembly", initializer=_init_test_worker,
-                                initargs=(self.roidb, self.cfg))
+                                initargs=(self.roidb, self.cfg, self.proposal_count))
             return _PooledTestStream(
                 pool, pool.imap(_assemble_test, plan, window=max(prefetch, workers + 2)))
-        source = (build_test_batch(self.roidb, self.cfg, bucket, chunk) for bucket, chunk in plan)
+        source = (build_test_batch(self.roidb, self.cfg, bucket, chunk, self.proposal_count)
+                  for bucket, chunk in plan)
         return PrefetchIterator(source, prefetch)

@@ -55,59 +55,73 @@ def fold_in(seed: int, data: int) -> int:
 
 
 def sampling_uniforms(
-    rng: int, sample_seeds: Iterable[int], n_anchors: int, n_cand: int, device
+    rng: int, sample_seeds: Iterable[int], n_anchors: int, n_cand: int, device,
+    names: Tuple[str, ...] = DRAW_NAMES,
 ) -> Dict[str, torch.Tensor]:
     """The samplers' uniforms for a batch: image i's come from a generator
     seeded with ``fold_in(rng, sample_seeds[i])``, so they depend only on
     the step's seed and the image, never on the batch around it (the JAX
-    package's per-image ``sample_seeds`` keys)."""
-    rows = {k: [] for k in DRAW_NAMES}
+    package's per-image ``sample_seeds`` keys).  ``names``: the draws the
+    graph takes, in :data:`DRAW_NAMES`' order (a stage model's sampler
+    takes only the anchor or only the roi draws)."""
+    rows = {k: [] for k in names}
     for seed in sample_seeds:
         gen = torch.Generator(device=device).manual_seed(fold_in(rng, int(seed)))
-        for k in DRAW_NAMES:
+        for k in names:
             n = n_anchors if k.startswith("anchor") else n_cand
             rows[k].append(torch.rand(n, generator=gen, device=device))
     return {k: torch.stack(v) for k, v in rows.items()}
 
 
+def rpn_losses(cfg: Config, rpn_logits, rpn_deltas, atgt) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The RPN's two losses, summed, and their aux metrics under the JAX
+    train_forward's names, from the RPN outputs (B, N, 2/4) and the anchor
+    targets."""
+    labels = atgt.labels.reshape(-1)
+    norm = float(cfg.TRAIN.RPN_BATCH_SIZE * rpn_logits.shape[0])
+    cls_loss = softmax_cross_entropy(rpn_logits.reshape(-1, 2), labels, -1, norm)
+    bbox_loss = weighted_smooth_l1(
+        rpn_deltas.reshape(-1, 4), atgt.bbox_targets.reshape(-1, 4),
+        atgt.bbox_weights.reshape(-1, 4), sigma=3.0, norm=norm,
+    )
+    aux = {
+        "RPNAcc": accuracy(rpn_logits.reshape(-1, 2), labels),
+        "RPNLogLoss": cls_loss,
+        "RPNL1Loss": bbox_loss,
+        # 0 means no anchor fits inside the image: the loss is then 0
+        "num_fg_anchors": (labels == 1).sum(),
+    }
+    return cls_loss + bbox_loss, aux
+
+
+def rcnn_losses(cfg: Config, samples, cls_logits, bbox_pred_out) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The RCNN head's two losses, summed, and their aux metrics, from the
+    sampled rois of B images and the head's (B·R, K) / (B·R, 4K) outputs."""
+    labels = samples.labels.reshape(-1)
+    norm = float(cfg.TRAIN.BATCH_ROIS * samples.labels.shape[0])
+    cls_loss = softmax_cross_entropy(cls_logits, labels, -1, norm)
+    bbox_loss = weighted_smooth_l1(
+        bbox_pred_out, samples.bbox_targets.reshape(bbox_pred_out.shape),
+        samples.bbox_weights.reshape(bbox_pred_out.shape), sigma=1.0, norm=norm,
+    )
+    aux = {
+        "RCNNAcc": accuracy(cls_logits, labels),
+        "RCNNLogLoss": cls_loss,
+        "RCNNL1Loss": bbox_loss,
+        "num_fg_rois": (labels > 0).sum(),
+    }
+    return cls_loss + bbox_loss, aux
+
+
 def train_losses(
     cfg: Config, rpn_logits, rpn_deltas, atgt, samples, prop_valid, cls_logits, bbox_pred_out,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The train step's four losses, summed, and its aux metrics under the
-    JAX train_forward's names, from the RPN outputs (B, N, 2/4), the anchor
-    targets, the sampled rois, the proposals' (B, P) validity and the RCNN
-    head's (B·R, K) / (B·R, 4K) outputs."""
-    t = cfg.TRAIN
-    b = rpn_logits.shape[0]
-    labels = samples.labels.reshape(-1)
-    bbox_targets = samples.bbox_targets.reshape(bbox_pred_out.shape)
-    bbox_weights = samples.bbox_weights.reshape(bbox_pred_out.shape)
-    anchor_labels = atgt.labels.reshape(-1)
-
-    rpn_norm = float(t.RPN_BATCH_SIZE * b)
-    rcnn_norm = float(t.BATCH_ROIS * b)
-    rpn_cls_loss = softmax_cross_entropy(rpn_logits.reshape(-1, 2), anchor_labels, -1, rpn_norm)
-    rpn_bbox_loss = weighted_smooth_l1(
-        rpn_deltas.reshape(-1, 4), atgt.bbox_targets.reshape(-1, 4),
-        atgt.bbox_weights.reshape(-1, 4), sigma=3.0, norm=rpn_norm,
-    )
-    rcnn_cls_loss = softmax_cross_entropy(cls_logits, labels, -1, rcnn_norm)
-    rcnn_bbox_loss = weighted_smooth_l1(
-        bbox_pred_out, bbox_targets, bbox_weights, sigma=1.0, norm=rcnn_norm
-    )
-    total = rpn_cls_loss + rpn_bbox_loss + rcnn_cls_loss + rcnn_bbox_loss
-    aux = {
-        "RPNAcc": accuracy(rpn_logits.reshape(-1, 2), anchor_labels),
-        "RPNLogLoss": rpn_cls_loss,
-        "RPNL1Loss": rpn_bbox_loss,
-        "RCNNAcc": accuracy(cls_logits, labels),
-        "RCNNLogLoss": rcnn_cls_loss,
-        "RCNNL1Loss": rcnn_bbox_loss,
-        "num_fg_rois": (labels > 0).sum(),
-        "num_valid_props": prop_valid.sum(),
-        "num_fg_anchors": (anchor_labels == 1).sum(),
-    }
-    return total, aux
+    """The train step's four losses, summed, and its aux metrics
+    (:func:`rpn_losses`, :func:`rcnn_losses` and the proposals' (B, P)
+    validity count)."""
+    rpn_loss, rpn_aux = rpn_losses(cfg, rpn_logits, rpn_deltas, atgt)
+    rcnn_loss, rcnn_aux = rcnn_losses(cfg, samples, cls_logits, bbox_pred_out)
+    return rpn_loss + rcnn_loss, {**rpn_aux, **rcnn_aux, "num_valid_props": prop_valid.sum()}
 
 
 # Flax's initializer for each Dense kernel that is not the nn.Dense default

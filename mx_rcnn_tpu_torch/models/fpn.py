@@ -22,7 +22,10 @@ The ROIAlign routes as the JAX package's does (``ops/roi_align.py``): in
 training at the 608×1024 canvas P2 and P3 go to the streamed kernels 4/5,
 P4 and P5 to the resident kernels 2/3, for the box and the mask branch
 alike; inference (``valid_hw``) pools every level with kernel 2.  The NMS is
-kernel 1.  Frozen-proposal training is not ported yet.
+kernel 1.  Frozen-proposal training (the batch's ``proposals`` /
+``prop_valid``) samples the RCNN and mask branches from the given proposals
+instead of the RPN's, while the RPN losses still train the RPN: that step
+runs no NMS.
 """
 
 from __future__ import annotations
@@ -186,14 +189,11 @@ class FPNFasterRCNN(nn.Module):
         proposals: Optional[torch.Tensor] = None,
         prop_valid: Optional[torch.Tensor] = None,
     ):
-        if proposals is not None or prop_valid is not None:
-            raise NotImplementedError("frozen-proposal training is not ported yet "
-                                      "(ROADMAP queue 1, item 12)")
         images = normalize_images(images, im_info, self.cfg)
         if not train:
             return self.test_forward(images, im_info)
         return self.train_forward(images, im_info, gt_boxes, gt_valid, sample_seeds, rng, draws,
-                                  gt_masks)
+                                  gt_masks, proposals, prop_valid)
 
     # ----------------------------------------------------------- helpers
     def _pyramid(self, images: torch.Tensor, pad_mask=_identity) -> List[torch.Tensor]:
@@ -374,45 +374,59 @@ class FPNFasterRCNN(nn.Module):
         rng: int = 0,
         draws: Optional[Dict[str, torch.Tensor]] = None,
         gt_masks: Optional[torch.Tensor] = None,
+        proposals: Optional[torch.Tensor] = None,
+        prop_valid: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(B, H, W, 3) normalized images, (B, 3) im_info, (B, G, 5) padded
         gt boxes and (B, G) ``gt_valid`` → (total loss, aux metrics), with
         the samplers' uniforms as in ``FasterRCNN.train_forward`` (over the
         concatenated anchor table).  A mask model adds ``_mask_loss``
         (``gt_masks``: (B, G, M, M) uint8 box-frame bitmaps, or None for
-        rectangle targets) and its ``MaskBCELoss``."""
+        rectangle targets) and its ``MaskBCELoss``.
+
+        Frozen-proposal mode (the reference's ROIIter role): with
+        ``proposals`` (B, P, 4) and ``prop_valid`` (B, P) the RCNN and mask
+        branches sample from those, in the resized image's coordinates, and
+        no proposal NMS runs; the RPN losses still train the RPN, but its
+        drift no longer reshuffles the roi labels step to step."""
         cfg = self.cfg
         t = cfg.TRAIN
         b = images.shape[0]
         pyramid = self._pyramid(images)
         rpn_logits, rpn_deltas, anchors, bounds = self._rpn_over_levels(pyramid)
 
-        # proposals from detached outputs: the reference's proposal op has
-        # no backward
-        fg_scores = torch.softmax(rpn_logits, dim=-1)[..., 1]
-        pre_per_level = max(t.RPN_PRE_NMS_TOP_N // (len(bounds) - 1), 256)
-        props = self._propose_multilevel(
-            fg_scores.detach(), rpn_deltas.detach(), anchors, bounds, im_info, pre_per_level,
-            t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH, t.RPN_MIN_SIZE,
-        )
+        if proposals is not None:
+            if prop_valid is None:
+                raise ValueError("frozen-proposal mode needs prop_valid alongside proposals "
+                                 "(a padded-count validity mask)")
+            prop_boxes = proposals
+        else:
+            # proposals from detached outputs: the reference's proposal op
+            # has no backward
+            fg_scores = torch.softmax(rpn_logits, dim=-1)[..., 1]
+            pre_per_level = max(t.RPN_PRE_NMS_TOP_N // (len(bounds) - 1), 256)
+            prop_boxes, _, prop_valid = self._propose_multilevel(
+                fg_scores.detach(), rpn_deltas.detach(), anchors, bounds, im_info, pre_per_level,
+                t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH, t.RPN_MIN_SIZE,
+            )
         if draws is None:
             seeds = range(b) if sample_seeds is None else sample_seeds
             draws = sampling_uniforms(
-                rng, seeds, anchors.shape[0], props.rois.shape[1] + gt_boxes.shape[1],
+                rng, seeds, anchors.shape[0], prop_boxes.shape[1] + gt_boxes.shape[1],
                 images.device,
             )
         atgt = assign_anchor(
             anchors, gt_boxes, gt_valid, im_info, cfg, u=(draws["anchor_fg"], draws["anchor_bg"])
         )
         samples = sample_rois(
-            props.rois, props.valid, gt_boxes, gt_valid, cfg,
+            prop_boxes, prop_valid, gt_boxes, gt_valid, cfg,
             u=(draws["roi_fg"], draws["roi_bg"], draws["roi_tie"]),
         )
 
         feats = [p.permute(0, 2, 3, 1) for p in pyramid[:4]]
         cls_logits, bbox_pred_out = self.rcnn(self._roi_features(feats, samples.rois))
         total, aux = train_losses(
-            cfg, rpn_logits, rpn_deltas, atgt, samples, props.valid, cls_logits, bbox_pred_out
+            cfg, rpn_logits, rpn_deltas, atgt, samples, prop_valid, cls_logits, bbox_pred_out
         )
         if cfg.network.USE_MASK:
             mask_loss, mask_aux = self._mask_loss(feats, samples, gt_boxes, gt_masks)

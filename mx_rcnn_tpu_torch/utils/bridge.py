@@ -51,9 +51,11 @@ def _to_torch_layout(path: Tuple[str, ...], a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
 
 
-def flax_to_torch(params_np: Dict, model: nn.Module) -> nn.Module:
+def flax_to_torch(params_np: Dict, model: nn.Module, partial: bool = False) -> nn.Module:
     """Load a Flax tree into ``model``; every leaf and every tensor of the
-    model must be matched, with equal shapes."""
+    model must be matched, with equal shapes.  ``partial``: only the
+    model's tensors under the tree's top-level names must be matched, and
+    the others stay as they are."""
     state = model.state_dict()
     new = {}
     for path, a in _leaves(params_np):
@@ -65,10 +67,10 @@ def flax_to_torch(params_np: Dict, model: nn.Module) -> nn.Module:
         if t.shape != tuple(state[key].shape):
             raise ValueError(f"{key}: Flax {a.shape} → {t.shape} != model {tuple(state[key].shape)}")
         new[key] = torch.from_numpy(t)
-    missing = sorted(set(state) - set(new))
+    missing = sorted(k for k in set(state) - set(new) if not partial or k.split(".")[0] in params_np)
     if missing:
         raise KeyError(f"model tensors with no Flax leaf: {missing[:5]} (+{max(len(missing) - 5, 0)})")
-    model.load_state_dict(new)
+    model.load_state_dict(new, strict=not partial)
     return model
 
 

@@ -1,13 +1,17 @@
-"""Dataset factory and gt roidb assembly (port of ``get_imdb`` and
-``load_gt_roidb`` in ``mx_rcnn_tpu/utils/load_data.py``).
+"""Dataset factory and roidb assembly (port of
+``mx_rcnn_tpu/utils/load_data.py``): the gt roidb across image sets, and
+the proposal roidbs of Fast R-CNN training (dumped proposals attached to
+the gt records).
 
 Synthetic data, Pascal VOC and COCO are ported (the readers of the
 annotations; reading the image files waits for a decoder, ROADMAP queue 1
-item 7); the proposal roidbs of alternate training are not (item 14).
+item 7).  A proposal dump is a pickled list of one (P, 5) float32 numpy
+array per image, so the JAX package and the port read each other's.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import List, Optional
 
 from mx_rcnn_tpu_torch.config import Config
@@ -53,3 +57,24 @@ def load_gt_roidb(
     if flip:
         roidb = IMDB.append_flipped_images(roidb)
     return imdbs, filter_roidb(roidb)
+
+
+def attach_proposals(roidb, proposals, top_n: int = 0):
+    """Copies of the records with ``proposals`` set to each image's
+    score-descending (P, ≥4) array's boxes, float32 (``top_n`` > 0: the
+    best ``top_n``).  Attach to the unflipped roidb, then flip: the flip
+    mirrors the proposals too."""
+    assert len(proposals) == len(roidb), "proposal dump / roidb mismatch"
+    out = []
+    for rec, props in zip(roidb, proposals):
+        boxes = props[:, :4] if top_n <= 0 else props[:top_n, :4]
+        out.append(dict(rec, proposals=boxes.astype("float32")))
+    return out
+
+
+def load_proposal_roidb(roidb, proposal_path: str, top_n: int = 0):
+    """The gt roidb with the proposals of the ``.pkl`` dump at
+    ``proposal_path`` attached (the reference's ``load_proposal_roidb``)."""
+    with open(proposal_path, "rb") as f:
+        proposals = pickle.load(f)
+    return attach_proposals(roidb, proposals, top_n)

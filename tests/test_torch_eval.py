@@ -334,8 +334,30 @@ def test_test_batches_against_cv2(loader_setup):
 
 
 def test_test_loader_refuses_proposals(loader_setup):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tloader.TestLoader(loader_setup[2], loader_setup[1], proposal_count=10)
+    """``proposal_count`` > 0 (Fast R-CNN test batches) no longer raises:
+    each batch carries the records' proposals scaled by the resize factor
+    and cut or padded to the count, with ``prop_valid``, bitwise as the
+    JAX TestLoader's, one image at a time and batched."""
+    jcfg, cfg, roidb = loader_setup
+    rng = np.random.RandomState(3)
+    roidb = [dict(r, proposals=(rng.rand(n, 4) * 60 + [0, 0, 60, 60]).astype(np.float32))
+             for r, n in zip(roidb, (4, 15, 10, 0, 7))]
+    pairs = zip(tloader.TestLoader(roidb, cfg, proposal_count=10),
+                jloader.TestLoader(roidb, jcfg, proposal_count=10))
+    for (_, got), (_, ref) in pairs:
+        np.testing.assert_array_equal(got["im_info"], ref["im_info"])
+        for key in ("proposals", "prop_valid"):
+            assert got[key].dtype == ref[key].dtype and got[key].shape[1] == 10, key
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    got = list(tloader.TestLoader(roidb, cfg, proposal_count=10, batch_size=2)
+               .iter_batched(prefetch=0, assembly_workers=0))
+    ref = list(jloader.TestLoader(roidb, jcfg, proposal_count=10, batch_size=2)
+               .iter_batched(prefetch=0, assembly_workers=0))
+    assert [g[0] for g in got] == [r[0] for r in ref]
+    for (_, _, gb), (_, _, rb) in zip(got, ref):
+        for key in ("proposals", "prop_valid"):
+            np.testing.assert_array_equal(gb[key], rb[key], err_msg=key)
+    assert sum(int(b["prop_valid"].sum()) for _, _, b in got) == 4 + 10 + 10 + 0 + 7
 
 
 # --------------------------------------------------------------------- CLI

@@ -256,13 +256,12 @@ def test_build_model_dispatches_on_use_fpn(fpn_trees):
 
 
 def test_fpn_refuses_what_is_not_ported(fpn_trees):
-    """Frozen-proposal training raises; a mask model builds and its
-    inference forward runs (held against JAX in ``tests/test_torch_mask.py``;
-    its training in ``tests/test_torch_mask_train.py``)."""
+    """A mask model builds and its inference forward runs (held against JAX
+    in ``tests/test_torch_mask.py``; its training in
+    ``tests/test_torch_mask_train.py``; frozen-proposal training, ported
+    since, in ``tests/test_torch_frozen.py``)."""
     _, tcfg, _, _, model = fpn_trees
     x, info = torch.zeros((1, 64, 64, 3)), torch.tensor([[64.0, 64.0, 1.0]])
-    with pytest.raises(NotImplementedError, match="frozen-proposal"):
-        model(x, info, train=True, proposals=torch.zeros((1, 4, 4)), prop_valid=torch.ones(1, 4))
     mask = tcfg.replace(network=dataclasses.replace(tcfg.network, USE_MASK=True))
     mask_model = tfpn.FPNFasterRCNN(mask)
     with torch.inference_mode():

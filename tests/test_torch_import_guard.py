@@ -1,7 +1,8 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
 package cannot be imported (it serves a request and a mask request, trains a
-step of the C4 and of the mask network through its CLI and evaluates through
-``tools/test.py``), and ``chip_smoke.py`` refuses
+step of the C4 and of the mask network through its CLI, runs the alternate
+training CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py``
+refuses
 to report without a card or outside the repository."""
 
 import json
@@ -134,6 +135,40 @@ out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1",
                 "--prefix", {str(tmp_path / "e2e")!r}])
 assert out["steps"] == 1, out
 assert all(math.isfinite(v) for v in out["history"][0].values()), out
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_runs_alternate_training_without_jax(tmp_path):
+    """The four-stage alternate CLI at a tiny size, one step a stage: its
+    artifacts, and the combined tree loads into the port's FasterRCNN."""
+    r = run_blocked(f"""
+import dataclasses, os, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.train_alternate as cli
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
+from mx_rcnn_tpu_torch.utils.combine_model import load_params
+def tiny(network, dataset):
+    cfg = generate_config("resnet50", dataset)
+    return cfg.replace(network=dataclasses.replace(cfg.network, ANCHOR_SCALES=(2, 4, 8)),
+                       dataset=dataclasses.replace(cfg.dataset, SCALES=((128, 128),)),
+                       SHAPE_BUCKETS=((128, 128),),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32, FLIP=False),
+                       TEST=dataclasses.replace(cfg.TEST, PROPOSAL_PRE_NMS_TOP_N=200,
+                                                PROPOSAL_POST_NMS_TOP_N=32))
+cli.generate_config = tiny
+out_dir = {str(tmp_path / "alt")!r}
+final = cli.main(["--cpu", "1", "--synthetic", "2", "--max_steps", "1", "--out_dir", out_dir])
+names = sorted(os.listdir(out_dir))
+assert names == ["final.pkl", "proposals1.pkl", "proposals2.pkl", "rcnn1.pkl", "rcnn2.pkl",
+                 "rpn1.pkl", "rpn2.pkl", "run_meta.json"], names
+flax_to_torch(load_params(os.path.join(out_dir, "final.pkl")), FasterRCNN(tiny("resnet", "PascalVOC")))
 print("ok")
 """)
     assert r.returncode == 0, r.stderr

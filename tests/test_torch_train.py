@@ -591,7 +591,7 @@ def test_fit_trains_from_bridged_params_on_the_cpu():
     params_np = torch_to_flax(FasterRCNN(cfg, generator=torch.Generator().manual_seed(5)))
     model = FasterRCNN(cfg)
     roidb = SyntheticDataset(num_images=3, image_size=(160, 200)).gt_roidb()
-    out = fit(model, cfg, roidb, epochs=2, max_steps=2, device="cpu", init_params=params_np)
+    out = fit(model, cfg, roidb, epochs=2, max_steps=2, device="cpu", init_donor=params_np)
     assert out["steps"] == 2 and len(out["history"]) == 2
     for h in out["history"]:
         assert set(h) >= {"loss", "RPNAcc", "RCNNL1Loss", "num_fg_rois", "step_ms", "wait_ms"}
