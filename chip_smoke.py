@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name and
-   device count) and turns TF32 off for convolutions and matmuls;
+   device count) and turns TF32 off for convolutions and matmuls
+   (``utils/precision.py::full_float32``, as every entry point of the port);
 2. builds the hand-written kernels from ``mx_rcnn_tpu_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, all started together: ``nms.cu`` exports
    the NMS launcher, ``roi_align.cu`` the resident ROIAlign forward and
@@ -65,7 +66,9 @@
    steps and some trainable tensor of each trained group changed; each
    kernel is held against its plain version on the tensors the steps fed
    it; the loss's central difference along each trained group's gradient
-   must match the gradient within 1e-2; one step of each is profiled
+   must match the gradient within 1e-2, read at the largest of seven halved
+   steps at which no ReLU input changes sign from the base point, or, where
+   every step changes some, as the smallest of the seven readings; one step of each is profiled
    (forward / backward / optimizer, device time by layer); one small step
    of each (128 × 128) runs on the card and on the CPU with the same weights
    and sampling draws, and the two must agree;
@@ -172,7 +175,28 @@
    bit-identical detections and RLEs and equal box mAP and segm stats;
    images/s.  A small request of each runs on the card and on the CPU and
    the two must agree;
-10. times each kernel on captured tensors: NMS and kernel 2 at the serving
+9b. ``[bf16]``: ``COMPUTE_DTYPE="bfloat16"`` with ``FOLD_BN`` (the JAX
+   package's ``bench.py`` configuration) at full width: the bf16 instances
+   of kernels 2–5 against their plain versions on synthetic bf16 tensors
+   (the forward within one bf16 ulp beyond the float32 bar, the backward's
+   float32 dfeat at the scaled float32 bar and bit-identical across two
+   launches) and on every bf16 path's captured tensors; C4 serving of the
+   six requests and a batch of 2 on the calibrated ``[train]`` weights (NMS
+   twice and kernel 2's bf16 instance once a forward, the detections
+   matched to the float32 port's by nearest box); C4 training through
+   ``train_end2end --compute_dtype bfloat16`` (FOLD_BN from the config):
+   10 steps at batch 1 on ``[train]``'s images and 6 at BATCH_IMAGES 8 on 16
+   images (NMS and kernels 2/3's bf16 instances once a step); 10 Mask
+   R-CNN steps (kernels 2–5 bf16 four times a step) and six mask requests
+   (kernel 2 bf16 eight times a forward); every float32 ROIAlign counter 0
+   on these paths; the loss gates; each trained group's bf16 gradient
+   against the float32 step's on the same weights, batch and rois
+   (relative L2 ≤ 0.25 on JAX's exact-rewrite weights, printed on the
+   calibrated ones); FOLD_BN in float32 against the unfolded graph at JAX's
+   exact-rewrite bars; the CUDA kernels a step launches with the fold off
+   and on;
+10. times each kernel on captured tensors (the bf16 instances on the
+   ``[bf16]`` paths' tensors): NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
@@ -187,7 +211,8 @@
    small RPNOnly and Fast R-CNN steps run on the card and on the CPU and
    must agree;
 11. prints one JSON line with each kernel's launches, max error, times and
-   bound, then the ``nvidia-smi`` line, then the device line last.
+   bound (the five float32 kernels and the four bf16 instances), then the
+   ``nvidia-smi`` line, then the device line last.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is present.
@@ -249,6 +274,9 @@ from mx_rcnn_tpu_torch.data.masks import polygons_to_box_frame
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset, shape_polygon
 from mx_rcnn_tpu_torch.eval.segm import paste_mask_canvas, rles_for_detections
 from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.models import faster_rcnn as fr_mod
+from mx_rcnn_tpu_torch.models import fpn as fpn_mod
+from mx_rcnn_tpu_torch.models import stage_models as stage_mod
 from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.fpn import mask_bce
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, normalize_images
@@ -271,6 +299,7 @@ from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch, torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import load_params, save_params
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
 from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, load_gt_roidb
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 from mx_rcnn_tpu_torch.utils.run_meta import load_run_meta, save_run_meta
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
@@ -293,7 +322,9 @@ ROI_BWD_TOL = 1e-4
 # must match the gradient to this relative bar
 LOSS_GROWTH_MAX = 100.0
 FD_TOL = 1e-2
-# the finite-difference steps, as the share of the loss each moves it by
+# the finite-difference steps, as the share of the loss each moves it by:
+# halvings from 1e-3; at the last one float32 rounding alone reads ~1e-3,
+# so no smaller step resolves the bar
 FD_STEPS = tuple(1e-3 / 2**i for i in range(7))
 NUM_CLASSES = 21
 TRAIN_STEPS = 10
@@ -468,7 +499,8 @@ def nms_synthetic(diff, dev):
 def roi_work(feat, rois, pooled, scale, s, valid_hw, out, keep=None):
     """Bytes the function must move and the flops it does: the feature cells
     some roi's samples read (each once, all channels), the rois, valid_hw
-    and the output.  ``keep`` (B, R): the rois that pool at all (the
+    and the output, each at its dtype's size (bf16 maps and outputs: 2
+    bytes an element).  ``keep`` (B, R): the rois that pool at all (the
     streamed function's inverted rois read nothing and write zeros)."""
     b, h, w, c = feat.shape
     r = rois.float() * scale
@@ -481,8 +513,8 @@ def roi_work(feat, rois, pooled, scale, s, valid_hw, out, keep=None):
         hit = torch.zeros(lo.shape[:2] + (size,), device=feat.device)
         taps.append(hit.scatter_(2, lo, 1.0).scatter_(2, hi, 1.0) * keep[..., None])
     cells = int((torch.einsum("brh,brw->bhw", *taps) > 0).sum())
-    nbytes = (cells * c + rois.numel() + out.numel()
-              + (0 if valid_hw is None else valid_hw.numel())) * 4
+    nbytes = (cells * c * feat.element_size() + out.numel() * out.element_size()
+              + (rois.numel() + (0 if valid_hw is None else valid_hw.numel())) * 4)
     pooled_outputs = out.numel() // keep.numel() * float(keep.sum())
     return nbytes, pooled_outputs * ROI_FLOPS_PER_OUTPUT
 
@@ -677,6 +709,24 @@ def make_model(cfg, seed: int = 0, cls=None):
     return model
 
 
+def loaded_model(cfg, weights, cls=None):
+    """The config's graph (``build_model``, or the stage graph ``cls``)
+    holding ``weights``, a calibrated run's ``state_dict``: its own seeded
+    init, which ``weights`` replaces, is skipped (seconds of host time at
+    ResNet-101)."""
+    skip = (lambda *a, **k: None)
+    saved = [(m, m.init_weights) for m in (fr_mod, fpn_mod, stage_mod)]
+    for m, _ in saved:
+        m.init_weights = skip
+    try:
+        model = build_model(cfg) if cls is None else cls(cfg)
+    finally:
+        for m, fn in saved:
+            m.init_weights = fn
+    model.load_state_dict(weights)
+    return model
+
+
 def request_images(seed: int = 2):
     rng = np.random.RandomState(seed)
     return [(rng.rand(h, w, 3) * 255).astype(np.uint8) for h, w in REQUEST_HW]
@@ -740,7 +790,13 @@ class Capture:
 KERNELS = {
     "nms": nms_mod.kernel, "roi_align_fwd": roi_mod.kernel, "roi_align_bwd": roi_mod.bwd_kernel,
     "roi_align_stream_fwd": stream_mod.fwd_kernel, "roi_align_stream_bwd": stream_mod.bwd_kernel,
+    # the bf16 instances of kernels 2-5, each with its own count
+    "roi_align_fwd_bf16": roi_mod.kernel_bf16, "roi_align_bwd_bf16": roi_mod.bwd_kernel_bf16,
+    "roi_align_stream_fwd_bf16": stream_mod.fwd_kernel_bf16,
+    "roi_align_stream_bwd_bf16": stream_mod.bwd_kernel_bf16,
 }
+# a count of every kernel, all 0: the base of each path's reckoning
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches():
@@ -897,10 +953,11 @@ def unit_max(g):
 
 
 def roi_bwd_work(g, rois, shape, valid_hw):
-    """Bytes the backward must move (g, the rois, valid_hw read once, the
-    whole dfeat written once) and its flops."""
-    nbytes = (g.numel() + rois.numel() + int(np.prod(shape))
-              + (0 if valid_hw is None else valid_hw.numel())) * 4
+    """Bytes the backward must move (g at its dtype's size, the rois,
+    valid_hw read once, the whole float32 dfeat written once) and its
+    flops."""
+    nbytes = (g.numel() * g.element_size() + (rois.numel() + int(np.prod(shape))
+              + (0 if valid_hw is None else valid_hw.numel())) * 4)
     return nbytes, g.numel() * ROI_BWD_FLOPS_PER_G
 
 
@@ -1047,16 +1104,15 @@ FPN_TRAINED_GROUPS = ("backbone.stage2", "backbone.stage3", "backbone.stage4", "
 # launches a train step makes of each kernel: C4 pools one map (kernels 2/3);
 # FPN pools P2/P3 streamed (kernels 4/5) and P4/P5 resident (kernels 2/3);
 # both run one batched NMS
-C4_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 1, "roi_align_bwd": 1,
-                        "roi_align_stream_fwd": 0, "roi_align_stream_bwd": 0}
-FPN_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2,
-                         "roi_align_stream_fwd": 2, "roi_align_stream_bwd": 2}
+C4_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1, roi_align_fwd=1, roi_align_bwd=1)
+FPN_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1, roi_align_fwd=2, roi_align_bwd=2,
+                             roi_align_stream_fwd=2, roi_align_stream_bwd=2)
 # Mask R-CNN pools through each route twice, the box branch's BATCH_ROIS rois
 # and the mask branch's first FG_FRACTION·BATCH_ROIS slots, each with its
 # backward
 MASK_TRAINED_GROUPS = FPN_TRAINED_GROUPS + ("mask_head",)
-MASK_LAUNCHES_PER_STEP = {"nms": 1, "roi_align_fwd": 4, "roi_align_bwd": 4,
-                          "roi_align_stream_fwd": 4, "roi_align_stream_bwd": 4}
+MASK_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1, roi_align_fwd=4, roi_align_bwd=4,
+                              roi_align_stream_fwd=4, roi_align_stream_bwd=4)
 # the groups the mask phase's finite differences move: the mask head, and
 # the neck, whose gradient comes through the ROIAlign backward kernels of
 # both branches
@@ -1166,6 +1222,43 @@ def calibrate_scales(model, batch):
             f"layers ({', '.join(n for n, _ in layers)})")
 
 
+class ReluPattern:
+    """The sign pattern (input > 0) of every ReLU a forward runs, in call
+    order: the models call ``F.relu`` and ``torch.relu``, both patched while
+    the context is open.  Without ``base`` it records the pattern; with it,
+    it counts the activations whose sign differs from ``base``'s."""
+
+    def __init__(self, base=None):
+        self.base, self.signs, self.flips = base, [], None
+        self._orig = (torch.nn.functional.relu, torch.relu)
+
+    def __enter__(self):
+        orig = self._orig[1]
+
+        def rec(x, inplace=False):
+            sign = x.detach() > 0
+            if self.base is None:
+                self.signs.append(sign)
+            else:
+                n = (sign != self.base[len(self.signs)]).sum()
+                self.signs.append(None)
+                self.flips = n if self.flips is None else self.flips + n
+            return orig(x)
+
+        torch.nn.functional.relu = torch.relu = rec
+        return self
+
+    def __exit__(self, *exc):
+        torch.nn.functional.relu, torch.relu = self._orig
+        return False
+
+    def count(self) -> int:
+        if self.base is not None and len(self.signs) != len(self.base):
+            raise AssertionError(f"{len(self.signs)} ReLUs ran, the base point ran "
+                                 f"{len(self.base)}")
+        return 0 if self.flips is None else int(self.flips)
+
+
 def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
     """The full-width backward against the forward on the card: for each
     trained group, the loss's central difference along the group's gradient,
@@ -1173,11 +1266,16 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
     displacement as rounded into the f32 weights) within FD_TOL.  The
     samplers' draws are fixed (one rng and seed) and the first forward's
     sampled rois are reused, so the loss is a function of the weights alone,
-    smooth but for the ReLU and max-pool switches; ε moves it by ~1e-3 of
-    itself, then by half that, six times, and the smallest of the seven
-    readings is held to the bar (a wrong gradient fails all seven).  The backbone takes its gradient
-    through the ROIAlign backward kernels almost wholly, since the RPN's
-    output layers are scaled by 1e-3."""
+    smooth but for the ReLU switches.  The sign of every ReLU's input is
+    recorded at the base point (``ReluPattern``); ε moves the loss by 1e-3 of
+    itself, then by half that, down to FD_STEPS[-1], and the first (largest)
+    step at which both f(θ ± εd) keep the recorded pattern gives the one
+    reading held to the bar: there the loss is linear in the weights but
+    for float32 rounding.  A group whose pattern changes at every step, down
+    to the smallest one that float32 resolves the loss's difference at,
+    is held to the smallest of the readings, and says so.  The
+    backbone takes its gradient through the ROIAlign backward kernels almost
+    wholly, since the RPN's output layers are scaled by 1e-3."""
     batch = train_batch(cfg, roidb, 1, dev)
     held = {}
     model_mod = importlib.import_module(type(model).__module__)
@@ -1196,10 +1294,11 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
     try:
         for p in model.parameters():
             p.grad = None
-        loss = loss_fn()
+        with ReluPattern() as base:
+            loss = loss_fn()
         loss.backward()
         f0 = float(loss.detach())
-        worst = 0.0
+        worst, rules = 0.0, {}
         with torch.no_grad():
             for grp in groups:
                 ps = [p for n, p in model.named_parameters()
@@ -1209,21 +1308,17 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
                 gnorm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in gs))
                 if not gnorm > 0:
                     raise AssertionError(f"{grp} has no gradient")
-                # seven step sizes, each half the last: a gradient error
-                # shows at all of them, while the ReLU / max-pool switches
-                # a step crosses move a reading in proportion to the step
-                # (a deep group such as C4's stage 2 reads ~1e-2 at the
-                # fourth step) and the float32 rounding of the loss moves
-                # it in inverse proportion (~1e-3 at the seventh)
                 rels = []
                 for step in FD_STEPS:
                     eps = step * abs(f0) / gnorm
-                    f, moved = {}, {}
+                    f, moved, flips = {}, {}, 0
                     for sign in (1.0, -1.0):
                         for p, a, g in zip(ps, p0, gs):
                             p.copy_(a + (sign * eps / gnorm) * g)
                         moved[sign] = [p.clone() for p in ps]
-                        f[sign] = float(loss_fn())
+                        with ReluPattern(base.signs) as pat:
+                            f[sign] = float(loss_fn())
+                        flips += pat.count()
                     for p, a in zip(ps, p0):
                         p.copy_(a)
                     want = sum(float((g.double() * (hi.double() - lo.double())).sum())
@@ -1231,16 +1326,27 @@ def gradient_matches_finite_differences(model, cfg, roidb, dev, groups):
                     got = f[1.0] - f[-1.0]
                     rels.append(abs(got - want) / abs(want))
                     log(f"  {grp}: |g| {gnorm:.4g}, eps {eps:.3g}, f(+)-f(-) {got:.6g}, "
-                        f"g.(p+ - p-) {want:.6g}, relative difference {rels[-1]:.3g}")
-                worst = max(worst, min(rels))
+                        f"g.(p+ - p-) {want:.6g}, relative difference {rels[-1]:.3g}, ReLU "
+                        f"signs changed {flips}")
+                    if flips == 0:
+                        rules[grp] = {"step": step, "reading": rels[-1], "rule": "kept pattern"}
+                        break
+                else:
+                    rules[grp] = {"step": None, "reading": min(rels), "rule": "smallest of seven"}
+                    log(f"  {grp}: ReLU signs change at every step down to {FD_STEPS[-1]:.3g} of "
+                        f"the loss, below which float32 does not resolve f(+) - f(-) to the bar; "
+                        f"held: the smallest of the {len(rels)} readings")
+                worst = max(worst, rules[grp]["reading"])
     finally:
         model_mod.sample_rois = orig
         for p in model.parameters():
             p.grad = None
-    log(f"  loss {f0:.6f}; worst group's smallest relative difference {worst:.3g} (bar {FD_TOL})")
+    log(f"  loss {f0:.6f}; {len(base.signs)} ReLUs at the base point; held readings "
+        f"{ {g: (r['rule'], r['step'], round(r['reading'], 6)) for g, r in rules.items()} }; "
+        f"worst {worst:.3g} (bar {FD_TOL})")
     if not worst <= FD_TOL:
         raise AssertionError("the full-width gradient disagrees with the loss's finite differences")
-    return worst
+    return {"worst": worst, "groups": rules}
 
 
 def train_path(cfg, dev, groups, per_step, roidb=None, keep=2):
@@ -2186,8 +2292,6 @@ FAST_RCNN_GROUPS = ("backbone.stage2", "backbone.stage3", "top_head", "rcnn")
 # reaches the feature map and the adjoint is not run (the JAX graph's
 # stop-gradient at the frozen prefix drops it too).  A proposal pass
 # launches one NMS an image.
-NO_LAUNCHES = {"nms": 0, "roi_align_fwd": 0, "roi_align_bwd": 0, "roi_align_stream_fwd": 0,
-               "roi_align_stream_bwd": 0}
 STAGE_LAUNCHES_PER_STEP = {
     "rpn1": NO_LAUNCHES,
     "rcnn1": dict(NO_LAUNCHES, roi_align_fwd=1, roi_align_bwd=1),
@@ -2916,7 +3020,7 @@ def paste_cost(model, cfg, batch, dev):
     return fig
 
 
-def infer_serve_phase(label, cfg, dev, per_forward):
+def infer_serve_phase(label, cfg, dev, per_forward, weights=None):
     """Serve the six REQUEST_HW synthetic COCO-like requests (both buckets)
     and a same-bucket batch of 2 through the FPN or Mask R-CNN model at full
     width, from seeded weights calibrated on the first request (BN moments
@@ -2926,20 +3030,26 @@ def infer_serve_phase(label, cfg, dev, per_forward):
     Gates: the launches of the run (reset just before, read just after) are
     ``per_forward`` × 7 forwards, finite detections of the right shapes, and
     for the mask model every device canvas of the batch bitwise equal to
-    ``paste_mask_canvas``.  Returns (capture, launches, figures, predictor,
-    one request image, the calibrated weights)."""
+    ``paste_mask_canvas``.  Given ``weights`` (a calibrated run's), the model
+    holds them and is not calibrated again (a bf16 model with folded BN
+    cannot be: its BN layers do not run).  Returns (capture, launches,
+    figures, predictor, one request image, the calibrated weights)."""
     mask = cfg.network.USE_MASK
-    model = make_model(cfg)
     images = masked_images(REQUEST_HW)
     ladder = BucketLadder(cfg.SHAPE_BUCKETS)
     reqs = [prepare_request(im, cfg, ladder) for im in images]
     buckets = sorted({r.bucket for r in reqs})
     if len(buckets) != 2:
         raise AssertionError(f"requests must cover both buckets, got {buckets}")
-    calib = batch_to_device({"images": reqs[0].image[None], "im_info": reqs[0].im_info[None]}, dev)
-    calibrate_bn(model, calib)
-    calibrate_scales(model, calib)
-    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if weights is None:
+        model = make_model(cfg)
+        calib = batch_to_device({"images": reqs[0].image[None], "im_info": reqs[0].im_info[None]},
+                                dev)
+        calibrate_bn(model, calib)
+        calibrate_scales(model, calib)
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    else:
+        model = loaded_model(cfg, weights)
     te = cfg.TEST
     pp = make_test_postprocess(cfg, COCO_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS, paste=mask)
     predictor = Predictor(model, pp, device=dev)
@@ -3068,6 +3178,598 @@ def mask_eval_phase(cfg, weights, dev):
     return figures
 
 
+# ------------------------------------------------------------ bf16 phase
+# The bf16 instances of kernels 2-5 against their plain versions: a forward
+# within one bf16 ulp of the plain value beyond the float32 forward's bar
+# ROI_TOL (both round a float32 sum once: at s = 2 the sums are the same and
+# the outputs equal; the run-time instances add in another order than the
+# plain mean, and two float32 sums ROI_TOL apart round at most one ulp
+# further apart), a backward's float32 dfeat
+# (before the wrapper's cast) within the float32 bar ROI_BWD_TOL of the plain
+# backward fed the same bf16 cotangent, and bit-identical across launches
+BF16_FWD_ULPS = 1.0
+# the bf16 train step's gradients against the float32 step's, on the same
+# weights, batch and sampled rois: the relative L2 difference of each
+# trained group.  JAX's own bf16 graph differs from its float32 one by up to
+# 0.125 of a group's norm on the CPU parity tests' shapes (ResNet-50,
+# tests/test_torch_bf16.py); the bar is twice that.  The gate and the
+# FOLD_BN gate below run on JAX's exact-rewrite weights (``rewrite_weights``):
+# on the calibrated weights (unit-scale activations through every random
+# layer) a rounding-sized change of the forward moves a deep group's
+# gradient far more (the float32 fold against the unfolded graph already
+# differs by 1e-2 of stage 2's norm on the CPU at ResNet-50 depth, bf16 by
+# ~1 of it), so there both comparisons are printed, not held
+BF16_GRAD_TOL = 0.25
+# the bf16 C4 requests' detections against the float32 port's on the same
+# weights, each matched to the nearest float32 box of its class: the share
+# of bf16 detections whose match is within BF16_BOX_PX pixels (every
+# coordinate) and BF16_SCORE of its score.  The random classifier's scores
+# crowd near the score threshold and the cap, where a bf16 rounding moves a
+# detection in or out of the kept set.  Held on the exact-rewrite weights
+# (below; ResNet-50 on the CPU: 0.81, the float32 fold 1.0), printed on the
+# calibrated ones, whose forward a rounding-sized change moves far more
+# (0.57 on the CPU)
+BF16_BOX_PX, BF16_SCORE, BF16_MATCHED = 4.0, 0.02, 0.5
+# FOLD_BN in float32 against the unfolded graph, JAX's exact-rewrite bars
+# (tests/test_model.py:380-389): outputs rtol 2e-3 / atol 1e-4, each
+# trained leaf's gradient within 5e-3 of its largest element
+FOLD_RTOL, FOLD_ATOL, FOLD_GRAD = 2e-3, 1e-4, 5e-3
+BF16_TRAIN_IMAGES_LARGE = 16
+BF16_LARGE_BATCH = 8
+BF16_LARGE_STEPS = 6
+C4_BF16_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1, roi_align_fwd_bf16=1, roi_align_bwd_bf16=1)
+MASK_BF16_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1, roi_align_fwd_bf16=4,
+                                   roi_align_bwd_bf16=4, roi_align_stream_fwd_bf16=4,
+                                   roi_align_stream_bwd_bf16=4)
+C4_BF16_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd_bf16": 1}
+MASK_BF16_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd_bf16": 8}
+
+
+def bf16_cfg(cfg, fold=True):
+    """``cfg`` with the bf16 compute dtype and FOLD_BN (the JAX package's
+    ``bench.py`` and ``ServeRunner`` bf16 configuration)."""
+    return cfg.replace(network=dataclasses.replace(cfg.network, COMPUTE_DTYPE="bfloat16",
+                                                   FOLD_BN=fold))
+
+
+def bf16_ulps(got, ref) -> float:
+    """The largest |got − ref| beyond ROI_TOL, in bf16 ulps of the larger
+    magnitude."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+    return float(((got - ref).abs() - ROI_TOL).clamp_min(0.0).div(ulp).max())
+
+
+class Bf16FwdDiff:
+    """Running comparison of the bf16 forwards (kernels 2 and 4) with their
+    plain versions: the largest distance, absolute and in bf16 ulps."""
+
+    def __init__(self):
+        self.ulps, self.max_abs_err = 0.0, 0.0
+
+    def add(self, feat, rois, pooled, scale, s, valid_hw, label, stream=False):
+        if stream:
+            got = stream_mod._roi_align_stream_cuda(feat, rois, pooled, scale, s)
+            ref = stream_mod.roi_align_stream_plain(feat, rois, pooled, scale, s)
+        else:
+            got = roi_mod._roi_align_cuda(feat, rois, pooled, scale, s, valid_hw)
+            ref = roi_mod.roi_align_plain(feat, rois, pooled, scale, s, valid_hw)
+        if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+            raise AssertionError(f"a bf16 forward returned {got.dtype} / {ref.dtype} ({label})")
+        ulps = bf16_ulps(got, ref)
+        self.ulps = max(self.ulps, ulps)
+        self.max_abs_err = max(self.max_abs_err, float((got.float() - ref.float()).abs().max()))
+        log(f"  {'roi_align_stream' if stream else 'roi_align'} bf16 {label}: "
+            f"feat={tuple(feat.shape)} R={rois.shape[1]} pooled={tuple(pooled)} s={s} "
+            f"max|d| {float((got.float() - ref.float()).abs().max()):.3g}, beyond {ROI_TOL}: "
+            f"{ulps:.3g} bf16 ulps (bar {BF16_FWD_ULPS})")
+        if not ulps <= BF16_FWD_ULPS:
+            raise AssertionError(f"a bf16 ROIAlign forward disagrees with its plain version "
+                                 f"({label}): {ulps} ulps")
+
+
+def bf16_synthetic(dev):
+    """The bf16 instances on synthetic bf16 tensors at the path shapes:
+    kernel 2 at the serving map (1, 64, 64, 1024) × 300 rois and the C4
+    train map (1, 38, 64, 1024) × 128, with and without ``valid_hw``;
+    kernel 3 at the C4 train shape; kernels 4 and 5 at P2 and P3, 128 rois,
+    pooled 14 and 7, inverted rois included; s = RUNTIME_S for kernels 2-5.
+    Returns (forward diff, kernel 3's BwdDiff, kernels 4/5's StreamDiff)."""
+    fwd, bwd, stream = Bf16FwdDiff(), BwdDiff(), StreamDiff()
+    rng = np.random.RandomState(11)
+    bf = torch.bfloat16
+    valid_hw = torch.tensor([[600.0, 800.0]], device=dev)
+    feat = torch.from_numpy(rng.randn(1, 64, 64, 1024).astype(np.float32)).to(dev, bf)
+    rois = torch.from_numpy(synthetic_rois(rng, 300, 1024, 1024)[None]).to(dev)
+    fwd.add(feat, rois, (14, 14), 1.0 / 16, 2, None, "serving map, canvas clamp")
+    fwd.add(feat, rois, (14, 14), 1.0 / 16, 2, valid_hw, "serving map, valid_hw clamp")
+    feat = torch.from_numpy(rng.randn(1, 38, 64, 1024).astype(np.float32)).to(dev, bf)
+    rois = torch.from_numpy(synthetic_rois(rng, 128, 608, 1024)[None]).to(dev)
+    for s in (2, RUNTIME_S):
+        fwd.add(feat, rois, (14, 14), 1.0 / 16, s, None, "train shape, canvas clamp")
+        fwd.add(feat, rois, (14, 14), 1.0 / 16, s, valid_hw, "train shape, valid_hw clamp")
+        g = torch.from_numpy(rng.randn(1, 128, 14, 14, 1024).astype(np.float32)).to(dev, bf)
+        for vhw, clamp in ((None, "canvas"), (valid_hw, "valid_hw")):
+            bwd.add(g, rois, tuple(feat.shape), (14, 14), 1.0 / 16, s, vhw,
+                    f"bf16 g, s={s} train shape, {clamp} clamp")
+    for h, w, stride in ((152, 256, 4), (76, 128, 8)):
+        feat = torch.from_numpy(rng.randn(1, h, w, 256).astype(np.float32)).to(dev, bf)
+        rois = torch.from_numpy(stream_rois(rng, 128, 608, 1024)[None]).to(dev)
+        for pooled, s in (((14, 14), 2), ((7, 7), 2), ((14, 14), RUNTIME_S)):
+            label = f"P{int(math.log2(stride))} pooled {pooled[0]} s={s}"
+            fwd.add(feat, rois, pooled, 1.0 / stride, s, None, label, stream=True)
+            if fwd_has_inverted_nonzero(feat, rois, pooled, 1.0 / stride, s):
+                raise AssertionError(f"a bf16 inverted roi did not pool to zeros ({label})")
+            g = torch.from_numpy(rng.randn(1, 128, *pooled, 256).astype(np.float32)).to(dev, bf)
+            stream.bwd(g, rois, tuple(feat.shape), pooled, 1.0 / stride, s, f"bf16 g, {label}")
+    return fwd, bwd, stream
+
+
+def fwd_has_inverted_nonzero(feat, rois, pooled, scale, s) -> bool:
+    out = stream_mod._roi_align_stream_cuda(feat, rois, pooled, scale, s)
+    return bool(out[~stream_mod.valid_rois(rois, scale)].any())
+
+
+def hold_captured_bf16(cap, nms_diff, fwd, bwd, stream):
+    """Each kernel against its plain version on the tensors a bf16 path fed
+    it: NMS (float32 boxes: the heads hand float32 out) into ``nms_diff``,
+    the bf16 instances of kernels 2-5 (the captured cotangents scaled to a
+    max |g| of 1, as in ``hold_captured``); every captured ROIAlign call
+    must be bf16.  Returns the number of calls held."""
+    calls = 0
+    for boxes, valid, thresh, max_keep in cap.nms:
+        if boxes.dtype != torch.float32:
+            raise AssertionError(f"a bf16 path fed the NMS {boxes.dtype} boxes")
+        got = nms_mod.nms_mask_sorted(boxes, valid.bool(), thresh, max_keep)
+        ref = nms_mod.nms_mask_sorted_plain(boxes, valid.bool(), thresh, max_keep)
+        if nms_diff.add(got, ref):
+            raise AssertionError("NMS kernel disagrees with the plain version on a bf16 path")
+        calls += 1
+    for feat, rois, pooled, scale, s, valid_hw in cap.roi:
+        fwd.add(feat, rois, pooled, scale, s, valid_hw, "captured call")
+        calls += 1
+    for feat, rois, pooled, scale, s in cap.stream:
+        fwd.add(feat, rois, pooled, scale, s, None, "captured call", stream=True)
+        calls += 1
+    for i, (g, rois, shape, pooled, scale, s, valid_hw) in enumerate(cap.roi_bwd):
+        bwd.add(unit_max(g), rois, shape, pooled, scale, s, valid_hw,
+                f"bf16 captured call {i}, g / max|g|")
+        calls += 1
+    for i, (g, rois, shape, pooled, scale, s) in enumerate(cap.stream_bwd):
+        stream.bwd(unit_max(g), rois, shape, pooled, scale, s,
+                   f"bf16 captured call {i}, g / max|g|")
+        calls += 1
+    dtypes = {e[0].dtype for c in (cap.roi, cap.stream, cap.roi_bwd, cap.stream_bwd) for e in c}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"a bf16 path fed its ROIAlign kernels {dtypes}")
+    return calls
+
+
+def _match_detections(dets_b, dets_f):
+    """(bf16 detections, matched within the bars) over the classes of one
+    request: each bf16 row's nearest float32 row of its class."""
+    total = matched = 0
+    gaps = []
+    for db, df in zip(dets_b[1:], dets_f[1:]):
+        total += len(db)
+        if not len(db) or not len(df):
+            continue
+        d, near = _nearest(db[:, :4], df[:, :4])
+        ds = np.abs(db[:, 4] - df[near, 4])
+        gaps.extend(d.tolist())
+        matched += int(((d <= BF16_BOX_PX) & (ds <= BF16_SCORE)).sum())
+    return total, matched, gaps
+
+
+def bf16_serve_c4(cfg, weights, dev):
+    """C4 serving in bf16 + FOLD_BN on the calibrated weights: the six
+    REQUEST_HW requests through ``detect_single`` and a same-bucket batch of
+    2 through the Predictor.  Launches reset just before and read just
+    after: NMS twice and kernel 2's bf16 instance once a forward, no float32
+    ROIAlign.  The detections against the float32 port's on the same
+    weights, matched by nearest box.  Returns (capture, launches, figures)."""
+    bcfg = bf16_cfg(cfg)
+    pp = make_test_postprocess(cfg, NUM_CLASSES, cfg.TEST.SCORE_THRESH, cfg.TEST.DET_PER_CLASS)
+    f32 = Predictor(loaded_model(cfg, weights), pp, device=dev)
+    predictor = Predictor(loaded_model(bcfg, weights), pp, device=dev)
+    images = request_images()
+    ladder = BucketLadder(cfg.SHAPE_BUCKETS)
+    reqs = [prepare_request(im, cfg, ladder) for im in images]
+    buckets = sorted({r.bucket for r in reqs})
+    pair = [r for r in reqs if r.bucket == buckets[0]][:2]
+    batch = {"images": np.stack([r.image for r in pair]),
+             "im_info": np.stack([r.im_info for r in pair]),
+             "orig_hw": np.asarray([r.orig_hw for r in pair], np.float32)}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for b in buckets:
+        detect_single(predictor, images[[r.bucket for r in reqs].index(b)], bcfg, NUM_CLASSES)
+    reset_launches()
+    with Capture() as cap:
+        dets = [detect_single(predictor, im, bcfg, NUM_CLASSES) for im in images]
+        out = predictor.predict(batch)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    want = {k: C4_BF16_SERVE_LAUNCHES.get(k, 0) * 7 for k in KERNELS}
+    log(f"  launches in the bf16 serving path (6 requests, a batch of 2): {launches}")
+    if launches != want:
+        raise AssertionError(f"bf16 C4 serving launched {launches}, reckoned {want}")
+    if not np.isfinite(out["det_boxes"]).all() or out["det_boxes"].dtype != np.float32:
+        raise AssertionError("bf16 batch detections are non-finite or not float32")
+    times = []
+    for im in images:
+        t0 = time.perf_counter()
+        detect_single(predictor, im, bcfg, NUM_CLASSES)
+        times.append((time.perf_counter() - t0) * 1e3)
+    _, wall_ms, events = _profiled(lambda: detect_single(predictor, images[0], bcfg, NUM_CLASSES))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    fig = {"latency_ms": times, "latency_ms_median": statistics.median(times),
+           "busy_ms": busy, "wall_ms_profiled": wall_ms, "peak_mib": peak,
+           "kernel_launches_per_request": sum(e.count for e in events)}
+    log(f"  bf16 per-request ms (detect_single, host resize included): "
+        f"{[round(t, 3) for t in times]} median={fig['latency_ms_median']:.3f}; one request "
+        f"profiled: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+        f"{fig['kernel_launches_per_request']} kernels; max_memory_allocated {peak:.1f} MiB above "
+        f"the {held / 2**20:.1f} MiB the script already held")
+    by_layer = {}
+    for e in events:
+        by_layer[_layer_of(e.key)] = by_layer.get(_layer_of(e.key), 0.0) + e.self_device_time_total
+    fig["by_layer_ms"] = {k: v / 1e3 for k, v in by_layer.items()}
+    log("    by layer " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in
+                                   sorted(by_layer.items(), key=lambda kv: -kv[1])))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"    top: {e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms")
+    fig["calibrated"] = detections_agree(cfg, pp, images, f32, predictor, "calibrated weights",
+                                         dets)
+    rewrite = rewrite_weights(cfg)
+    fig["rewrite"] = detections_agree(
+        cfg, pp, images, Predictor(loaded_model(cfg, rewrite), pp, device=dev),
+        Predictor(loaded_model(bcfg, rewrite), pp, device=dev), "exact-rewrite weights",
+        gate=True)
+    return cap, launches, fig
+
+
+def detections_agree(cfg, pp, images, f32, b16, label, dets=None, gate=False) -> dict:
+    """The bf16 predictor's detections of ``images`` against the float32
+    one's (the same weights), each matched to the nearest float32 box of its
+    class: the share within BF16_BOX_PX and BF16_SCORE, held to
+    BF16_MATCHED with ``gate``."""
+    bcfg = bf16_cfg(cfg)
+    total = matched = 0
+    gaps = []
+    for i, im in enumerate(images):
+        db = dets[i] if dets is not None else detect_single(b16, im, bcfg, NUM_CLASSES)
+        t, m, g = _match_detections(db, detect_single(f32, im, cfg, NUM_CLASSES))
+        total, matched, gaps = total + t, matched + m, gaps + g
+    fig = {"detections": total, "matched": matched, "matched_share": matched / max(total, 1),
+           "box_gap_px_median": statistics.median(gaps) if gaps else None}
+    log(f"  bf16 detections vs the float32 port's, {label}: {matched} of {total} within "
+        f"{BF16_BOX_PX} px and {BF16_SCORE} score of their nearest float32 box "
+        f"({fig['matched_share']:.3f}; " + (f"bar {BF16_MATCHED}" if gate else "printed, not held")
+        + f"); nearest-box gap median {fig['box_gap_px_median']} px")
+    if gate and (total == 0 or fig["matched_share"] < BF16_MATCHED):
+        raise AssertionError(f"bf16 detections stray from the float32 port's ({label}): {fig}")
+    return fig
+
+
+def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, keep=2):
+    """``tools/train_end2end.py --compute_dtype bfloat16`` on the card with
+    FOLD_BN from the config, on ``roidb`` (``load_gt_roidb`` patched to it)
+    from the calibrated ``weights`` (``build_model`` patched to load them).
+    Launches reset just before, read just after: NMS and kernels 2 and 3's
+    bf16 instances once a step, no float32 ROIAlign.  Returns (capture,
+    launches, figures)."""
+    from mx_rcnn_tpu_torch.tools import train_end2end as e2e
+
+    epochs = -(-steps // (len(roidb) // batch))
+
+    saved = (e2e.generate_config, e2e.build_model, e2e.load_gt_roidb)
+    e2e.generate_config = lambda network, dataset: cfg.replace(
+        network=dataclasses.replace(cfg.network, FOLD_BN=True))
+    e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
+    e2e.load_gt_roidb = lambda *a, **k: (None, roidb)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--compute_dtype", "bfloat16", "--synthetic", str(len(roidb)), "--no_flip",
+                "--epochs", str(epochs), "--max_steps", str(steps), "--frequent", str(steps),
+                "--batch_images", str(batch), "--aux_interval", "1",
+                "--prefix", os.path.join(tmp, "e2e")]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            with Capture(keep=keep) as cap:
+                out = e2e.main(argv)
+        finally:
+            e2e.generate_config, e2e.build_model, e2e.load_gt_roidb = saved
+        launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    model_cfg = out["state"].model.cfg.network
+    want = {k: n * out["dispatched_steps"] for k, n in C4_BF16_LAUNCHES_PER_STEP.items()}
+    log(f"  {label}: train_end2end {' '.join(argv[:-2])}: COMPUTE_DTYPE "
+        f"{model_cfg.COMPUTE_DTYPE}, FOLD_BN {model_cfg.FOLD_BN}; launches {launches} "
+        f"(expected {want})")
+    if (model_cfg.COMPUTE_DTYPE, model_cfg.FOLD_BN) != ("bfloat16", True):
+        raise AssertionError(f"{label}: the CLI built {model_cfg}")
+    if launches != want or out["dispatched_steps"] != steps:
+        raise AssertionError(f"{label}: {out['dispatched_steps']} steps dispatched, launches "
+                             f"{launches}, not {want}")
+    return cap, launches, train_figures(cfg, out, label, peak, batch)
+
+
+def train_figures(cfg, out, label, peak, batch=None) -> dict:
+    """The losses' gates (finite, none above LOSS_GROWTH_MAX × the first
+    step's, a mask network's MaskBCELoss on its own) and the step figures
+    of a ``fit`` run."""
+    hist = out["history"]
+    keys = ("loss",) + (("MaskBCELoss",) if cfg.network.USE_MASK else ())
+    if not all(math.isfinite(h[k]) for h in hist for k in keys):
+        raise AssertionError(f"{label}: non-finite losses")
+    growth = {k: max(h[k] for h in hist) / hist[0][k] if hist[0][k] > 0 else math.inf
+              for k in keys}
+    timed = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    batch = int(batch or cfg.TRAIN.BATCH_IMAGES)
+    clock = out["clock"]
+    window = clock["end"] - clock["step_start"][TRAIN_WARMUP]
+    # the CLI's epoch-end checkpoints that fell in the timed window
+    saved = sum(d["seconds"] for d in out.get("saves", ())
+                if d["at"] >= clock["step_start"][TRAIN_WARMUP])
+    images = batch * (len(clock["step_start"]) - TRAIN_WARMUP)
+    fig = {"steps": len(hist), "losses": [h["loss"] for h in hist], "growth": growth,
+           "step_ms_median": statistics.median(timed), "step_ms": timed,
+           "images_per_s": batch * 1e3 / statistics.median(timed),
+           "loop_images_per_s": images / window, "saves_s_in_loop": saved,
+           "loop_images_per_s_without_saves": images / (window - saved), "peak_mib": peak}
+    log(f"  {label}: losses {[round(v, 5) for v in fig['losses']]}; largest / first "
+        f"{ {k: round(v, 3) for k, v in growth.items()} } (bar {LOSS_GROWTH_MAX}); step median "
+        f"{fig['step_ms_median']:.3f} ms ({fig['images_per_s']:.3f} images/s, batch {batch}); "
+        f"loop {fig['loop_images_per_s']:.3f} images/s ({fig['loop_images_per_s_without_saves']:.3f} "
+        f"without the {saved:.3f} s of checkpoint saves in it); max_memory_allocated "
+        f"{peak:.1f} MiB above what the script already held")
+    if not all(v <= LOSS_GROWTH_MAX for v in growth.values()):
+        raise AssertionError(f"{label}: a loss grew {growth}: the run diverges")
+    return fig
+
+
+def bf16_fit(cfg, weights, roidb, dev, per_step, label, keep=4):
+    """TRAIN_STEPS steps of ``fit`` in bf16 + FOLD_BN from the calibrated
+    ``weights``; launches reset just before, read just after, must be
+    ``per_step`` a step.  Returns (capture, launches, figures)."""
+    bcfg = bf16_cfg(cfg)
+    model = loaded_model(bcfg, weights)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with Capture(keep=keep) as cap:
+        out = fit(model, bcfg, roidb, epochs=2, seed=0, max_steps=TRAIN_STEPS,
+                  frequent=TRAIN_STEPS, device=dev)
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
+    log(f"  {label}: launches {launches} (expected {want})")
+    if launches != want or out["dispatched_steps"] != TRAIN_STEPS:
+        raise AssertionError(f"{label}: launches {launches}, not {want}")
+    return cap, launches, train_figures(bcfg, out, label, peak)
+
+
+def _held_step(model, cfg, batch, samples=None):
+    """One train step's forward and backward with the sampled rois held to
+    ``samples`` (None: the step samples, and they are returned); the
+    optimizer's freeze set applied.  → (loss, {name: grad}, samples, the
+    rois each ROIAlign forward pooled)."""
+    make_optimizer(cfg, model, make_lr_schedule(cfg, 8))
+    mod = importlib.import_module(type(model).__module__)
+    orig = mod.sample_rois
+    held = {}
+
+    def sample(*a, **k):
+        held["samples"] = orig(*a, **k) if samples is None else samples
+        return held["samples"]
+
+    mod.sample_rois = sample
+    try:
+        for p in model.parameters():
+            p.grad = None
+        with Capture() as cap:
+            loss = model(batch["images"], batch["im_info"], batch["gt_boxes"], batch["gt_valid"],
+                         train=True, sample_seeds=batch["sample_seeds"], rng=5,
+                         **model_extras(batch))[0]
+            loss.backward()
+    finally:
+        mod.sample_rois = orig
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    rois = [e[1] for e in cap.roi] + [e[1] for e in cap.stream]
+    return float(loss.detach()), grads, held["samples"], rois
+
+
+def rewrite_weights(cfg, seed: int = 7):
+    """The seeded random weights with every frozen BN's four tensors moved
+    as JAX's exact-rewrite test moves them (tests/test_model.py:370-389):
+    scale, bias and mean by N(0, 0.05), var to |var + N(0, 0.05)| + 0.5."""
+    model = make_model(cfg)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                for leaf in ("scale", "bias", "mean", "var"):
+                    t = getattr(m, leaf)
+                    t.add_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.05))
+                    if leaf == "var":
+                        t.abs_().add_(0.5)
+    return model.state_dict()
+
+
+def bf16_gradient_gate(cfg, weights, roidb, dev, groups, label, gate=True):
+    """The bf16 + FOLD_BN step's gradient against the float32 unfolded
+    step's on the same weights and batch: the bf16 step takes the float32
+    step's sampled rois (their proposals differ by rounding), and both must
+    pool the same rois; each trained group's relative L2 difference is held
+    to BF16_GRAD_TOL (printed only, without ``gate``)."""
+    batch = train_batch(cfg, roidb, 1, dev)
+    ref = loaded_model(cfg, weights).to(dev, memory_format=torch.channels_last).train()
+    f_loss, f_grads, samples, f_rois = _held_step(ref, cfg, batch)
+    del ref
+    bcfg = bf16_cfg(cfg)
+    model = loaded_model(bcfg, weights).to(dev, memory_format=torch.channels_last).train()
+    b_loss, b_grads, _, b_rois = _held_step(model, bcfg, batch, samples)
+    same = len(f_rois) == len(b_rois) and all(torch.equal(a, b) for a, b in zip(f_rois, b_rois))
+    if not same or set(f_grads) != set(b_grads):
+        raise AssertionError(f"{label}: the bf16 and float32 steps pooled different rois or "
+                             f"trained different tensors")
+    rel = {}
+    for grp in groups:
+        names = [n for n in f_grads if n.startswith(grp + ".")]
+        num = sum(float((b_grads[n].double() - f_grads[n].double()).pow(2).sum()) for n in names)
+        den = sum(float(f_grads[n].double().pow(2).sum()) for n in names)
+        # a group with no gradient in either step (no fg anchor on a small
+        # image leaves the RPN's 0) agrees
+        rel[grp] = math.sqrt(num / den) if den > 0 else (0.0 if num == 0 else math.inf)
+    log(f"  {label}: loss bf16 {b_loss:.6f} vs float32 {f_loss:.6f}; both pooled the same "
+        f"{len(f_rois)} roi sets; gradient relative L2 difference by group "
+        f"{ {g: round(v, 5) for g, v in rel.items()} } "
+        + (f"(bar {BF16_GRAD_TOL})" if gate else "(printed, not held)"))
+    if gate and not max(rel.values()) <= BF16_GRAD_TOL:
+        raise AssertionError(f"{label}: the bf16 gradient strays from the float32 one: {rel}")
+    return {"loss_bf16": b_loss, "loss_f32": f_loss, "rel_l2": rel}
+
+
+def fold_gate(cfg, weights, roidb, dev, gate=True):
+    """FOLD_BN in float32 against the unfolded graph on the card, on the
+    calibrated weights: one request's forward outputs (the same valid
+    proposals; rois, class probabilities and deltas within FOLD_RTOL /
+    FOLD_ATOL) and one train step's gradients on the same sampled rois
+    (each trained leaf within FOLD_GRAD of its largest element); without
+    ``gate`` the figures are printed, not held."""
+    fcfg = cfg.replace(network=dataclasses.replace(cfg.network, FOLD_BN=True))
+    im = request_images()[0]
+    req = prepare_request(im, cfg, BucketLadder(cfg.SHAPE_BUCKETS))
+    batch = {"images": req.image[None], "im_info": req.im_info[None]}
+    outs = [Predictor(loaded_model(c, weights), device=dev).predict(batch) for c in (cfg, fcfg)]
+    same_valid = bool(np.array_equal(outs[0]["roi_valid"], outs[1]["roi_valid"]))
+    if gate and not same_valid:
+        raise AssertionError("FOLD_BN: the folded graph keeps other proposals")
+    v = outs[0]["roi_valid"] & outs[1]["roi_valid"]
+    err = {}
+    for k in ("rois", "cls_prob", "bbox_deltas"):
+        a, b = outs[0][k][v], outs[1][k][v]
+        err[k] = float(np.max(np.abs(b - a) - FOLD_RTOL * np.abs(a)))
+        if gate and not np.allclose(b, a, rtol=FOLD_RTOL, atol=FOLD_ATOL):
+            raise AssertionError(f"FOLD_BN: {k} differs beyond rtol {FOLD_RTOL} / atol {FOLD_ATOL}")
+    tb = train_batch(cfg, roidb, 1, dev)
+    ref = loaded_model(cfg, weights).to(dev, memory_format=torch.channels_last).train()
+    _, g0, samples, _ = _held_step(ref, cfg, tb)
+    del ref
+    model = loaded_model(fcfg, weights).to(dev, memory_format=torch.channels_last).train()
+    _, g1, _, _ = _held_step(model, fcfg, tb, samples)
+    worst = max(float((g1[n] - g0[n]).abs().max() / (g0[n].abs().max() + 1e-6)) for n in g0)
+    log(f"  FOLD_BN float32 vs unfolded: the same valid proposals {same_valid}; request "
+        f"outputs' largest |d| - rtol|a| {err} (rtol {FOLD_RTOL}, atol {FOLD_ATOL}); train step "
+        f"gradients, worst leaf max|d| / max|g| {worst:.3g} over {len(g0)} leaves "
+        + (f"(bar {FOLD_GRAD})" if gate else "(printed, not held)"))
+    if gate and not worst < FOLD_GRAD:
+        raise AssertionError(f"FOLD_BN: a gradient differs by {worst} of its largest")
+    return {"same_valid": same_valid, "request_excess": err, "grad_worst": worst}
+
+
+def launches_per_step(cfg, weights, roidb, dev) -> dict:
+    """CUDA kernels launched by one C4 train step (forward, backward,
+    optimizer) and by one inference forward, with the fold off and on, in
+    float32 and bf16 (torch.profiler's kernel events)."""
+    batch = train_batch(cfg, roidb, 0, dev)
+    req = prepare_request(request_images()[0], cfg, BucketLadder(cfg.SHAPE_BUCKETS))
+    request = {"images": req.image[None], "im_info": req.im_info[None]}
+    out = {}
+    for dtype, fold in (("float32", False), ("float32", True), ("bfloat16", False),
+                        ("bfloat16", True)):
+        c = cfg.replace(network=dataclasses.replace(cfg.network, COMPUTE_DTYPE=dtype,
+                                                    FOLD_BN=fold))
+        model = loaded_model(c, weights).to(dev, memory_format=torch.channels_last).train()
+        state = create_train_state(model, make_optimizer(c, model, make_lr_schedule(c, 8)))
+        train_step(state, batch, 1)
+        torch.cuda.synchronize()
+        _, _, step_ev = _profiled(lambda: train_step(state, batch, 2))
+        pred = Predictor(model, device=dev)
+        pred.predict(request)
+        _, _, fwd_ev = _profiled(lambda: pred.predict_async(request))
+        key = f"{dtype}{' fold' if fold else ''}"
+        out[key] = {"train_step": sum(e.count for e in step_ev),
+                    "forward": sum(e.count for e in fwd_ev)}
+        del model, state, pred
+    log(f"  CUDA kernel launches, one C4 train step / one inference forward: "
+        + "; ".join(f"{k} {v['train_step']} / {v['forward']}" for k, v in out.items()))
+    return out
+
+
+def bf16_phase(cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mask_cfg,
+               mask_weights, nms_diff, dev):
+    """The ``[bf16]`` phase: the bf16 kernels on synthetic and path tensors,
+    C4 serving, C4 training through the CLI (batch 1 on ``[train]``'s
+    images, and BATCH_IMAGES 8, ``bench.py``'s configuration), Mask R-CNN
+    training and serving, the bf16 gradient gates, FOLD_BN in float32, and
+    the launches a step with the fold off and on.  Returns (figures, the
+    comparisons, the captures, the launch counts by run)."""
+    fwd, bwd, stream = bf16_synthetic(dev)
+    figs, caps, launches = {}, {}, {}
+    log(f"[bf16] C4 serving, bf16 + FOLD_BN, the calibrated [train] weights: {REQUEST_HW} "
+        f"requests and a batch of 2")
+    caps["serve"], launches["serve"], figs["serve"] = bf16_serve_c4(cfg, c4_weights, dev)
+    log(f"[bf16] C4 training through train_end2end --compute_dtype bfloat16 (FOLD_BN from the "
+        f"config): {TRAIN_STEPS} steps at BATCH_IMAGES 1 on the [train] run's {len(roidb)} "
+        f"images")
+    caps["train"], launches["train"], figs["train"] = bf16_train_cli(
+        cfg, c4_weights, roidb, dev, "C4 bf16 train")
+    large = SyntheticDataset(num_images=BF16_TRAIN_IMAGES_LARGE, image_size=(480, 640)).gt_roidb()
+    log(f"[bf16] C4 training at BATCH_IMAGES {BF16_LARGE_BATCH} (bench.py's configuration) on "
+        f"{len(large)} synthetic 480x640 images, {BF16_LARGE_STEPS} steps")
+    _, launches["train_b8"], figs["train_b8"] = bf16_train_cli(
+        cfg, c4_weights, large, dev, f"C4 bf16 train, batch {BF16_LARGE_BATCH}",
+        batch=BF16_LARGE_BATCH, steps=BF16_LARGE_STEPS, keep=0)
+    log(f"[bf16] Mask R-CNN training, bf16 + FOLD_BN, {TRAIN_STEPS} steps of fit from the "
+        f"calibrated [mask train] weights")
+    caps["mask_train"], launches["mask_train"], figs["mask_train"] = bf16_fit(
+        mcfg, mask_train_weights, mask_roidb, dev, MASK_BF16_LAUNCHES_PER_STEP,
+        "Mask R-CNN bf16 train")
+    log("[bf16] Mask R-CNN serving, bf16 + FOLD_BN, the calibrated [mask serve] weights")
+    caps["mask_serve"], launches["mask_serve"], figs["mask_serve"], *_ = infer_serve_phase(
+        "Mask R-CNN bf16 serving", bf16_cfg(mask_cfg), dev, MASK_BF16_SERVE_LAUNCHES,
+        weights=mask_weights)
+    log("[bf16] the bf16 kernels vs plain on every bf16 path's captured tensors")
+    figs["captured_calls"] = sum(hold_captured_bf16(c, nms_diff, fwd, bwd, stream)
+                                 for c in caps.values())
+    log("[bf16] gradients, bf16 + FOLD_BN against float32, same weights, batch and rois: "
+        "held on JAX's exact-rewrite weights (seeded, BN moved as in its test), printed on the "
+        "calibrated ones")
+    c4_rewrite, mask_rewrite = rewrite_weights(cfg), rewrite_weights(mcfg)
+    figs["grad_c4"] = bf16_gradient_gate(cfg, c4_rewrite, roidb, dev, TRAINED_GROUPS, "C4")
+    figs["grad_mask"] = bf16_gradient_gate(mcfg, mask_rewrite, mask_roidb, dev,
+                                           MASK_TRAINED_GROUPS, "Mask R-CNN")
+    figs["grad_c4_calibrated"] = bf16_gradient_gate(cfg, c4_weights, roidb, dev, TRAINED_GROUPS,
+                                                    "C4, calibrated weights", gate=False)
+    figs["grad_mask_calibrated"] = bf16_gradient_gate(
+        mcfg, mask_train_weights, mask_roidb, dev, MASK_TRAINED_GROUPS,
+        "Mask R-CNN, calibrated weights", gate=False)
+    log("[bf16] FOLD_BN in float32 against the unfolded graph: held at JAX's exact-rewrite bars "
+        "on its exact-rewrite weights, printed on the calibrated ones")
+    figs["fold"] = fold_gate(cfg, c4_rewrite, roidb, dev)
+    figs["fold_calibrated"] = fold_gate(cfg, c4_weights, roidb, dev, gate=False)
+    log("[bf16] where one bf16 C4 train step's and one bf16 Mask R-CNN train step's device time "
+        "goes")
+    figs["train_profile"] = profile_train_step(
+        loaded_model(bf16_cfg(cfg), c4_weights).to(dev, memory_format=torch.channels_last),
+        bf16_cfg(cfg), roidb, dev)
+    figs["mask_train_profile"] = profile_train_step(
+        loaded_model(bf16_cfg(mcfg), mask_train_weights).to(
+            dev, memory_format=torch.channels_last), bf16_cfg(mcfg), mask_roidb, dev)
+    log("[bf16] CUDA kernel launches per step and per forward, the fold off and on")
+    figs["launches_per_step"] = launches_per_step(cfg, c4_weights, roidb, dev)
+    return figs, (fwd, bwd, stream), caps, launches
+
+
 # ------------------------------------------------------------------ timing
 def nms_timing(entry, label):
     boxes, valid, thresh, max_keep = entry
@@ -3123,10 +3825,12 @@ def stream_fwd_timing(entry, label):
 
 def stream_bwd_work(g, rois, shape, scale):
     """Bytes the streamed backward must move (the cotangents of the valid
-    rois, the rois, the whole dfeat written once) and its flops."""
+    rois at their dtype's size, the rois, the whole float32 dfeat written
+    once) and its flops."""
     keep = stream_mod.valid_rois(rois, scale)
     g_valid = g.numel() // keep.numel() * int(keep.sum())
-    return (g_valid + rois.numel() + int(np.prod(shape))) * 4, g_valid * ROI_BWD_FLOPS_PER_G
+    return (g_valid * g.element_size() + (rois.numel() + int(np.prod(shape))) * 4,
+            g_valid * ROI_BWD_FLOPS_PER_G)
 
 
 def stream_bwd_timing(entry, label):
@@ -3167,26 +3871,37 @@ def ptxas_summary(lib):
 
 # the instances of the redesigned kernels that the paths launch, each by the
 # name printed for it and the piece of its mangled name that picks it out:
-# NMS, kernels 2 and 4 (the forward template <S, Rule>) at s = 2, and the
-# table and tile kernels (template <Rule, kSplit, kTileW, kGroups>) of kernel
-# 3, in each cluster size the path picks, and of kernel 5
+# NMS, kernels 2 and 4 (the forward template <S, Rule, V>, V the four
+# channels a lane: float4 in float32, uint2 in bf16) at s = 2, and the table
+# and tile kernels (template <Rule, kSplit, kTileW, kGroups, V>) of kernel 3,
+# in each cluster size the path picks, and of kernel 5; the table kernel
+# reads no feature, so one instance serves both dtypes
+def _bwd_instances(rule, tiles, vec):
+    table = {f"roi_table_kernel<{rule}>": f"16roi_table_kernelINS_{len(rule)}{rule}EE"}
+    return dict(table, **{
+        f"roi_align_tile_bwd_kernel<{rule}, {split}, 8, {g}, {vec}>":
+        f"25roi_align_tile_bwd_kernelINS_{len(rule)}{rule}ELi{split}ELi8ELi{g}E{len(vec)}{vec}EE"
+        for split, g in tiles})
+
+
+def _fwd_instance(rule, vec):
+    return {f"roi_align_fwd_kernel<2, {rule}, {vec}>":
+            f"20roi_align_fwd_kernelILi2ENS_{len(rule)}{rule}E{len(vec)}{vec}EE"}
+
+
+RESIDENT_TILES = ((8, 1), (8, 2), (8, 4))
+STREAM_TILES = ((4, 1),)
 PATH_INSTANCES = {
     "nms": {"nms_mask_kernel": "15nms_mask_kernelE",
             "nms_reduce_kernel": "17nms_reduce_kernelE"},
-    "roi_align_fwd": {"roi_align_fwd_kernel<2, ResidentTaps>":
-                      "20roi_align_fwd_kernelILi2ENS_12ResidentTapsEEE"},
-    "roi_align_stream_fwd": {"roi_align_fwd_kernel<2, StreamTaps>":
-                             "20roi_align_fwd_kernelILi2ENS_10StreamTapsEEE"},
-    "roi_align_bwd": {
-        "roi_table_kernel<ResidentTaps>": "16roi_table_kernelINS_12ResidentTapsEE",
-        **{f"roi_align_tile_bwd_kernel<ResidentTaps, 8, 8, {g}>":
-           f"25roi_align_tile_bwd_kernelINS_12ResidentTapsELi8ELi8ELi{g}EE" for g in (1, 2, 4)},
-    },
-    "roi_align_stream_bwd": {
-        "roi_table_kernel<StreamTaps>": "16roi_table_kernelINS_10StreamTapsEE",
-        "roi_align_tile_bwd_kernel<StreamTaps, 4, 8, 1>":
-            "25roi_align_tile_bwd_kernelINS_10StreamTapsELi4ELi8ELi1EE",
-    },
+    "roi_align_fwd": _fwd_instance("ResidentTaps", "float4"),
+    "roi_align_stream_fwd": _fwd_instance("StreamTaps", "float4"),
+    "roi_align_bwd": _bwd_instances("ResidentTaps", RESIDENT_TILES, "float4"),
+    "roi_align_stream_bwd": _bwd_instances("StreamTaps", STREAM_TILES, "float4"),
+    "roi_align_fwd_bf16": _fwd_instance("ResidentTaps", "uint2"),
+    "roi_align_stream_fwd_bf16": _fwd_instance("StreamTaps", "uint2"),
+    "roi_align_bwd_bf16": _bwd_instances("ResidentTaps", RESIDENT_TILES, "uint2"),
+    "roi_align_stream_bwd_bf16": _bwd_instances("StreamTaps", STREAM_TILES, "uint2"),
 }
 
 
@@ -3202,6 +3917,73 @@ def path_ptxas(summaries: dict) -> dict:
                 raise AssertionError(f"ptxas log: {len(found)} kernels match {name} ({piece})")
             out[kernel][name] = found[0]
     return out
+
+
+def f32_same_inputs_ms(kind, entry) -> float:
+    """Graph ms of the float32 instance on a bf16 entry's tensors cast to
+    float32 (the same rois and values): the bf16 instance's own cost."""
+    up = tuple(t.float() if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t
+               for t in entry)
+    if kind == "fwd":
+        feat, rois, pooled, scale, s, valid_hw = up
+        fn = lambda: roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw)  # noqa: E731
+    elif kind == "bwd":
+        g, rois, shape, pooled, scale, s, valid_hw = up
+        fn = lambda: roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s,  # noqa: E731
+                                                 valid_hw)
+    elif kind == "stream":
+        feat, rois, pooled, scale, s = up
+        fn = lambda: stream_mod.roi_align_stream(feat, rois, pooled, scale, s)  # noqa: E731
+    else:
+        g, rois, shape, pooled, scale, s = up
+        fn = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled,  # noqa: E731
+                                                           scale, s)
+    ms = graph_ms(fn, 20)
+    log(f"  the float32 instance on the same {kind} tensors: {ms:.4f} ms (graph)")
+    return ms
+
+
+def bf16_kernel_entries(redesigned, launches, diffs, timing):
+    """The kernels line's rows of the four bf16 instances: launches from the
+    bf16 C4 train run (kernels 2 and 3) or the bf16 Mask R-CNN train run
+    (kernels 4 and 5), with every bf16 run's counts beside them; the errors
+    of every comparison; the times on the bf16 paths' tensors."""
+    fwd, bwd, stream = diffs
+
+    def counts(kernel):
+        return {f"{run}_launches": n[kernel] for run, n in launches.items()}
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "roi_align_fwd_bf16", **common, "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
+         "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:88",
+         "ptxas": redesigned["roi_align_fwd_bf16"],
+         "launches": launches["train"]["roi_align_fwd_bf16"], **counts("roi_align_fwd_bf16"),
+         "max_abs_err": fwd.max_abs_err, "max_bf16_ulps": fwd.ulps, **timing["train_fwd"],
+         **_prefixed("serve", timing["serve"]), **_prefixed("mask_p4", timing["p4_fwd"])},
+        {"name": "roi_align_bwd_bf16", **common, "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
+         "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
+         "ptxas": redesigned["roi_align_bwd_bf16"],
+         "launches": launches["train"]["roi_align_bwd_bf16"], **counts("roi_align_bwd_bf16"),
+         "max_abs_err": bwd.max_abs_err, "scaled_err": bwd.scaled_err,
+         "bitwise_repeatable": bwd.repeatable, **timing["train_bwd"],
+         **_prefixed("mask_p4", timing["p4_bwd"])},
+        {"name": "roi_align_stream_fwd_bf16", **common,
+         "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
+         "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100",
+         "ptxas": redesigned["roi_align_stream_fwd_bf16"],
+         "launches": launches["mask_train"]["roi_align_stream_fwd_bf16"],
+         **counts("roi_align_stream_fwd_bf16"), "max_abs_err": fwd.max_abs_err,
+         "max_bf16_ulps": fwd.ulps, **timing["p2_fwd"], **_prefixed("p3", timing["p3_fwd"])},
+        {"name": "roi_align_stream_bwd_bf16", **common,
+         "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
+         "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164",
+         "ptxas": redesigned["roi_align_stream_bwd_bf16"],
+         "launches": launches["mask_train"]["roi_align_stream_bwd_bf16"],
+         **counts("roi_align_stream_bwd_bf16"), "max_abs_err": stream.bwd_err,
+         "scaled_err": stream.bwd_scaled, "bitwise_repeatable": stream.repeatable,
+         **timing["p2_bwd"], **_prefixed("p3", timing["p3_bwd"])},
+    ]
 
 
 def _prefixed(prefix, d):
@@ -3221,8 +4003,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[card] nvidia-smi: {smi} | torch: {kind} x{torch.cuda.device_count()} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_float32()
     log("[card] TF32 off for cuDNN convolutions and matmuls: full float32")
 
     libraries = (nms_mod.library, roi_mod.library, stream_mod.library)
@@ -3271,7 +4052,7 @@ def main() -> int:
     log("[train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, train_cap, bwd_diff, stream_diff))
     log("[train] full-width gradient vs finite differences of the loss")
-    train_stats["fd_worst"] = gradient_matches_finite_differences(
+    train_stats["fd"] = gradient_matches_finite_differences(
         model, cfg, roidb, dev, TRAINED_GROUPS)
 
     fcfg = generate_config("resnet_fpn", "PascalVOC")
@@ -3285,7 +4066,7 @@ def main() -> int:
     log("[fpn train] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, fpn_cap, bwd_diff, stream_diff))
     log("[fpn train] full-width gradient vs finite differences of the loss")
-    fpn_stats["fd_worst"] = gradient_matches_finite_differences(
+    fpn_stats["fd"] = gradient_matches_finite_differences(
         fpn_model, fcfg, fpn_roidb, dev, FPN_TRAINED_GROUPS)
 
     mcfg = generate_config("mask_resnet_fpn", "coco")
@@ -3312,7 +4093,7 @@ def main() -> int:
         raise AssertionError("a ROIAlign kernel's mask-branch call was not captured")
     roi_err = max(roi_err, hold_captured(nms_diff, mtrain_cap, bwd_diff, stream_diff))
     log("[mask train] full-width gradient vs finite differences of the loss")
-    mask_stats["fd_worst"] = gradient_matches_finite_differences(
+    mask_stats["fd"] = gradient_matches_finite_differences(
         mask_model, mcfg, mask_roidb, dev, MASK_FD_GROUPS)
     n_syncs, sync_lines = host_syncs_per_step(mask_model, mask_train_weights, mcfg, mask_roidb,
                                               dev, 1)
@@ -3368,7 +4149,7 @@ def main() -> int:
                              f"{[(tuple(c[0].shape), c[3]) for c in alt_cap.nms]}")
     roi_err = max(roi_err, hold_captured(nms_diff, alt_cap, bwd_diff, stream_diff))
     log("[alternate] full-width Fast R-CNN-1 gradient vs finite differences of the loss")
-    alt_stats["fd_worst"] = gradient_matches_finite_differences(
+    alt_stats["fd"] = gradient_matches_finite_differences(
         rcnn1_model, cfg, prop_roidb, dev, FAST_RCNN_GROUPS)
     del rcnn1_model, prop_roidb
     ft = fcfg.TRAIN
@@ -3415,6 +4196,12 @@ def main() -> int:
         f"{MASK_EVAL_IMAGES} synthetic {MASK_EVAL_HW[0]}x{MASK_EVAL_HW[1]} masked images, "
         f"{COCO_CLASSES} classes, serial and the JAX defaults, box mAP and the COCO segm stats")
     mask_eval_stats = mask_eval_phase(mask_cfg, mask_weights, dev)
+
+    log(f"[bf16] COMPUTE_DTYPE bfloat16 with FOLD_BN (bench.py's configuration): the bf16 "
+        f"instances of kernels 2-5 vs plain, synthetic")
+    bf16_stats, (bf16_fwd, bf16_bwd, bf16_stream), bf16_caps, bf16_launches = bf16_phase(
+        cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mask_cfg, mask_weights,
+        nms_diff, dev)
 
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
@@ -3470,7 +4257,27 @@ def main() -> int:
     dump_nms = nms_timing(alt_cap.nms[-1], "proposal dump")
     alt_roi = roi_fwd_timing(alt_cap.roi[-1], "Fast R-CNN train")
     alt_bwd = roi_bwd_timing(alt_cap.roi_bwd[-1], "Fast R-CNN train")
-    del fpn_serve_cap, mask_cap, cap_in, mtrain_cap, alt_cap
+    log("[timing] bf16 instances, on the bf16 paths' captured tensors (with the float32 "
+        "instance on the same tensors cast to float32)")
+    box = {k: [e for e in getattr(bf16_caps["mask_train"], k) if e[1].shape[1] == mt.BATCH_ROIS]
+           for k in ("roi", "roi_bwd", "stream", "stream_bwd")}
+    b16_entries = {
+        "serve": (roi_fwd_timing, bf16_caps["serve"].roi[-1], "bf16 C4 serving"),
+        "train_fwd": (roi_fwd_timing, bf16_caps["train"].roi[-1], "bf16 C4 train"),
+        "train_bwd": (roi_bwd_timing, bf16_caps["train"].roi_bwd[-1], "bf16 C4 train"),
+        "p4_fwd": (roi_fwd_timing, at_scale(box["roi"], 1.0 / 16), "bf16 mask train box P4"),
+        "p4_bwd": (roi_bwd_timing, at_scale(box["roi_bwd"], 1.0 / 16), "bf16 mask train box P4"),
+        **{f"p{lv}_fwd": (stream_fwd_timing, at_scale(box["stream"], 0.5 ** lv),
+                          f"bf16 mask train box P{lv}") for lv in (2, 3)},
+        **{f"p{lv}_bwd": (stream_bwd_timing, at_scale(box["stream_bwd"], 0.5 ** lv),
+                          f"bf16 mask train box P{lv}") for lv in (2, 3)},
+    }
+    b16 = {k: dict(fn(entry, label), entry=entry) for k, (fn, entry, label) in b16_entries.items()}
+    for name, route in (("serve", "fwd"), ("train_fwd", "fwd"), ("train_bwd", "bwd"),
+                        ("p4_fwd", "fwd"), ("p4_bwd", "bwd"), ("p2_fwd", "stream"),
+                        ("p2_bwd", "stream_bwd"), ("p3_fwd", "stream"), ("p3_bwd", "stream_bwd")):
+        b16[name]["f32_same_inputs_ms"] = f32_same_inputs_ms(route, b16[name].pop("entry"))
+    del fpn_serve_cap, mask_cap, cap_in, mtrain_cap, alt_cap, bf16_caps
 
     log("[profile] where one request's device time goes")
     profile_request(predictor, cfg, image)
@@ -3529,6 +4336,7 @@ def main() -> int:
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
     log(f"[mask eval] stats {json.dumps(mask_eval_stats)}")
+    log(f"[bf16] stats {json.dumps(bf16_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
     def infer_launches(kernel):
         return {"fpn_serve_launches": fpn_serve_launches[kernel],
@@ -3626,10 +4434,12 @@ def main() -> int:
             **_prefixed("p3", stream_bwd_p3), **mask_train_timing("stream_bwd"),
             **alt_launches("roi_align_stream_bwd"),
         },
+        *bf16_kernel_entries(redesigned, bf16_launches, (bf16_fwd, bf16_bwd, bf16_stream), b16),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -42,6 +42,7 @@ from mx_rcnn_tpu_torch.core.train import (
 )
 from mx_rcnn_tpu_torch.data.loader import TrainLoader
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -192,6 +193,7 @@ def fit(
     dict per dump: ``path``, ``epoch``, ``batch``, ``seconds``, ``bytes``,
     ``at``, the host clock at its commit)."""
     dev = resolve_device(device)
+    full_float32()
     if init_donor is not None:
         merge_params(model, init_donor)
     # channels_last: the NHWC images and pooled rois enter the convs as views

@@ -28,6 +28,7 @@ from torch import nn
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.utils.bbox_stats import np_bbox_pred, np_clip_boxes
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -115,6 +116,7 @@ class Predictor:
 
     def __init__(self, model: nn.Module, postprocess=None, device=None):
         self.device = resolve_device(device)
+        full_float32()
         # channels_last: the NHWC images and pooled rois enter the convs
         # as views, with no layout copy
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
@@ -414,6 +416,7 @@ def generate_proposals(predictor: Predictor, loader, cfg: Config,
     through ``pipelined`` in its ``iter_batched`` batches; ``dump_path``
     pickles the list (numpy arrays only, readable by the JAX package's
     ``load_proposal_roidb``)."""
+    full_float32()
     proposals: List[Optional[np.ndarray]] = [None] * len(loader)
     # the payload carries each batch's host im_info: the staged batch is on
     # the device

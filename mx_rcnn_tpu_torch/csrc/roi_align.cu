@@ -7,8 +7,18 @@
 // custom_vjp backward, _roi_align_bwd_impl).  The forward also serves the
 // eval path, whose JAX reference is the gather twin
 // mx_rcnn_tpu/ops/roi_align.py::roi_align with valid_hw.
-// Contract: feat (B, H, W, C) f32, C % 4 == 0, rois (B, R, 4) f32 image
-// coordinates, optional valid_hw (B, 2) f32 -> out (B, R, PH, PW, C) f32.
+// Contract: feat (B, H, W, C) f32 or bf16, C % 4 == 0, rois (B, R, 4) f32
+// image coordinates, optional valid_hw (B, 2) f32 -> out (B, R, PH, PW, C)
+// of feat's dtype; the backward reads g of feat's dtype and writes an f32
+// dfeat (the JAX kernel accumulates dfeat in f32 and casts it to the feature
+// dtype outside, roi_align.py:367; so does the wrapper here).  Each dtype
+// has its own exports: roi_align_fwd / roi_align_bwd and
+// roi_align_fwd_bf16 / roi_align_bwd_bf16, instances of the same templates
+// on the element type (float4 or uint2, four channels a lane).  The bf16
+// instances keep the taps, weights and sums in f32 and round the forward's
+// output once, to nearest even, as it is stored; they do not round the
+// interpolation weights or the row sums to bf16 as the TPU kernel's bf16
+// branch does (roi_align.py:119-136), so they are the more exact of the two.
 // Each roi is scaled, its width and height floored at 1 (an inverted or
 // degenerate roi is not empty: it taps the cells at its clamped x1/y1); each
 // bin averages s x s bilinear samples at (i + 0.5) / s.  Sample coordinates
@@ -71,8 +81,19 @@ __global__ void store_floor_kernel(float4* __restrict__ out, size_t n) {
 extern "C" int roi_align_fwd(const float* feat, const float* rois, const float* valid_hw,
                              int b, int h, int w, int c, int r, int ph, int pw, int s,
                              float scale, float* out, void* stream) {
-  return roi_align_fwd_launch<ResidentTaps>(feat, rois, valid_hw, b, h, w, c, r, ph, pw, s,
-                                            scale, out, static_cast<cudaStream_t>(stream));
+  return roi_align_fwd_launch<ResidentTaps, float4>(feat, rois, valid_hw, b, h, w, c, r, ph,
+                                                    pw, s, scale, out,
+                                                    static_cast<cudaStream_t>(stream));
+}
+
+// roi_align_fwd on bf16 features: out (B, R, PH, PW, C) bf16.
+extern "C" int roi_align_fwd_bf16(const __nv_bfloat16* feat, const float* rois,
+                                  const float* valid_hw, int b, int h, int w, int c, int r,
+                                  int ph, int pw, int s, float scale, __nv_bfloat16* out,
+                                  void* stream) {
+  return roi_align_fwd_launch<ResidentTaps, uint2>(feat, rois, valid_hw, b, h, w, c, r, ph,
+                                                   pw, s, scale, out,
+                                                   static_cast<cudaStream_t>(stream));
 }
 
 // n_floats (a multiple of 4) zeros into out: the store floor of a forward
@@ -91,6 +112,30 @@ extern "C" long long roi_align_bwd_scratch_bytes(int b, int h, int w, int r, int
   return table_scratch_bytes(b, h, w, r, ph, pw, s);
 }
 
+namespace {
+
+// Kernel 3 on g of the element type V: one-row tiles, 8 warps a row; a
+// cluster of 2 or 4 blocks a tile on small maps.
+template <typename V>
+int resident_bwd(const void* g, const float* rois, const float* valid_hw, int b, int h, int w,
+                 int c, int r, int ph, int pw, int s, float scale, void* scratch, float* dfeat,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((w + 7) / 8) * h * b * ((c / 4 + kLanes - 1) / kLanes);
+  if (blocks >= 1216) {
+    return table_bwd<ResidentTaps, 8, 8, 1, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                               scale, scratch, dfeat, st);
+  }
+  if (blocks >= 608) {
+    return table_bwd<ResidentTaps, 8, 8, 2, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                               scale, scratch, dfeat, st);
+  }
+  return table_bwd<ResidentTaps, 8, 8, 4, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                             scratch, dfeat, st);
+}
+
+}  // namespace
+
 // g (B, R, PH, PW, C) f32 with C % 4 == 0, rois (B, R, 4) f32, valid_hw
 // (B, 2) f32 or NULL -> dfeat (B, H, W, C) f32, every element written (no
 // zero fill needed); scratch: roi_align_bwd_scratch_bytes of device memory.
@@ -101,16 +146,15 @@ extern "C" long long roi_align_bwd_scratch_bytes(int b, int h, int w, int r, int
 extern "C" int roi_align_bwd(const float* g, const float* rois, const float* valid_hw, int b,
                              int h, int w, int c, int r, int ph, int pw, int s, float scale,
                              void* scratch, float* dfeat, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks = (long long)((w + 7) / 8) * h * b * ((c / 4 + kLanes - 1) / kLanes);
-  if (blocks >= 1216) {
-    return table_bwd<ResidentTaps, 8, 8, 1>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
-                                            scratch, dfeat, st);
-  }
-  if (blocks >= 608) {
-    return table_bwd<ResidentTaps, 8, 8, 2>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
-                                            scratch, dfeat, st);
-  }
-  return table_bwd<ResidentTaps, 8, 8, 4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
-                                          scratch, dfeat, st);
+  return resident_bwd<float4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale, scratch,
+                              dfeat, stream);
+}
+
+// roi_align_bwd of a bf16 g (B, R, PH, PW, C): dfeat stays f32.
+extern "C" int roi_align_bwd_bf16(const __nv_bfloat16* g, const float* rois,
+                                  const float* valid_hw, int b, int h, int w, int c, int r,
+                                  int ph, int pw, int s, float scale, void* scratch, float* dfeat,
+                                  void* stream) {
+  return resident_bwd<uint2>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale, scratch,
+                             dfeat, stream);
 }

@@ -2,9 +2,12 @@
 // (roi_align.cu, the resident maps, under ResidentTaps) and kernel 4
 // (roi_align_stream.cu, FPN's P2/P3 in the train step, under StreamTaps).
 //
-// Contract: feat (B, H, W, C) f32, C % 4 == 0, rois (B, R, 4) f32 image
-// coordinates, valid_hw (B, 2) f32 or NULL (read under ResidentTaps only) ->
-// out (B, R, PH, PW, C) f32, any PH, PW and sample ratio s >= 1.  Each bin
+// Contract: feat (B, H, W, C) f32 or bf16, C % 4 == 0, rois (B, R, 4) f32
+// image coordinates, valid_hw (B, 2) f32 or NULL (read under ResidentTaps
+// only) -> out (B, R, PH, PW, C) of feat's dtype, any PH, PW and sample
+// ratio s >= 1.  The element type is a template parameter, V, four channels
+// a lane (roi_align_taps.cuh): the taps, weights and sums are float32 in
+// both, and a bf16 output rounds once as it is stored.  Each bin
 // averages s x s bilinear samples at (i + 0.5) / s of the roi scaled to the
 // map (roi_align_taps.cuh).  The tap rule is a template parameter:
 // ResidentTaps floors the roi's width and height at 1 (an inverted roi taps
@@ -30,14 +33,14 @@
 // divided by s * s; so the kernels agree with it bit for bit where its mean
 // sums in that order.
 //
-// Instances: s = 1..4 are compiled in (roi_align_fwd_kernel<S, Rule>; the
+// Instances: s = 1..4 are compiled in (roi_align_fwd_kernel<S, Rule, V>; the
 // sample rows' state in register arrays); any larger s takes
-// roi_align_fwd_any_s_kernel<Rule>, the same walk without the column reuse,
+// roi_align_fwd_any_s_kernel<Rule, V>, the same walk without the column reuse,
 // 4 loads a sample, in the same arithmetic order.  No configuration of the
 // repository uses s > 4 (ROI_SAMPLE_RATIO is 2).
 //
-// Bound: the output writes, B*R*PH*PW*C*4 bytes, and the feature cells the
-// samples read once, over the card's memory rate.  About 40 flops an output,
+// Bound: the output writes, B*R*PH*PW*C*4 bytes (2 in bf16), and the feature
+// cells the samples read once, over the card's memory rate.  About 40 flops an output,
 // so the f32 rate is never the limit and tensor cores have no role: there is
 // no product to give them.  What sets the time is the chain of dependent loads
 // of each warp's row, bin after bin, and how evenly the rois' unequal loads
@@ -61,21 +64,22 @@ constexpr int kRowWarps = 14;  // warps on a roi's rows, one output row each
 
 // Under StreamTaps an inverted roi's block writes zeros over its warp's rows
 // with streaming stores and reads nothing.
-__device__ __forceinline__ void zero_rows(float4* __restrict__ ob, int c4, int warp,
-                                          int ph_count, int pw_count) {
+template <typename V>
+__device__ __forceinline__ void zero_rows(V* __restrict__ ob, int c4, int warp, int ph_count,
+                                          int pw_count) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int ph = warp; ph < ph_count; ph += kRowWarps) {
-    for (int pw = 0; pw < pw_count; ++pw) __stcs(ob + ((size_t)ph * pw_count + pw) * c4, zero);
+    for (int pw = 0; pw < pw_count; ++pw) store4_cs(ob + ((size_t)ph * pw_count + pw) * c4, zero);
   }
 }
 
 // s = S, the sample rows' state in register arrays.  At most 73 registers,
 // so that 28 warps share an SM.
-template <int S, typename Rule>
+template <int S, typename Rule, typename V>
 __global__ void __launch_bounds__(kLanes * kRowWarps, 2)
-roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ rois,
+roi_align_fwd_kernel(const V* __restrict__ feat, const float* __restrict__ rois,
                      const float* __restrict__ valid_hw, int h, int w, int c4, int r_count,
-                     int ph_count, int pw_count, float scale, float4* __restrict__ out) {
+                     int ph_count, int pw_count, float scale, V* __restrict__ out) {
   const int r = blockIdx.x, b = blockIdx.z;
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int c = blockIdx.y * kLanes + lane;  // this thread's float4 channel
@@ -99,8 +103,8 @@ roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ 
   __syncthreads();
   if (c >= c4) return;  // past the only barrier
 
-  const float4* fb = feat + (size_t)b * h * w * c4 + c;
-  float4* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
+  const V* fb = feat + (size_t)b * h * w * c4 + c;
+  V* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
   const float count = (float)(S * S);
   for (int ph = warp; ph < ph_count; ph += kRowWarps) {
     // the sample rows' feature rows, as float4 offsets into the image
@@ -133,7 +137,8 @@ roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ 
           const int x = tx.lo * c4;
 #pragma unroll
           for (int iy = 0; iy < S; ++iy) {
-            lo[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
+            lo[iy] = lerp4(load4(fb + row_lo[iy] + x), wy_lo[iy], load4(fb + row_hi[iy] + x),
+                           wy_hi[iy]);
           }
         }
         if (tx.hi == tx.lo) {
@@ -146,7 +151,8 @@ roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ 
           const int x = tx.hi * c4;
 #pragma unroll
           for (int iy = 0; iy < S; ++iy) {
-            hi[iy] = lerp4(fb[row_lo[iy] + x], wy_lo[iy], fb[row_hi[iy] + x], wy_hi[iy]);
+            hi[iy] = lerp4(load4(fb + row_lo[iy] + x), wy_lo[iy], load4(fb + row_hi[iy] + x),
+                           wy_hi[iy]);
           }
         }
         col_lo = tx.lo;
@@ -164,8 +170,8 @@ roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ 
 #pragma unroll
         for (int ix = 0; ix < S; ++ix) acc = add4(acc, xl[iy][ix]);
       }
-      __stcs(ob + ((size_t)ph * pw_count + pw) * c4,
-             make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
+      store4_cs(ob + ((size_t)ph * pw_count + pw) * c4,
+                make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
     }
   }
 }
@@ -173,16 +179,16 @@ roi_align_fwd_kernel(const float4* __restrict__ feat, const float* __restrict__ 
 // Any s (the launchers send s > kMaxS here): the walk of
 // roi_align_fwd_kernel without the column reuse: each
 // sample's 4 cells loaded, in the same arithmetic order.
-template <typename Rule>
+template <typename Rule, typename V>
 __global__ void __launch_bounds__(kLanes * kRowWarps, 2)
-roi_align_fwd_any_s_kernel(const float4* __restrict__ feat, const float* __restrict__ rois,
+roi_align_fwd_any_s_kernel(const V* __restrict__ feat, const float* __restrict__ rois,
                            const float* __restrict__ valid_hw, int h, int w, int c4,
                            int r_count, int ph_count, int pw_count, int s, float scale,
-                           float4* __restrict__ out) {
+                           V* __restrict__ out) {
   const int r = blockIdx.x, b = blockIdx.z;
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int c = blockIdx.y * kLanes + lane;
-  float4* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
+  V* ob = out + ((size_t)b * r_count + r) * ph_count * pw_count * c4 + c;
   extern __shared__ Tap taps[];
   Tap* xt = taps;                 // [pw_count * s]
   Tap* yt = taps + pw_count * s;  // [ph_count * s]
@@ -200,7 +206,7 @@ roi_align_fwd_any_s_kernel(const float4* __restrict__ feat, const float* __restr
   __syncthreads();
   if (c >= c4) return;
 
-  const float4* fb = feat + (size_t)b * h * w * c4 + c;
+  const V* fb = feat + (size_t)b * h * w * c4 + c;
   const float count = (float)(s * s);
   for (int ph = warp; ph < ph_count; ph += kRowWarps) {
     for (int pw = 0; pw < pw_count; ++pw) {
@@ -211,22 +217,23 @@ roi_align_fwd_any_s_kernel(const float4* __restrict__ feat, const float* __restr
         for (int ix = 0; ix < s; ++ix) {
           const Tap tx = xt[pw * s + ix];
           const int x_lo = tx.lo * c4, x_hi = tx.hi * c4;
-          const float4 lo = lerp4(fb[row_lo + x_lo], ty.w_lo, fb[row_hi + x_lo], ty.w_hi);
-          const float4 hi = lerp4(fb[row_lo + x_hi], ty.w_lo, fb[row_hi + x_hi], ty.w_hi);
+          const float4 lo = lerp4(load4(fb + row_lo + x_lo), ty.w_lo,
+                                  load4(fb + row_hi + x_lo), ty.w_hi);
+          const float4 hi = lerp4(load4(fb + row_lo + x_hi), ty.w_lo,
+                                  load4(fb + row_hi + x_hi), ty.w_hi);
           acc = add4(acc, lerp4(lo, tx.w_lo, hi, tx.w_hi));
         }
       }
-      __stcs(ob + ((size_t)ph * pw_count + pw) * c4,
-             make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
+      store4_cs(ob + ((size_t)ph * pw_count + pw) * c4,
+                make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
     }
   }
 }
 
-template <int S, typename Rule>
-int launch_fwd_s(const float4* feat, const float* rois, const float* valid_hw, int b, int h,
-                 int w, int c4, int r, int ph, int pw, float scale, float4* out,
-                 cudaStream_t stream) {
-  auto kernel = roi_align_fwd_kernel<S, Rule>;
+template <int S, typename Rule, typename V>
+int launch_fwd_s(const V* feat, const float* rois, const float* valid_hw, int b, int h, int w,
+                 int c4, int r, int ph, int pw, float scale, V* out, cudaStream_t stream) {
+  auto kernel = roi_align_fwd_kernel<S, Rule, V>;
   const size_t smem = sizeof(Tap) * (size_t)(pw + ph) * S;
   if (const int rc = set_smem(kernel, smem)) return rc;
   const dim3 grid(r, (c4 + kLanes - 1) / kLanes, b);
@@ -236,22 +243,24 @@ int launch_fwd_s(const float4* feat, const float* rois, const float* valid_hw, i
 }
 
 // The forward under the tap rule Rule on `stream` (valid_hw is read under
-// ResidentTaps only): s = 1..kMaxS to its compiled-in instance, larger s to
-// the run-time one.  Returns a cudaError_t.
-template <typename Rule>
-int roi_align_fwd_launch(const float* feat, const float* rois, const float* valid_hw, int b,
+// ResidentTaps only), on features of the element type V (float4: f32, uint2:
+// bf16): s = 1..kMaxS to its compiled-in instance, larger s to the run-time
+// one.  Returns a cudaError_t.
+template <typename Rule, typename V>
+int roi_align_fwd_launch(const void* feat, const float* rois, const float* valid_hw, int b,
                          int h, int w, int c, int r, int ph, int pw, int s, float scale,
-                         float* out, cudaStream_t stream) {
+                         void* out, cudaStream_t stream) {
   if (s < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || r == 0 || c == 0) return 0;
   const int c4 = c / 4;
   // the kernels address an image's cells with 32-bit offsets
   if ((long long)h * w * c4 > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const float4* f4 = reinterpret_cast<const float4*>(feat);
-  float4* o4 = reinterpret_cast<float4*>(out);
-#define FWD_S(S)                                                                        \
-  case S:                                                                               \
-    return launch_fwd_s<S, Rule>(f4, rois, valid_hw, b, h, w, c4, r, ph, pw, scale, o4, stream);
+  const V* f4 = static_cast<const V*>(feat);
+  V* o4 = static_cast<V*>(out);
+#define FWD_S(S)                                                                         \
+  case S:                                                                                \
+    return launch_fwd_s<S, Rule, V>(f4, rois, valid_hw, b, h, w, c4, r, ph, pw, scale, o4, \
+                                    stream);
   switch (s) {
     FWD_S(1)
     FWD_S(2)
@@ -261,7 +270,7 @@ int roi_align_fwd_launch(const float* feat, const float* rois, const float* vali
   }
 #undef FWD_S
   static_assert(kMaxS == 4, "roi_align_fwd_launch compiles in s = 1..4");
-  auto kernel = roi_align_fwd_any_s_kernel<Rule>;
+  auto kernel = roi_align_fwd_any_s_kernel<Rule, V>;
   const size_t smem = sizeof(Tap) * (size_t)(pw + ph) * s;
   if (const int rc = set_smem(kernel, smem)) return rc;
   const dim3 grid(r, (c4 + kLanes - 1) / kLanes, b);

@@ -4,8 +4,12 @@
 //
 // Replaces the Pallas TPU kernels mx_rcnn_tpu/ops/pallas/roi_align_stream.py::
 // _fwd_kernel (entry _fwd_impl, kernel 4) and ::_bwd_kernel (entry
-// _bwd_impl, kernel 5).  Contract: feat (B, H, W, C) f32, C % 4 == 0, rois
-// (B, R, 4) f32 image coordinates -> out (B, R, PH, PW, C) f32.  The samples
+// _bwd_impl, kernel 5).  Contract: feat (B, H, W, C) f32 or bf16, C % 4 ==
+// 0, rois (B, R, 4) f32 image coordinates -> out (B, R, PH, PW, C) of feat's
+// dtype; the backward reads g of that dtype and writes an f32 dfeat, which
+// the wrapper casts (the JAX kernels' f32 accumulator and cast,
+// roi_align_stream.py:174-181, 316).  The _bf16 exports are the templates'
+// bf16 instances (see roi_align.cu).  The samples
 // are kernel 2's, clamped to the canvas (roi_align_taps.cuh: bit-identical
 // positions).  A roi whose scaled x2 < x1 is invalid (the TPU kernels' filler
 // rule): its output is zeros and it adds nothing to dfeat.
@@ -43,8 +47,17 @@
 extern "C" int roi_align_stream_fwd(const float* feat, const float* rois, int b, int h, int w,
                                     int c, int r, int ph, int pw, int s, float scale,
                                     float* out, void* stream) {
-  return roi_align_fwd_launch<StreamTaps>(feat, rois, nullptr, b, h, w, c, r, ph, pw, s, scale,
-                                          out, static_cast<cudaStream_t>(stream));
+  return roi_align_fwd_launch<StreamTaps, float4>(feat, rois, nullptr, b, h, w, c, r, ph, pw,
+                                                  s, scale, out,
+                                                  static_cast<cudaStream_t>(stream));
+}
+
+// roi_align_stream_fwd on bf16 features: out bf16.
+extern "C" int roi_align_stream_fwd_bf16(const __nv_bfloat16* feat, const float* rois, int b,
+                                         int h, int w, int c, int r, int ph, int pw, int s,
+                                         float scale, __nv_bfloat16* out, void* stream) {
+  return roi_align_fwd_launch<StreamTaps, uint2>(feat, rois, nullptr, b, h, w, c, r, ph, pw, s,
+                                                 scale, out, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of the scratch roi_align_stream_bwd takes: one table per (image, roi).
@@ -61,6 +74,17 @@ extern "C" int roi_align_stream_bwd(const float* g, const float* rois, int b,
                                     int h, int w, int c, int r, int ph, int pw,
                                     int s, float scale, void* scratch, float* dfeat,
                                     void* stream) {
-  return table_bwd<StreamTaps, 4, 8>(g, rois, nullptr, b, h, w, c, r, ph, pw, s, scale,
-                                     scratch, dfeat, static_cast<cudaStream_t>(stream));
+  return table_bwd<StreamTaps, 4, 8, 1, float4>(g, rois, nullptr, b, h, w, c, r, ph, pw, s,
+                                                scale, scratch, dfeat,
+                                                static_cast<cudaStream_t>(stream));
+}
+
+// roi_align_stream_bwd of a bf16 g: dfeat stays f32.
+extern "C" int roi_align_stream_bwd_bf16(const __nv_bfloat16* g, const float* rois, int b,
+                                         int h, int w, int c, int r, int ph, int pw, int s,
+                                         float scale, void* scratch, float* dfeat,
+                                         void* stream) {
+  return table_bwd<StreamTaps, 4, 8, 1, uint2>(g, rois, nullptr, b, h, w, c, r, ph, pw, s,
+                                               scale, scratch, dfeat,
+                                               static_cast<cudaStream_t>(stream));
 }

@@ -25,6 +25,8 @@
 // the warp's partial sums (kTileW cells x 128 channels).  A cell's entries
 // are sorted by bin, so it takes its terms in the order of its entries, and
 // each g element a visit needs is loaded once.
+// The cotangent g is float32 or bfloat16 (the element type V, four channels a
+// lane, widened to float32 as it is loaded); the sums and dfeat are float32.
 // After one barrier (a cluster barrier for kGroups > 1) each cell is
 // written once, its partial sums added in block order, then warp order, and
 // divided by s * s.  No zero fill, no atomics, and a fixed sum order (rois,
@@ -194,9 +196,9 @@ __host__ __device__ inline size_t tile_smem(int r, int ph, int pw, int s) {
 // cluster's warps of a row each write one of the row's cells, summing the
 // blocks' partial sums (read through distributed shared memory) in block
 // order, then the row's parts in warp order.
-template <typename Rule, int kSplit, int kTileW, int kGroups>
+template <typename Rule, int kSplit, int kTileW, int kGroups, typename V>
 __global__ void __launch_bounds__(kLanes * kWarps, 3)
-roi_align_tile_bwd_kernel(const float4* __restrict__ g, const char* __restrict__ table,
+roi_align_tile_bwd_kernel(const V* __restrict__ g, const char* __restrict__ table,
                           int h, int w, int c4, int n_cs, int r_count, int ph_count,
                           int pw_count, int s, float4* __restrict__ dfeat) {
   constexpr int kWorkers = kSplit * kGroups;  // warps of the cluster on one tile row
@@ -248,7 +250,7 @@ roi_align_tile_bwd_kernel(const float4* __restrict__ g, const char* __restrict__
   const int x_end = min(x0 + kTileW, w);
   // a lane past the channels loads channel c4 - 1 and writes nothing, so
   // that every lane takes part in staging the entries
-  const float4* gb = g + (size_t)b * r_count * ph_count * pw_count * c4 + min(c, c4 - 1);
+  const V* gb = g + (size_t)b * r_count * ph_count * pw_count * c4 + min(c, c4 - 1);
   // this warp's rois: r % kWorkers == worker (32 % kWorkers == 0)
   unsigned mine = 0;
   for (int l = worker; l < 32; l += kWorkers) mine |= 1u << l;
@@ -265,7 +267,7 @@ roi_align_tile_bwd_kernel(const float4* __restrict__ g, const char* __restrict__
       for (int k = lane; k < ny; k += kLanes) ys[k] = at<Entry>(rec, lay.ye)[ey0 + k];
       for (int k = lane; k < nx; k += kLanes) xs[k] = at<Entry>(rec, lay.xe)[ex0 + k];
       __syncwarp();
-      const float4* gr = gb + (size_t)r * ph_count * pw_count * c4;
+      const V* gr = gb + (size_t)r * ph_count * pw_count * c4;
       // xs by (bin, cell): an entry's rank counts the entries before it
       for (int k = lane; k < nx; k += kLanes) {
         const int bk = xs[k].bin;
@@ -300,7 +302,7 @@ roi_align_tile_bwd_kernel(const float4* __restrict__ g, const char* __restrict__
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           if (base + u < n) {
-            v[u] = gr[((size_t)ys[li].bin * pw_count + xb[gs[lj]].bin) * c4];
+            v[u] = load4(gr + ((size_t)ys[li].bin * pw_count + xb[gs[lj]].bin) * c4);
             if (++li == ny) li = 0, ++lj;
           }
         }
@@ -365,10 +367,10 @@ inline long long table_scratch_bytes(int b, int h, int w, int r, int ph, int pw,
 
 // Both launches of the backward on `stream`: the tables (valid_hw is read
 // under ResidentTaps only), then the tiles, in clusters of kGroups blocks a
-// tile when kGroups > 1.  Every dfeat element is written.  Returns a
-// cudaError_t.
-template <typename Rule, int kSplit, int kTileW, int kGroups = 1>
-int table_bwd(const float* g, const float* rois, const float* valid_hw, int b, int h, int w,
+// tile when kGroups > 1, reading g of the element type V (float4: f32, uint2:
+// bf16).  Every dfeat element is written.  Returns a cudaError_t.
+template <typename Rule, int kSplit, int kTileW, int kGroups, typename V>
+int table_bwd(const void* g, const float* rois, const float* valid_hw, int b, int h, int w,
               int c, int r, int ph, int pw, int s, float scale, void* scratch, float* dfeat,
               cudaStream_t stream) {
   if (b == 0 || h == 0 || w == 0 || c == 0) return 0;
@@ -388,10 +390,10 @@ int table_bwd(const float* g, const float* rois, const float* valid_hw, int b, i
   constexpr int kTileH = kWarps / kSplit;
   const int c4 = c / 4, n_cs = (c4 + kLanes - 1) / kLanes;
   const size_t smem = tile_smem<kTileW>(r, ph, pw, s);
-  auto kernel = roi_align_tile_bwd_kernel<Rule, kSplit, kTileW, kGroups>;
+  auto kernel = roi_align_tile_bwd_kernel<Rule, kSplit, kTileW, kGroups, V>;
   if (const int rc = set_smem(kernel, smem)) return rc;
   const dim3 grid((w + kTileW - 1) / kTileW * kGroups, (h + kTileH - 1) / kTileH, b * n_cs);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
+  const V* g4 = static_cast<const V*>(g);
   float4* d4 = reinterpret_cast<float4*>(dfeat);
   if constexpr (kGroups == 1) {
     kernel<<<grid, dim3(kLanes, kWarps), smem, stream>>>(g4, table, h, w, c4, n_cs, r, ph, pw,

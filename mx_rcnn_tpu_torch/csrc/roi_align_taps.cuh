@@ -7,8 +7,15 @@
 // A roi edge c1 (scaled to the map) and a bin size give sample k of an axis
 // at c1 + (k + 0.5) / s * bin, clamped to [0, lim - 1]; its lower tap is the
 // floor and its upper tap min(lo + 1, lim - 1), weighted by the fraction.
+//
+// Features and cotangents come in float32 or bfloat16 (the compute dtype),
+// four channels a lane: a float4 (16 bytes) or a uint2 holding four bf16
+// (8 bytes), widened to a float4 as they are loaded (exact: a bf16 is the
+// top half of a float32), so every sum is taken in float32; a bf16 output
+// rounds the float32 value once, to nearest even, as it is stored.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -47,7 +54,28 @@ __device__ __forceinline__ float4 lerp4(float4 a, float wa, float4 b, float wb) 
                      a.z * wa + b.z * wb, a.w * wa + b.w * wb);
 }
 
-constexpr int kLanes = 32;  // float4 lanes: one warp spans 128 channels
+constexpr int kLanes = 32;  // 4-channel lanes: one warp spans 128 channels
+
+// Four channels of the element type: float4 (float32) or uint2 (bfloat16).
+__device__ __forceinline__ float4 load4(const float4* p) { return *p; }
+
+__device__ __forceinline__ float4 load4(const uint2* p) {
+  const uint2 u = *p;
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Streaming stores (st.global.cs) of four channels.
+__device__ __forceinline__ void store4_cs(float4* p, float4 v) { __stcs(p, v); }
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+__device__ __forceinline__ void store4_cs(uint2* p, float4 v) {
+  __stcs(p, make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                       bf16_bits(v.z) | (bf16_bits(v.w) << 16)));
+}
 
 struct Roi {
   float x1, y1, x2, y2;

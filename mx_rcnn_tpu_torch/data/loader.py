@@ -107,10 +107,15 @@ def set_prepared_cache(max_entries: int) -> None:
 
 def _render_key(rec: Dict) -> Tuple:
     """A synthetic render is a function of the record's uri, flip, seed,
-    size and whether it paints polygons (two roidbs may give one uri two
-    sizes, or one with boxes and one with polygon masks)."""
+    size, boxes, classes and polygons (``synthetic_image``): two roidbs may
+    give one uri two sizes, other boxes or classes (another class count), or
+    one with boxes and one with polygon masks."""
+    segms = rec.get("segmentation")
     return (rec["image"], bool(rec.get("flipped")), rec["synthetic_seed"],
-            int(rec["height"]), int(rec["width"]), rec.get("segmentation") is not None)
+            int(rec["height"]), int(rec["width"]),
+            np.asarray(rec["boxes"], np.float32).tobytes(),
+            np.asarray(rec["gt_classes"], np.int64).tobytes(),
+            None if segms is None else repr(segms))
 
 
 def _prepared_key(rec: Dict, scales, bucket, uint8: bool, means, stds) -> Tuple:

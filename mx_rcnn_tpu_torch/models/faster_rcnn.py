@@ -1,6 +1,7 @@
 """Faster R-CNN, ResNet C4 (port of ``mx_rcnn_tpu/models/faster_rcnn.py``):
 the inference forward ``test_forward`` and the training forward
-``train_forward``, in the JAX graph's order.
+``train_forward``, in the JAX graph's order, in the config's compute dtype
+(COMPUTE_DTYPE) with the frozen BNs folded into the convs or not (FOLD_BN).
 
 Inference: normalize → pad mask → backbone → RPN softmax fg → grid mask →
 propose → ``pad_feat_to_ladder`` → ROIAlign with ``valid_hw`` → top head →
@@ -23,6 +24,7 @@ from torch import nn
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.models.heads import RCNNHead
 from mx_rcnn_tpu_torch.models.layers import (
+    compute_dtype,
     make_pad_mask,
     normalize_images,
     pad_feat_to_ladder,
@@ -172,13 +174,12 @@ class FasterRCNN(nn.Module):
             raise NotImplementedError("USE_MASK: the mask family is not ported yet")
         if net.name != "resnet":
             raise NotImplementedError(f"network {net.name!r} is not ported yet")
-        if net.COMPUTE_DTYPE != "float32" or net.FOLD_BN:
-            raise NotImplementedError("only the float32, unfolded-BN graph is ported")
         self.cfg = cfg
-        self.backbone = ResNetBackbone(net.depth)
-        self.top_head = ResNetTopHead(net.depth)
-        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512)
-        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES)
+        dtype = compute_dtype(cfg)
+        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
+        self.top_head = ResNetTopHead(net.depth, dtype, net.FOLD_BN)
+        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512, dtype)
+        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES, dtype)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         # constants of the graph, built once per (device, shape): a copy from
         # host memory in every forward would make the host wait for the card

@@ -46,6 +46,8 @@ from mx_rcnn_tpu_torch.models.faster_rcnn import (
 )
 from mx_rcnn_tpu_torch.models.heads import MaskHead, RCNNHead
 from mx_rcnn_tpu_torch.models.layers import (
+    Linear,
+    compute_dtype,
     conv,
     make_pad_mask,
     normalize_images,
@@ -72,18 +74,19 @@ def _identity(x):
 
 class FPNNeck(nn.Module):
     """C2..C5 (NCHW) → P2..P5: 1×1 ``lateral2..5`` and 3×3 ``post2..5``,
-    both with bias, and nearest-neighbour top-down adds.
+    both with bias, and nearest-neighbour top-down adds, in ``dtype``.
 
     ``jax.image.resize(..., "nearest")`` samples at half-pixel centres,
     ``floor((i + 0.5)·in/out)``: torch's ``nearest-exact``, which agrees with
     ``nearest`` only where each level is exactly twice the next."""
 
-    def __init__(self, in_channels: Sequence[int] = PYRAMID_CHANNELS, channels: int = 256):
+    def __init__(self, in_channels: Sequence[int] = PYRAMID_CHANNELS, channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for i, cin in enumerate(in_channels):
-            self.add_module(f"lateral{i + 2}", conv(cin, channels, 1, bias=True))
+            self.add_module(f"lateral{i + 2}", conv(cin, channels, 1, bias=True, dtype=dtype))
         for i in range(len(in_channels)):
-            self.add_module(f"post{i + 2}", conv(channels, channels, 3, bias=True))
+            self.add_module(f"post{i + 2}", conv(channels, channels, 3, bias=True, dtype=dtype))
 
     def forward(self, feats: Sequence[torch.Tensor], pad_mask=_identity) -> List[torch.Tensor]:
         # pad_mask (layers.make_pad_mask): re-zero bucket padding before the
@@ -97,16 +100,16 @@ class FPNNeck(nn.Module):
 
 
 class FPNTopHead(nn.Module):
-    """2-fc box head: (R, ph, pw, C) pooled rois → (R, width).
+    """2-fc box head: (R, ph, pw, C) pooled rois → (R, width), in ``dtype``.
 
     The NHWC rois flatten as they are: Flax's ``fc1`` kernel is
     (ph·pw·C, width) in (ph, pw, C) order, so the bridged weights need
     no permute."""
 
-    def __init__(self, din: int, width: int = 1024):
+    def __init__(self, din: int, width: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(din, width)
-        self.fc2 = nn.Linear(width, width)
+        self.fc1 = Linear(din, width, compute_dtype=dtype)
+        self.fc2 = Linear(width, width, compute_dtype=dtype)
 
     def forward(self, rois_feat: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.fc1(rois_feat.reshape(rois_feat.shape[0], -1)))
@@ -156,18 +159,18 @@ class FPNFasterRCNN(nn.Module):
             raise ValueError("FPNFasterRCNN needs a USE_FPN config")
         if net.name != "resnet":
             raise NotImplementedError(f"network {net.name!r} is not ported yet")
-        if net.COMPUTE_DTYPE != "float32" or net.FOLD_BN:
-            raise NotImplementedError("only the float32, unfolded-BN graph is ported")
         self.cfg = cfg
         ch = net.FPN_CHANNELS
-        self.backbone = ResNetBackbone(net.depth, return_pyramid=True)
-        self.neck = FPNNeck(PYRAMID_CHANNELS, ch)
+        dtype = compute_dtype(cfg)
+        self.backbone = ResNetBackbone(net.depth, return_pyramid=True, dtype=dtype,
+                                       fold_bn=net.FOLD_BN)
+        self.neck = FPNNeck(PYRAMID_CHANNELS, ch, dtype)
         # one RPN head shared across levels
-        self.rpn = RPNHead(ch, len(net.ANCHOR_RATIOS) * len(net.FPN_ANCHOR_SCALES), ch)
-        self.top_head = FPNTopHead(ch * net.POOLED_SIZE[0] * net.POOLED_SIZE[1])
-        self.rcnn = RCNNHead(self.top_head.fc2.out_features, cfg.dataset.NUM_CLASSES)
+        self.rpn = RPNHead(ch, len(net.ANCHOR_RATIOS) * len(net.FPN_ANCHOR_SCALES), ch, dtype)
+        self.top_head = FPNTopHead(ch * net.POOLED_SIZE[0] * net.POOLED_SIZE[1], dtype=dtype)
+        self.rcnn = RCNNHead(self.top_head.fc2.out_features, cfg.dataset.NUM_CLASSES, dtype)
         if net.USE_MASK:
-            self.mask_head = MaskHead(ch, cfg.dataset.NUM_CLASSES)
+            self.mask_head = MaskHead(ch, cfg.dataset.NUM_CLASSES, dtype=dtype)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         # constants of the graph, built once per (device, shape), as in
         # FasterRCNN

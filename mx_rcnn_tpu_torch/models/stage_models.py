@@ -19,7 +19,8 @@ anchor grid mask), and Fast R-CNN's test forward pools the proposals with
 the canvas clamp (no ``valid_hw``), the rule of the train path.  The
 kernels: NMS (kernel 1) in the RPN's test forward only; ROIAlign forward
 (kernel 2) in both Fast R-CNN forwards, its backward (kernel 3) in
-training.
+training.  Both build in the config's COMPUTE_DTYPE and FOLD_BN, as
+FasterRCNN does (the JAX package's ``build_backbone``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from mx_rcnn_tpu_torch.models.faster_rcnn import (
     sampling_uniforms,
 )
 from mx_rcnn_tpu_torch.models.heads import RCNNHead
-from mx_rcnn_tpu_torch.models.layers import normalize_images
+from mx_rcnn_tpu_torch.models.layers import compute_dtype, normalize_images
 from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetTopHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.ops.proposal import propose
@@ -56,8 +57,6 @@ def _check(cfg: Config, what: str) -> None:
     if net.name != "resnet" or net.USE_FPN or net.USE_MASK:
         raise NotImplementedError(f"{what} builds the ResNet C4 stage graphs only, "
                                   f"not {net.name!r} with FPN {net.USE_FPN}, mask {net.USE_MASK}")
-    if net.COMPUTE_DTYPE != "float32" or net.FOLD_BN:
-        raise NotImplementedError("only the float32, unfolded-BN graph is ported")
 
 
 class RPNOnly(nn.Module):
@@ -70,8 +69,9 @@ class RPNOnly(nn.Module):
         _check(cfg, "RPNOnly")
         net = cfg.network
         self.cfg = cfg
-        self.backbone = ResNetBackbone(net.depth)
-        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512)
+        dtype = compute_dtype(cfg)
+        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
+        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512, dtype)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self._constants: Dict = {}
 
@@ -129,9 +129,10 @@ class FastRCNN(nn.Module):
         _check(cfg, "FastRCNN")
         net = cfg.network
         self.cfg = cfg
-        self.backbone = ResNetBackbone(net.depth)
-        self.top_head = ResNetTopHead(net.depth)
-        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES)
+        dtype = compute_dtype(cfg)
+        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
+        self.top_head = ResNetTopHead(net.depth, dtype, net.FOLD_BN)
+        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES, dtype)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self._constants: Dict = {}
 

@@ -75,7 +75,9 @@ def nms_mask_sorted_plain(
 
 def _nms_mask_sorted_cuda(boxes, valid, thresh, max_keep):
     boxes = kernel_input("boxes", boxes, torch.float32, 3)
-    valid = kernel_input("valid", valid, torch.uint8, 2)
+    # a bool mask is read as its bytes (a view, not a conversion)
+    valid = kernel_input("valid", valid.view(torch.uint8) if valid.dtype == torch.bool else valid,
+                         torch.uint8, 2)
     p, n = boxes.shape[0], boxes.shape[1]
     if boxes.shape[2] != 4 or tuple(valid.shape) != (p, n):
         raise ValueError(f"boxes {tuple(boxes.shape)} / valid {tuple(valid.shape)}")

@@ -14,6 +14,14 @@ they clamp to the canvas (the Pallas kernel ``roi_align_pallas``, which the
 train step takes).  :func:`roi_align_bwd_plain` is the backward's plain
 version: an explicit scatter-add over the same taps.
 
+Features are float32 or bfloat16 (the compute dtype), each dtype its own
+instance of each kernel with its own launch count (:data:`FWD_KERNELS`,
+:data:`BWD_KERNELS`): taps, weights and sums in float32, the forward's output
+rounded once to the feature's dtype; the backward reads a cotangent of that
+dtype and writes a float32 dfeat, which ``RoIAlignFunction`` casts to the
+feature's dtype, as the JAX package's ``_roi_align_bwd_impl`` does.  No
+tensor is converted to reach a kernel: another dtype raises.
+
 :func:`extract_roi_features_batched` routes as the JAX package does: maps
 that :func:`fits_vmem` go to :func:`roi_align` (kernels 2/3), larger ones in
 a differentiated graph to ``ops/roi_align_stream.py`` (kernels 4/5).
@@ -41,6 +49,11 @@ _IN_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8 + (ctypes.c_float,)
 library = CudaLibrary("roi_align.cu")
 kernel = CudaKernel(library, "roi_align_fwd", _IN_ARGS + (ctypes.c_void_p,) * 2)
 bwd_kernel = CudaKernel(library, "roi_align_bwd", _IN_ARGS + (ctypes.c_void_p,) * 3)
+kernel_bf16 = CudaKernel(library, "roi_align_fwd_bf16", _IN_ARGS + (ctypes.c_void_p,) * 2)
+bwd_kernel_bf16 = CudaKernel(library, "roi_align_bwd_bf16", _IN_ARGS + (ctypes.c_void_p,) * 3)
+# the instance for each feature (forward) or cotangent (backward) dtype
+FWD_KERNELS = {torch.float32: kernel, torch.bfloat16: kernel_bf16}
+BWD_KERNELS = {torch.float32: bwd_kernel, torch.bfloat16: bwd_kernel_bf16}
 
 
 def table_scratch(lib: CudaLibrary, function: str, b, h, w, r, pooled, sample_ratio, device):
@@ -108,7 +121,10 @@ def roi_align_plain(
     """Plain PyTorch ROIAlign: (B, H, W, C) × (B, R, 4) → (B, R, ph, pw, C),
     on any device.  The two-stage separable gather of the JAX gather path
     (rows, then columns, then the mean of the s×s samples), ``chunk`` rois
-    at a time to bound the (chunk, ph·s, W, C) row intermediate."""
+    at a time to bound the (chunk, ph·s, W, C) row intermediate.  Taps,
+    weights and sums are float32 whatever the feature's dtype; the output,
+    of the feature's dtype, rounds each sum once.  Differentiated, a
+    bfloat16 map's gradient is summed in float32 and rounded once."""
     b, hf, wf, c = feat.shape
     r = rois.shape[1]
     ph, pw = pooled
@@ -119,7 +135,7 @@ def roi_align_plain(
 
     out = feat.new_empty((b, r, ph, pw, c))
     for i in range(b):
-        f = feat[i]
+        f = feat[i].float()
         for j0 in range(0, r, chunk):
             sl = slice(j0, min(j0 + chunk, r))
             n = sl.stop - sl.start
@@ -186,7 +202,8 @@ def _kernel_valid_hw(valid_hw, b):
 
 
 def _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
-    feat = kernel_input("feat", feat, torch.float32, 4)
+    feat = kernel_input("feat", feat, tuple(FWD_KERNELS), 4)
+    launch = FWD_KERNELS[feat.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat.shape
     if c % 4 or rois.shape[0] != b or rois.shape[2] != 4 or sample_ratio < 1:
@@ -197,13 +214,13 @@ def _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
     valid_hw = _kernel_valid_hw(valid_hw, b)
     r = rois.shape[1]
     ph, pw = pooled
-    out = torch.empty((b, r, ph, pw, c), dtype=torch.float32, device=feat.device)
+    out = torch.empty((b, r, ph, pw, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
-        kernel(
+        launch(
             ptr(feat), ptr(rois), ptr(valid_hw), b, h, w, c, r, ph, pw,
             int(sample_ratio), float(spatial_scale), ptr(out), stream_of(feat),
         )
-    kernel.launches += 1
+    launch.launches += 1
     return out
 
 
@@ -214,7 +231,9 @@ def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
 
 
 def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio, valid_hw):
-    g = kernel_input("g", g, torch.float32, 5)
+    """The float32 dfeat of a cotangent ``g`` of either dtype (kernel 3)."""
+    g = kernel_input("g", g, tuple(BWD_KERNELS), 5)
+    launch = BWD_KERNELS[g.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat_shape
     r = rois.shape[1]
@@ -228,19 +247,20 @@ def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio
     dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
-        bwd_kernel(
+        launch(
             ptr(g), ptr(rois), ptr(valid_hw), b, h, w, c, r, ph, pw,
             int(sample_ratio), float(spatial_scale), ptr(scratch), ptr(dfeat), stream_of(g),
         )
-    bwd_kernel.launches += 1
+    launch.launches += 1
     return dfeat
 
 
 class RoIAlignFunction(torch.autograd.Function):
     """ROIAlign on CUDA tensors: the forward launches kernel 2, the
-    backward kernel 3.  ``rois`` and ``valid_hw`` get no gradient, as the
-    JAX vjp returns zeros for the rois (proposals are a stop-gradient input
-    of the second stage)."""
+    backward kernel 3, each in the feature's dtype; the backward's float32
+    dfeat is cast to that dtype here.  ``rois`` and ``valid_hw`` get no
+    gradient, as the JAX vjp returns zeros for the rois (proposals are a
+    stop-gradient input of the second stage)."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
@@ -269,9 +289,10 @@ def roi_align(
     sample_ratio: int = 2,
     valid_hw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(B, H, W, C) feature + (B, R, 4) image-coordinate rois →
-    (B, R, ph, pw, C), differentiable in ``feat``.  ``valid_hw`` (B, 2):
-    true pre-padding image sizes."""
+    """(B, H, W, C) float32 or bfloat16 feature + (B, R, 4) float32
+    image-coordinate rois → (B, R, ph, pw, C) of the feature's dtype,
+    differentiable in ``feat``.  ``valid_hw`` (B, 2): true pre-padding image
+    sizes."""
     if feat.device.type == "cpu":
         return roi_align_plain(
             feat, rois, pooled, spatial_scale, sample_ratio, valid_hw
@@ -305,7 +326,9 @@ def _resident_bytes(h: int, w: int, blk: int, esize: int, pooled_max: int = 14) 
 
 def fits_vmem(h: int, w: int, c: int, pooled_max: int = 14) -> bool:
     """True iff the JAX package sends an (H, W, C) map to its resident
-    kernels (here kernels 2/3) rather than its streaming ones (4/5)."""
+    kernels (here kernels 2/3) rather than its streaming ones (4/5).  It
+    takes no dtype: the JAX function sizes the float32 backward, so a
+    bfloat16 map routes as a float32 one."""
     return _resident_bytes(h, w, _cblk(c, largest=128), 4, pooled_max) <= _VMEM_BUDGET
 
 

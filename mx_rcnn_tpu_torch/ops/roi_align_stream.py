@@ -12,7 +12,10 @@ template of ``csrc/roi_align_fwd.cuh`` under the streamed tap rule, kernel
 ``csrc/roi_align_stream.cu``; the backward is deterministic, and takes a
 scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_stream_plain`, which torch autograd differentiates, and
-:func:`roi_align_stream_bwd_plain` is the backward's plain version.
+:func:`roi_align_stream_bwd_plain` is the backward's plain version.  As in
+``ops/roi_align.py``, float32 and bfloat16 features each have their own
+instance of each kernel (:data:`FWD_KERNELS`, :data:`BWD_KERNELS`), and the
+float32 dfeat of the backward is cast to the feature's dtype outside it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ bwd_kernel = CudaKernel(
     library, "roi_align_stream_bwd",
     (ctypes.c_void_p, ctypes.c_void_p) + _SHAPE_ARGS + (ctypes.c_void_p,) * 3,
 )
+fwd_kernel_bf16 = CudaKernel(library, "roi_align_stream_fwd_bf16", fwd_kernel.argtypes)
+bwd_kernel_bf16 = CudaKernel(library, "roi_align_stream_bwd_bf16", bwd_kernel.argtypes)
+# the instance for each feature (forward) or cotangent (backward) dtype
+FWD_KERNELS = {torch.float32: fwd_kernel, torch.bfloat16: fwd_kernel_bf16}
+BWD_KERNELS = {torch.float32: bwd_kernel, torch.bfloat16: bwd_kernel_bf16}
 
 
 def valid_rois(rois: torch.Tensor, spatial_scale: float) -> torch.Tensor:
@@ -92,7 +100,8 @@ def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
 
 
 def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
-    feat = kernel_input("feat", feat, torch.float32, 4)
+    feat = kernel_input("feat", feat, tuple(FWD_KERNELS), 4)
+    launch = FWD_KERNELS[feat.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat.shape
     ph, pw = pooled
@@ -102,18 +111,20 @@ def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
             f"sample_ratio {sample_ratio} (>= 1)"
         )
     r = rois.shape[1]
-    out = torch.empty((b, r, ph, pw, c), dtype=torch.float32, device=feat.device)
+    out = torch.empty((b, r, ph, pw, c), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
-        fwd_kernel(
+        launch(
             ptr(feat), ptr(rois), b, h, w, c, r, ph, pw, int(sample_ratio),
             float(spatial_scale), ptr(out), stream_of(feat),
         )
-    fwd_kernel.launches += 1
+    launch.launches += 1
     return out
 
 
 def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio):
-    g = kernel_input("g", g, torch.float32, 5)
+    """The float32 dfeat of a cotangent ``g`` of either dtype (kernel 5)."""
+    g = kernel_input("g", g, tuple(BWD_KERNELS), 5)
+    launch = BWD_KERNELS[g.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat_shape
     r = rois.shape[1]
@@ -126,18 +137,19 @@ def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sampl
     dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
-        bwd_kernel(
+        launch(
             ptr(g), ptr(rois), b, h, w, c, r, ph, pw, int(sample_ratio),
             float(spatial_scale), ptr(scratch), ptr(dfeat), stream_of(g),
         )
-    bwd_kernel.launches += 1
+    launch.launches += 1
     return dfeat
 
 
 class RoIAlignStreamFunction(torch.autograd.Function):
     """Streamed ROIAlign on CUDA tensors: the forward launches kernel 4, the
-    backward kernel 5.  ``rois`` get no gradient, as the JAX vjp returns
-    zeros for them."""
+    backward kernel 5, each in the feature's dtype; the backward's float32
+    dfeat is cast to that dtype here.  ``rois`` get no gradient, as the JAX
+    vjp returns zeros for them."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale, sample_ratio):

@@ -14,6 +14,7 @@ import numpy as np
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.core.tester import Predictor
 from mx_rcnn_tpu_torch.serve.runner import detect_single
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 # VOC class names for the default 21-class config (demo labels)
 VOC_CLASSES = (
@@ -43,6 +44,7 @@ def demo_net(
 
 
 def main(argv=None):
+    full_float32()
     raise NotImplementedError(
         "the demo CLI reads an image file and writes an overlay, which needs an image "
         "decoder and writer the port does not have: ROADMAP queue 1 item 7; call demo_net"

@@ -43,6 +43,7 @@ from mx_rcnn_tpu_torch.core.train import (
 from mx_rcnn_tpu_torch.data.loader import _orientation_bucket, make_batch
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset, synthetic_image
 from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 STEPS, WARMUP = 12, 2
 
@@ -127,8 +128,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"{smi} | nproc {os.cpu_count()} | torch CPU threads {torch.get_num_threads()} | "
           f"switch interval {sys.getswitchinterval() * 1e3:.1f} ms", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_float32()
     dev = torch.device("cuda")
     out = {"card": smi, "nproc": os.cpu_count(), "torch_threads": torch.get_num_threads()}
     for network in args.network or ["resnet", "resnet_fpn"]:

@@ -17,6 +17,7 @@ from typing import Dict
 from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.tools.train_rpn import DATASETS, NETWORKS
 from mx_rcnn_tpu_torch.utils.load_data import get_imdb
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -33,6 +34,7 @@ def reeval(imdb, detections_path: str) -> Dict:
 
 def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     p = argparse.ArgumentParser(description="Re-score saved detections (PyTorch port)")
     p.add_argument("--network", default="resnet", choices=NETWORKS)
     p.add_argument("--dataset", default="PascalVOC", choices=DATASETS)

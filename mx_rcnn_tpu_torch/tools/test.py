@@ -38,6 +38,7 @@ from mx_rcnn_tpu_torch.data.loader import TestLoader
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
 from mx_rcnn_tpu_torch.utils.load_data import get_imdb
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -152,8 +153,7 @@ def test_rcnn(args) -> Dict:
 
 def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_float32()
     return test_rcnn(parse_args(argv))
 
 

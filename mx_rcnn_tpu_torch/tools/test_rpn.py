@@ -31,6 +31,7 @@ from mx_rcnn_tpu_torch.tools.train_rpn import add_common_flags, device_of
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
 from mx_rcnn_tpu_torch.utils.combine_model import load_params
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +73,7 @@ def test_rpn(
 
 def main(argv=None) -> Tuple[List[np.ndarray], Dict[str, float]]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     p = argparse.ArgumentParser(description="RPN proposal dump + recall eval (PyTorch port)")
     add_common_flags(p)
     p.add_argument("--params", required=True, help="RPN params pickle")

@@ -42,6 +42,7 @@ from mx_rcnn_tpu_torch.tools.train_rpn import (
 from mx_rcnn_tpu_torch.utils.combine_model import combine_model, save_params
 from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, load_gt_roidb
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +110,7 @@ def alternate_train(
 
 def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     p = argparse.ArgumentParser(description="4-stage alternate training (PyTorch port)")
     add_common_flags(p)
     add_train_flags(p, checkpoints=False)

@@ -27,7 +27,9 @@ included, goes to standard output (``--metrics_jsonl`` also writes them as
 JSON lines); ``--profile DIR`` writes a ``torch.profiler`` trace of steps
 10–20.  The dataset readers (VOC, COCO) are ported but not an image decoder,
 so a run without ``--synthetic N`` stops at the first image (ROADMAP queue 1
-item 7); the weights start seeded random (``--seed``).
+item 7); the weights start seeded random (``--seed``).  ``--compute_dtype
+bfloat16`` trains the bf16 graph (COMPUTE_DTYPE; FOLD_BN comes from the
+config, as in the JAX CLI, which has no flag for it).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from mx_rcnn_tpu_torch.data.loader import load_record_image
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 
 def parse_args(argv=None):
@@ -63,6 +66,9 @@ def parse_args(argv=None):
                    help="microbatches per optimizer update (gradient accumulation for big "
                         "effective batches)")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="override network COMPUTE_DTYPE (bfloat16 activations, float32 "
+                        "parameters, gradients and optimizer state)")
     p.add_argument("--no_flip", action="store_true")
     p.add_argument("--no_shuffle", action="store_true")
     p.add_argument("--frequent", type=int, default=20, help="logging interval")
@@ -118,6 +124,9 @@ def train_net(args) -> Dict:
         overrides["SHUFFLE"] = False
     if overrides:
         cfg = cfg.replace(TRAIN=dataclasses.replace(cfg.TRAIN, **overrides))
+    if args.compute_dtype:
+        cfg = cfg.replace(network=dataclasses.replace(cfg.network,
+                                                      COMPUTE_DTYPE=args.compute_dtype))
     _, roidb = load_gt_roidb(cfg, args.image_set, flip=cfg.TRAIN.FLIP and not args.no_flip,
                              synthetic_size=args.synthetic)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
@@ -142,6 +151,7 @@ def train_net(args) -> Dict:
 
 def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     return train_net(parse_args(argv))
 
 

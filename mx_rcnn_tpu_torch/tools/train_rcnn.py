@@ -37,6 +37,7 @@ from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import load_params, save_params
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb, load_proposal_roidb
 from mx_rcnn_tpu_torch.utils.run_meta import apply_run_meta, load_run_meta, save_run_meta
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -84,6 +85,7 @@ def train_rcnn(
 
 def main(argv=None) -> Tuple[Dict, Config]:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     p = argparse.ArgumentParser(description="Train Fast R-CNN on proposals (PyTorch port)")
     add_common_flags(p)
     add_train_flags(p)

@@ -33,6 +33,7 @@ from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import save_params
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
+from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
 
@@ -114,6 +115,7 @@ def device_of(args) -> Optional[str]:
 
 def main(argv=None) -> Dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+    full_float32()
     p = argparse.ArgumentParser(description="Train RPN only (PyTorch port)")
     add_common_flags(p)
     add_train_flags(p)

@@ -139,12 +139,17 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def kernel_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> torch.Tensor:
+def kernel_input(name: str, t: torch.Tensor, dtypes, ndim: int) -> torch.Tensor:
     """``t`` as the kernels take it: a contiguous, 16-byte aligned CUDA
-    tensor of ``dtype``; raises for a tensor on another device."""
+    tensor of one of ``dtypes`` (a dtype or a tuple: those the kernel was
+    built for).  No dtype is converted: a tensor of another dtype (checked
+    first), or on another device, raises."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}: the kernel is built for {dtypes}")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
-    t = t.to(dtype).contiguous()
+    t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t

@@ -1,6 +1,7 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
-package cannot be imported (it serves a request and a mask request, trains a
-step of the C4 and of the mask network through its CLI, runs the alternate
+package cannot be imported (it serves a request and a mask request, a bf16
+request, trains a step of the C4 (float32 and bf16) and of the mask network
+through its CLI, runs the alternate
 training CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py``
 refuses
 to report without a card or outside the repository."""
@@ -134,6 +135,59 @@ cli.generate_config = tiny
 out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1",
                 "--prefix", {str(tmp_path / "e2e")!r}])
 assert out["steps"] == 1, out
+assert all(math.isfinite(v) for v in out["history"][0].values()), out
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_serves_a_bf16_request_without_jax():
+    """One request through the bf16, folded-BN C4 graph (COMPUTE_DTYPE
+    bfloat16, FOLD_BN): finite detections, float32 at the postprocess."""
+    r = run_blocked("""
+import dataclasses, numpy as np, torch
+torch.set_num_threads(2)
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
+from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
+from mx_rcnn_tpu_torch.serve.runner import detect_single
+cfg = generate_config("resnet50", "PascalVOC")
+cfg = cfg.replace(network=dataclasses.replace(cfg.network, COMPUTE_DTYPE="bfloat16", FOLD_BN=True),
+                  dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                  SHAPE_BUCKETS=((96, 128), (128, 96)),
+                  TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100, RPN_POST_NMS_TOP_N=16))
+pred = Predictor(FasterRCNN(cfg), make_test_postprocess(cfg, 21, cfg.TEST.SCORE_THRESH, 10), device="cpu")
+im = (np.random.RandomState(0).rand(60, 80, 3) * 255).astype(np.uint8)
+dets = detect_single(pred, im, cfg, 21)
+assert len(dets) == 21 and all(d.dtype == np.float32 and np.isfinite(d).all() for d in dets[1:])
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_trains_a_bf16_step_without_jax(tmp_path):
+    """``train_end2end --compute_dtype bfloat16`` with FOLD_BN from the
+    config: one step."""
+    r = run_blocked(f"""
+import dataclasses, math, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.train_end2end as cli
+from mx_rcnn_tpu_torch.config import generate_config
+def tiny(network, dataset):
+    cfg = generate_config("resnet50", dataset)
+    return cfg.replace(network=dataclasses.replace(cfg.network, FOLD_BN=True),
+                       dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                       SHAPE_BUCKETS=((96, 128), (128, 96)),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32))
+cli.generate_config = tiny
+out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1", "--compute_dtype",
+                "bfloat16", "--prefix", {str(tmp_path / "e2e")!r}])
+assert out["steps"] == 1 and out["state"].model.cfg.network.COMPUTE_DTYPE == "bfloat16", out
 assert all(math.isfinite(v) for v in out["history"][0].values()), out
 print("ok")
 """)
