@@ -178,9 +178,12 @@
 9b. ``[bf16]``: ``COMPUTE_DTYPE="bfloat16"`` with ``FOLD_BN`` (the JAX
    package's ``bench.py`` configuration) at full width: the bf16 instances
    of kernels 2–5 against their plain versions on synthetic bf16 tensors
-   (the forward within one bf16 ulp beyond the float32 bar, the backward's
-   float32 dfeat at the scaled float32 bar and bit-identical across two
-   launches) and on every bf16 path's captured tensors; C4 serving of the
+   (the forward within one bf16 ulp beyond the float32 bar; the backward's
+   float32-epilogue instance at the scaled float32 bar, the path's bf16
+   dfeat its round-to-nearest-even bit for bit, each bit-identical across
+   two launches) and on every bf16 path's captured tensors; the backwards
+   of bf16 maps profiled: their table and stage kernels only, no cast after
+   them; C4 serving of the
    six requests and a batch of 2 on the calibrated ``[train]`` weights (NMS
    twice and kernel 2's bf16 instance once a forward, the detections
    matched to the float32 port's by nearest box); C4 training through
@@ -189,14 +192,17 @@
    images (NMS and kernels 2/3's bf16 instances once a step); 10 Mask
    R-CNN steps (kernels 2–5 bf16 four times a step) and six mask requests
    (kernel 2 bf16 eight times a forward); every float32 ROIAlign counter 0
-   on these paths; the loss gates; each trained group's bf16 gradient
+   and the float32-epilogue counters 0 on these paths; the loss gates;
+   each trained group's bf16 gradient
    against the float32 step's on the same weights, batch and rois
    (relative L2 ≤ 0.25 on JAX's exact-rewrite weights, printed on the
    calibrated ones); FOLD_BN in float32 against the unfolded graph at JAX's
    exact-rewrite bars; the CUDA kernels a step launches with the fold off
    and on;
 10. times each kernel on captured tensors (the bf16 instances on the
-   ``[bf16]`` paths' tensors): NMS and kernel 2 at the serving
+   ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
+   mask branch's R = 32 calls; ``--save-bwd-cases FILE`` saves those calls
+   for ``tools/kernel_bench.py --cases``): NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
@@ -558,18 +564,35 @@ def roi_synthetic(dev):
     return max(err, roi_case(feat, rois, valid_hw, "train shape, valid_hw clamp"))
 
 
+def bf16_epilogue_holds(run, got):
+    """For a bf16 g: the path's bf16 dfeat, two launches of it, is the
+    round-to-nearest-even of the float32 epilogue's ``got`` bit for bit
+    (True for a float32 g: one instance, no rounding)."""
+    if got.dtype != torch.float32 or run is None:
+        return True
+    path, again = run(), run()
+    return path.dtype == torch.bfloat16 and torch.equal(path, again) and torch.equal(
+        path, got.bfloat16())
+
+
 class BwdDiff:
     """Running comparison of kernel 3 with its plain version: the max |Δ|,
     and the max of |Δ| / max(1, Σ|terms|), Σ|terms| being the plain backward
     of |g| (the weights are ≥ 0), which the bar holds to ROI_BWD_TOL; and
-    whether two launches gave bit-identical dfeat (they must: no atomics)."""
+    whether two launches gave bit-identical dfeat (they must: no atomics).
+    A bf16 g is held through the float32 epilogue of its instance, and the
+    path's bf16 dfeat must be that float32 sum rounded to nearest even, bit
+    for bit (``rounded``)."""
 
     def __init__(self):
-        self.max_abs_err, self.scaled_err, self.repeatable = 0.0, 0.0, True
+        self.max_abs_err, self.scaled_err, self.repeatable, self.rounded = 0.0, 0.0, True, True
 
     def add(self, g, rois, shape, pooled, scale, s, valid_hw, label):
-        got = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)
-        again = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)
+        bf16 = g.dtype == torch.bfloat16
+        got = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw, bf16)
+        again = roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw, bf16)
+        rounded = bf16_epilogue_holds(bf16 and (lambda: roi_mod._roi_align_bwd_cuda(
+            g, rois, shape, pooled, scale, s, valid_hw)) or None, got)
         ref = roi_mod.roi_align_bwd_plain(g, rois, shape, pooled, scale, s, valid_hw)
         mag = roi_mod.roi_align_bwd_plain(g.abs(), rois, shape, pooled, scale, s, valid_hw)
         d = (got - ref).abs()
@@ -578,10 +601,12 @@ class BwdDiff:
         self.max_abs_err = max(self.max_abs_err, err)
         self.scaled_err = max(self.scaled_err, scaled)
         self.repeatable &= same
+        self.rounded &= rounded
         log(f"  roi_align_bwd {label}: g={tuple(g.shape)} -> {tuple(shape)} max|d|={err:.3g} "
             f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g} "
-            f"two launches bit-identical={same}")
-        if not scaled <= ROI_BWD_TOL or not same:
+            f"two launches bit-identical={same}"
+            + (f", bf16 dfeat the RNE of the float32 epilogue={rounded}" if bf16 else ""))
+        if not scaled <= ROI_BWD_TOL or not same or not rounded:
             raise AssertionError(f"ROIAlign backward kernel fails its bars ({label})")
 
 
@@ -605,6 +630,7 @@ class StreamDiff:
 
     def __init__(self):
         self.fwd_err, self.bwd_err, self.bwd_scaled, self.repeatable = 0.0, 0.0, 0.0, True
+        self.rounded = True
 
     def fwd(self, feat, rois, pooled, scale, s, label):
         got = stream_mod._roi_align_stream_cuda(feat, rois, pooled, scale, s)
@@ -618,8 +644,11 @@ class StreamDiff:
             raise AssertionError(f"streamed ROIAlign kernel disagrees with the plain version ({label})")
 
     def bwd(self, g, rois, shape, pooled, scale, s, label):
-        got = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)
-        again = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)
+        bf16 = g.dtype == torch.bfloat16
+        got = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s, bf16)
+        again = stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s, bf16)
+        rounded = bf16_epilogue_holds(bf16 and (lambda: stream_mod._roi_align_stream_bwd_cuda(
+            g, rois, shape, pooled, scale, s)) or None, got)
         ref = stream_mod.roi_align_stream_bwd_plain(g, rois, shape, pooled, scale, s)
         mag = stream_mod.roi_align_stream_bwd_plain(g.abs(), rois, shape, pooled, scale, s)
         d = (got - ref).abs()
@@ -627,10 +656,12 @@ class StreamDiff:
         same = torch.equal(got, again)
         self.bwd_err, self.bwd_scaled = max(self.bwd_err, err), max(self.bwd_scaled, scaled)
         self.repeatable &= same
+        self.rounded &= rounded
         log(f"  roi_align_stream_bwd {label}: g={tuple(g.shape)} -> {tuple(shape)} max|d|={err:.3g} "
             f"max|d|/max(1,sum|terms|)={scaled:.3g} max|plain|={float(ref.abs().max()):.3g} "
-            f"two launches bit-identical={same}")
-        if not scaled <= ROI_BWD_TOL or not same:
+            f"two launches bit-identical={same}"
+            + (f", bf16 dfeat the RNE of the float32 epilogue={rounded}" if bf16 else ""))
+        if not scaled <= ROI_BWD_TOL or not same or not rounded:
             raise AssertionError(f"streamed ROIAlign backward kernel fails its bars ({label})")
 
 
@@ -794,6 +825,9 @@ KERNELS = {
     "roi_align_fwd_bf16": roi_mod.kernel_bf16, "roi_align_bwd_bf16": roi_mod.bwd_kernel_bf16,
     "roi_align_stream_fwd_bf16": stream_mod.fwd_kernel_bf16,
     "roi_align_stream_bwd_bf16": stream_mod.bwd_kernel_bf16,
+    # the bf16 backwards' float32 epilogues: gate aids, 0 on every path
+    "roi_align_bwd_bf16_f32": roi_mod.bwd_kernel_bf16_f32,
+    "roi_align_stream_bwd_bf16_f32": stream_mod.bwd_kernel_bf16_f32,
 }
 # a count of every kernel, all 0: the base of each path's reckoning
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -954,10 +988,10 @@ def unit_max(g):
 
 def roi_bwd_work(g, rois, shape, valid_hw):
     """Bytes the backward must move (g at its dtype's size, the rois,
-    valid_hw read once, the whole float32 dfeat written once) and its
-    flops."""
-    nbytes = (g.numel() * g.element_size() + (rois.numel() + int(np.prod(shape))
-              + (0 if valid_hw is None else valid_hw.numel())) * 4)
+    valid_hw read once, the whole dfeat, of g's dtype, written once) and
+    its flops."""
+    nbytes = ((g.numel() + int(np.prod(shape))) * g.element_size()
+              + (rois.numel() + (0 if valid_hw is None else valid_hw.numel())) * 4)
     return nbytes, g.numel() * ROI_BWD_FLOPS_PER_G
 
 
@@ -3306,6 +3340,58 @@ def bf16_synthetic(dev):
     return fwd, bwd, stream
 
 
+BF16_BWD_KERNELS = ("roi_table_kernel", "roi_align_stage_bwd_kernel")
+
+
+def bf16_backward_kernels(dev) -> dict:
+    """Autograd through roi_align (C4's train map, 128 rois) and
+    roi_align_stream (P2, 128 rois) on bf16 maps: the gradient must be the
+    bf16 tensor the backward kernel wrote (the same storage: no cast after
+    it), and every CUDA kernel the profiled backward shows must be its
+    table or stage kernel.  Returns {function: [kernel names]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(13)
+    out = {}
+    for name, fn, mod, attr, shape, stride, rois in (
+            ("roi_align", roi_mod.roi_align, roi_mod, "_roi_align_bwd_cuda", (1, 38, 64, 1024),
+             16, synthetic_rois(rng, 128, 608, 1024)),
+            ("roi_align_stream", stream_mod.roi_align_stream, stream_mod,
+             "_roi_align_stream_bwd_cuda", (1, 152, 256, 256), 4,
+             stream_rois(rng, 128, 608, 1024))):
+        feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, torch.bfloat16)
+        f = feat.requires_grad_()
+        pooled = fn(f, torch.from_numpy(rois[None]).to(dev), (14, 14), 1.0 / stride, 2)
+        g = torch.from_numpy(rng.randn(*pooled.shape).astype(np.float32)).to(dev, torch.bfloat16)
+        written = {}
+        orig = getattr(mod, attr)
+
+        def record(*a, **k):
+            dfeat = orig(*a, **k)
+            written["ptr"], written["dtype"] = dfeat.data_ptr(), dfeat.dtype
+            return dfeat
+
+        torch.cuda.synchronize()
+        setattr(mod, attr, record)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                pooled.backward(g)
+                torch.cuda.synchronize()
+        finally:
+            setattr(mod, attr, orig)
+        names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+        same = f.grad.data_ptr() == written.get("ptr")
+        out[name] = names
+        log(f"  {name} backward on a bf16 map {shape}: the kernel wrote {written.get('dtype')}, "
+            f"the gradient {f.grad.dtype} is its storage: {same}; CUDA kernels profiled {names}")
+        ours = all(any(k in n for k in BF16_BWD_KERNELS) for n in names)
+        if (f.grad.dtype != torch.bfloat16 or written.get("dtype") != torch.bfloat16 or not ours
+                or not (same or names)):
+            raise AssertionError(f"the bf16 {name} backward cast or launched more: {names}, "
+                                 f"gradient {f.grad.dtype}, its kernel's storage {same}")
+    return out
+
+
 def fwd_has_inverted_nonzero(feat, rois, pooled, scale, s) -> bool:
     out = stream_mod._roi_align_stream_cuda(feat, rois, pooled, scale, s)
     return bool(out[~stream_mod.valid_rois(rois, scale)].any())
@@ -3715,6 +3801,8 @@ def bf16_phase(cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mas
     comparisons, the captures, the launch counts by run)."""
     fwd, bwd, stream = bf16_synthetic(dev)
     figs, caps, launches = {}, {}, {}
+    log("[bf16] the backwards of bf16 maps launch their table and stage kernels only (no cast)")
+    figs["backward_kernels"] = bf16_backward_kernels(dev)
     log(f"[bf16] C4 serving, bf16 + FOLD_BN, the calibrated [train] weights: {REQUEST_HW} "
         f"requests and a batch of 2")
     caps["serve"], launches["serve"], figs["serve"] = bf16_serve_c4(cfg, c4_weights, dev)
@@ -3726,9 +3814,9 @@ def bf16_phase(cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mas
     large = SyntheticDataset(num_images=BF16_TRAIN_IMAGES_LARGE, image_size=(480, 640)).gt_roidb()
     log(f"[bf16] C4 training at BATCH_IMAGES {BF16_LARGE_BATCH} (bench.py's configuration) on "
         f"{len(large)} synthetic 480x640 images, {BF16_LARGE_STEPS} steps")
-    _, launches["train_b8"], figs["train_b8"] = bf16_train_cli(
+    caps["train_b8"], launches["train_b8"], figs["train_b8"] = bf16_train_cli(
         cfg, c4_weights, large, dev, f"C4 bf16 train, batch {BF16_LARGE_BATCH}",
-        batch=BF16_LARGE_BATCH, steps=BF16_LARGE_STEPS, keep=0)
+        batch=BF16_LARGE_BATCH, steps=BF16_LARGE_STEPS, keep=1)
     log(f"[bf16] Mask R-CNN training, bf16 + FOLD_BN, {TRAIN_STEPS} steps of fit from the "
         f"calibrated [mask train] weights")
     caps["mask_train"], launches["mask_train"], figs["mask_train"] = bf16_fit(
@@ -3825,11 +3913,11 @@ def stream_fwd_timing(entry, label):
 
 def stream_bwd_work(g, rois, shape, scale):
     """Bytes the streamed backward must move (the cotangents of the valid
-    rois at their dtype's size, the rois, the whole float32 dfeat written
-    once) and its flops."""
+    rois at their dtype's size, the rois, the whole dfeat, of g's dtype,
+    written once) and its flops."""
     keep = stream_mod.valid_rois(rois, scale)
     g_valid = g.numel() // keep.numel() * int(keep.sum())
-    return (g_valid * g.element_size() + (rois.numel() + int(np.prod(shape))) * 4,
+    return ((g_valid + int(np.prod(shape))) * g.element_size() + rois.numel() * 4,
             g_valid * ROI_BWD_FLOPS_PER_G)
 
 
@@ -3872,16 +3960,29 @@ def ptxas_summary(lib):
 # the instances of the redesigned kernels that the paths launch, each by the
 # name printed for it and the piece of its mangled name that picks it out:
 # NMS, kernels 2 and 4 (the forward template <S, Rule, V>, V the four
-# channels a lane: float4 in float32, uint2 in bf16) at s = 2, and the table
-# and tile kernels (template <Rule, kSplit, kTileW, kGroups, V>) of kernel 3,
-# in each cluster size the path picks, and of kernel 5; the table kernel
-# reads no feature, so one instance serves both dtypes
+# channels a lane: float4 in float32, uint2 in bf16) at s = 2, the table
+# and tile kernels (template <Rule, kSplit, kTileW, kGroups, V>) of the
+# float32 kernel 3, in each cluster size the path picks, and of kernel 5,
+# and the table and stage kernels (roi_align_bwd_bf16.cuh, template <Rule,
+# kGroups, kF32Out>) of the bf16 kernels 3 and 5 in each cluster size, with
+# their bf16 epilogue; the table kernel reads no cotangent, so one instance
+# serves both dtypes
+def _table_instance(rule):
+    return {f"roi_table_kernel<{rule}>": f"16roi_table_kernelINS_{len(rule)}{rule}EE"}
+
+
 def _bwd_instances(rule, tiles, vec):
-    table = {f"roi_table_kernel<{rule}>": f"16roi_table_kernelINS_{len(rule)}{rule}EE"}
-    return dict(table, **{
+    return dict(_table_instance(rule), **{
         f"roi_align_tile_bwd_kernel<{rule}, {split}, 8, {g}, {vec}>":
         f"25roi_align_tile_bwd_kernelINS_{len(rule)}{rule}ELi{split}ELi8ELi{g}E{len(vec)}{vec}EE"
         for split, g in tiles})
+
+
+def _stage_instances(rule):
+    return dict(_table_instance(rule), **{
+        f"roi_align_stage_bwd_kernel<{rule}, {g}, false>":
+        f"26roi_align_stage_bwd_kernelINS_{len(rule)}{rule}ELi{g}ELb0EEE"
+        for g in STAGE_GROUPS})
 
 
 def _fwd_instance(rule, vec):
@@ -3891,6 +3992,7 @@ def _fwd_instance(rule, vec):
 
 RESIDENT_TILES = ((8, 1), (8, 2), (8, 4))
 STREAM_TILES = ((4, 1),)
+STAGE_GROUPS = (1, 2, 4, 8)
 PATH_INSTANCES = {
     "nms": {"nms_mask_kernel": "15nms_mask_kernelE",
             "nms_reduce_kernel": "17nms_reduce_kernelE"},
@@ -3900,8 +4002,8 @@ PATH_INSTANCES = {
     "roi_align_stream_bwd": _bwd_instances("StreamTaps", STREAM_TILES, "float4"),
     "roi_align_fwd_bf16": _fwd_instance("ResidentTaps", "uint2"),
     "roi_align_stream_fwd_bf16": _fwd_instance("StreamTaps", "uint2"),
-    "roi_align_bwd_bf16": _bwd_instances("ResidentTaps", RESIDENT_TILES, "uint2"),
-    "roi_align_stream_bwd_bf16": _bwd_instances("StreamTaps", STREAM_TILES, "uint2"),
+    "roi_align_bwd_bf16": _stage_instances("ResidentTaps"),
+    "roi_align_stream_bwd_bf16": _stage_instances("StreamTaps"),
 }
 
 
@@ -3943,11 +4045,12 @@ def f32_same_inputs_ms(kind, entry) -> float:
     return ms
 
 
-def bf16_kernel_entries(redesigned, launches, diffs, timing):
+def bf16_kernel_entries(redesigned, launches, diffs, timing, r32):
     """The kernels line's rows of the four bf16 instances: launches from the
     bf16 C4 train run (kernels 2 and 3) or the bf16 Mask R-CNN train run
     (kernels 4 and 5), with every bf16 run's counts beside them; the errors
-    of every comparison; the times on the bf16 paths' tensors."""
+    of every comparison; the times on the bf16 paths' tensors (the
+    backwards' also at batch 8 and on the mask branch's ``r32`` rois)."""
     fwd, bwd, stream = diffs
 
     def counts(kernel):
@@ -3961,13 +4064,17 @@ def bf16_kernel_entries(redesigned, launches, diffs, timing):
          "launches": launches["train"]["roi_align_fwd_bf16"], **counts("roi_align_fwd_bf16"),
          "max_abs_err": fwd.max_abs_err, "max_bf16_ulps": fwd.ulps, **timing["train_fwd"],
          **_prefixed("serve", timing["serve"]), **_prefixed("mask_p4", timing["p4_fwd"])},
-        {"name": "roi_align_bwd_bf16", **common, "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
+        {"name": "roi_align_bwd_bf16", **common,
+         "source": "mx_rcnn_tpu_torch/csrc/roi_align_bwd_bf16.cuh",
          "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
          "ptxas": redesigned["roi_align_bwd_bf16"],
          "launches": launches["train"]["roi_align_bwd_bf16"], **counts("roi_align_bwd_bf16"),
          "max_abs_err": bwd.max_abs_err, "scaled_err": bwd.scaled_err,
-         "bitwise_repeatable": bwd.repeatable, **timing["train_bwd"],
-         **_prefixed("mask_p4", timing["p4_bwd"])},
+         "bitwise_repeatable": bwd.repeatable, "bf16_epilogue_is_rne": bwd.rounded,
+         **timing["train_bwd"], **_prefixed(f"batch{BF16_LARGE_BATCH}", timing["train_b8_bwd"]),
+         **_prefixed("mask_p4", timing["p4_bwd"]),
+         **{k: v for lv in (4, 5) for k, v in
+            _prefixed(f"mask_p{lv}_r{r32}", timing[f"p{lv}_bwd_r{r32}"]).items()}},
         {"name": "roi_align_stream_fwd_bf16", **common,
          "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
          "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:100",
@@ -3976,21 +4083,48 @@ def bf16_kernel_entries(redesigned, launches, diffs, timing):
          **counts("roi_align_stream_fwd_bf16"), "max_abs_err": fwd.max_abs_err,
          "max_bf16_ulps": fwd.ulps, **timing["p2_fwd"], **_prefixed("p3", timing["p3_fwd"])},
         {"name": "roi_align_stream_bwd_bf16", **common,
-         "source": "mx_rcnn_tpu_torch/csrc/roi_align_stream.cu",
+         "source": "mx_rcnn_tpu_torch/csrc/roi_align_bwd_bf16.cuh",
          "replaces": "mx_rcnn_tpu/ops/pallas/roi_align_stream.py:164",
          "ptxas": redesigned["roi_align_stream_bwd_bf16"],
          "launches": launches["mask_train"]["roi_align_stream_bwd_bf16"],
          **counts("roi_align_stream_bwd_bf16"), "max_abs_err": stream.bwd_err,
          "scaled_err": stream.bwd_scaled, "bitwise_repeatable": stream.repeatable,
-         **timing["p2_bwd"], **_prefixed("p3", timing["p3_bwd"])},
+         "bf16_epilogue_is_rne": stream.rounded,
+         **timing["p2_bwd"], **_prefixed("p3", timing["p3_bwd"]),
+         **{k: v for lv in (2, 3) for k, v in
+            _prefixed(f"p{lv}_r{r32}", timing[f"p{lv}_bwd_r{r32}"]).items()}},
     ]
+
+
+def save_bwd_cases(path, timed):
+    """The bf16 backwards' timed calls (their tensors on the host), for
+    ``tools/kernel_bench.py --cases``: another checkout's kernels timed on
+    the same tensors."""
+    cases = []
+    for name, t in timed.items():
+        entry = t["entry"]
+        if "_bwd" not in name:
+            continue
+        g, rois, shape, pooled, scale, s = entry[:6]
+        cases.append({"kind": "resident" if len(entry) == 7 else "stream", "label": name,
+                      "g": g.cpu(), "rois": rois.cpu(), "shape": list(shape),
+                      "pooled": list(pooled), "scale": scale, "s": s,
+                      "valid_hw": None if len(entry) < 7 or entry[6] is None else entry[6].cpu()})
+    torch.save(cases, path)
+    log(f"  saved {len(cases)} backward cases to {path}")
 
 
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one card.")
+    ap.add_argument("--save-bwd-cases", metavar="FILE",
+                    help="also save the bf16 backwards' timed calls for kernel_bench --cases")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4261,6 +4395,8 @@ def main() -> int:
         "instance on the same tensors cast to float32)")
     box = {k: [e for e in getattr(bf16_caps["mask_train"], k) if e[1].shape[1] == mt.BATCH_ROIS]
            for k in ("roi", "roi_bwd", "stream", "stream_bwd")}
+    branch = {k: [e for e in getattr(bf16_caps["mask_train"], k) if e[1].shape[1] == nfg]
+              for k in ("roi_bwd", "stream_bwd")}
     b16_entries = {
         "serve": (roi_fwd_timing, bf16_caps["serve"].roi[-1], "bf16 C4 serving"),
         "train_fwd": (roi_fwd_timing, bf16_caps["train"].roi[-1], "bf16 C4 train"),
@@ -4271,11 +4407,22 @@ def main() -> int:
                           f"bf16 mask train box P{lv}") for lv in (2, 3)},
         **{f"p{lv}_bwd": (stream_bwd_timing, at_scale(box["stream_bwd"], 0.5 ** lv),
                           f"bf16 mask train box P{lv}") for lv in (2, 3)},
+        "train_b8_bwd": (roi_bwd_timing, bf16_caps["train_b8"].roi_bwd[-1],
+                         f"bf16 C4 train, batch {BF16_LARGE_BATCH}"),
+        **{f"p{lv}_bwd_r{nfg}": (roi_bwd_timing, at_scale(branch["roi_bwd"], 0.5 ** lv),
+                                 f"bf16 mask branch P{lv}") for lv in (4, 5)},
+        **{f"p{lv}_bwd_r{nfg}": (stream_bwd_timing, at_scale(branch["stream_bwd"], 0.5 ** lv),
+                                 f"bf16 mask branch P{lv}") for lv in (2, 3)},
     }
     b16 = {k: dict(fn(entry, label), entry=entry) for k, (fn, entry, label) in b16_entries.items()}
+    if args.save_bwd_cases:
+        save_bwd_cases(args.save_bwd_cases, b16)
     for name, route in (("serve", "fwd"), ("train_fwd", "fwd"), ("train_bwd", "bwd"),
                         ("p4_fwd", "fwd"), ("p4_bwd", "bwd"), ("p2_fwd", "stream"),
-                        ("p2_bwd", "stream_bwd"), ("p3_fwd", "stream"), ("p3_bwd", "stream_bwd")):
+                        ("p2_bwd", "stream_bwd"), ("p3_fwd", "stream"), ("p3_bwd", "stream_bwd"),
+                        ("train_b8_bwd", "bwd"), (f"p4_bwd_r{nfg}", "bwd"),
+                        (f"p5_bwd_r{nfg}", "bwd"), (f"p2_bwd_r{nfg}", "stream_bwd"),
+                        (f"p3_bwd_r{nfg}", "stream_bwd")):
         b16[name]["f32_same_inputs_ms"] = f32_same_inputs_ms(route, b16[name].pop("entry"))
     del fpn_serve_cap, mask_cap, cap_in, mtrain_cap, alt_cap, bf16_caps
 
@@ -4434,7 +4581,8 @@ def main() -> int:
             **_prefixed("p3", stream_bwd_p3), **mask_train_timing("stream_bwd"),
             **alt_launches("roi_align_stream_bwd"),
         },
-        *bf16_kernel_entries(redesigned, bf16_launches, (bf16_fwd, bf16_bwd, bf16_stream), b16),
+        *bf16_kernel_entries(redesigned, bf16_launches, (bf16_fwd, bf16_bwd, bf16_stream), b16,
+                             nfg),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,15 @@
 // mx_rcnn_tpu/ops/roi_align.py::roi_align with valid_hw.
 // Contract: feat (B, H, W, C) f32 or bf16, C % 4 == 0, rois (B, R, 4) f32
 // image coordinates, optional valid_hw (B, 2) f32 -> out (B, R, PH, PW, C)
-// of feat's dtype; the backward reads g of feat's dtype and writes an f32
-// dfeat (the JAX kernel accumulates dfeat in f32 and casts it to the feature
-// dtype outside, roi_align.py:367; so does the wrapper here).  Each dtype
-// has its own exports: roi_align_fwd / roi_align_bwd and
-// roi_align_fwd_bf16 / roi_align_bwd_bf16, instances of the same templates
-// on the element type (float4 or uint2, four channels a lane).  The bf16
+// of feat's dtype; the backward reads g of feat's dtype and writes dfeat of
+// that dtype, summed in f32 (the JAX kernel accumulates dfeat in f32 and
+// casts it to the feature dtype outside, roi_align.py:367; the bf16
+// backward rounds each sum once as it stores it).  Each dtype has its own
+// exports: roi_align_fwd / roi_align_bwd and roi_align_fwd_bf16 /
+// roi_align_bwd_bf16; the forwards are instances of one template on the
+// element type (float4 or uint2, four channels a lane), the bf16 backward is
+// roi_align_bwd_bf16.cuh's (g staged in shared memory by bulk asynchronous
+// copies).  The bf16
 // instances keep the taps, weights and sums in f32 and round the forward's
 // output once, to nearest even, as it is stored; they do not round the
 // interpolation weights or the row sums to bf16 as the TPU kernel's bf16
@@ -59,6 +62,7 @@
 
 #include <cuda_runtime.h>
 
+#include "roi_align_bwd_bf16.cuh"
 #include "roi_align_fwd.cuh"
 #include "roi_align_table.cuh"
 
@@ -112,30 +116,6 @@ extern "C" long long roi_align_bwd_scratch_bytes(int b, int h, int w, int r, int
   return table_scratch_bytes(b, h, w, r, ph, pw, s);
 }
 
-namespace {
-
-// Kernel 3 on g of the element type V: one-row tiles, 8 warps a row; a
-// cluster of 2 or 4 blocks a tile on small maps.
-template <typename V>
-int resident_bwd(const void* g, const float* rois, const float* valid_hw, int b, int h, int w,
-                 int c, int r, int ph, int pw, int s, float scale, void* scratch, float* dfeat,
-                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks = (long long)((w + 7) / 8) * h * b * ((c / 4 + kLanes - 1) / kLanes);
-  if (blocks >= 1216) {
-    return table_bwd<ResidentTaps, 8, 8, 1, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
-                                               scale, scratch, dfeat, st);
-  }
-  if (blocks >= 608) {
-    return table_bwd<ResidentTaps, 8, 8, 2, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
-                                               scale, scratch, dfeat, st);
-  }
-  return table_bwd<ResidentTaps, 8, 8, 4, V>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
-                                             scratch, dfeat, st);
-}
-
-}  // namespace
-
 // g (B, R, PH, PW, C) f32 with C % 4 == 0, rois (B, R, 4) f32, valid_hw
 // (B, 2) f32 or NULL -> dfeat (B, H, W, C) f32, every element written (no
 // zero fill needed); scratch: roi_align_bwd_scratch_bytes of device memory.
@@ -146,15 +126,55 @@ int resident_bwd(const void* g, const float* rois, const float* valid_hw, int b,
 extern "C" int roi_align_bwd(const float* g, const float* rois, const float* valid_hw, int b,
                              int h, int w, int c, int r, int ph, int pw, int s, float scale,
                              void* scratch, float* dfeat, void* stream) {
-  return resident_bwd<float4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale, scratch,
-                              dfeat, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (long long)((w + 7) / 8) * h * b * ((c / 4 + kLanes - 1) / kLanes);
+  if (blocks >= 1216) {
+    return table_bwd<ResidentTaps, 8, 8, 1, float4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                                    scale, scratch, dfeat, st);
+  }
+  if (blocks >= 608) {
+    return table_bwd<ResidentTaps, 8, 8, 2, float4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                                    scale, scratch, dfeat, st);
+  }
+  return table_bwd<ResidentTaps, 8, 8, 4, float4>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                                  scale, scratch, dfeat, st);
 }
 
-// roi_align_bwd of a bf16 g (B, R, PH, PW, C): dfeat stays f32.
+// roi_align_bwd of a bf16 g (B, R, PH, PW, C) -> dfeat (B, H, W, C) bf16,
+// each cell's float32 sum rounded once (roi_align_bwd_bf16.cuh).
 extern "C" int roi_align_bwd_bf16(const __nv_bfloat16* g, const float* rois,
                                   const float* valid_hw, int b, int h, int w, int c, int r,
-                                  int ph, int pw, int s, float scale, void* scratch, float* dfeat,
-                                  void* stream) {
-  return resident_bwd<uint2>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale, scratch,
-                             dfeat, stream);
+                                  int ph, int pw, int s, float scale, void* scratch,
+                                  __nv_bfloat16* dfeat, void* stream) {
+  return stage_bwd<ResidentTaps, false>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                        scratch, dfeat, static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan of roi_align_bwd_bf16 and roi_align_stream_bwd_bf16 (one
+// plan for both tap rules) for tools/kernel_bench.py: into out[0..4] the
+// dynamic shared memory of a block (bytes), the cluster size, the tile's
+// rows, the stages and the blocks.  Returns a cudaError_t.
+extern "C" int roi_align_bwd_bf16_plan(int b, int h, int w, int c, int r, int ph, int pw, int s,
+                                       long long* out) {
+  StageArgs a = {};
+  size_t smem = 0;
+  int groups = 1;
+  if (const int rc = stage_plan(b, h, w, c, r, ph, pw, s, a, smem, groups)) return rc;
+  out[0] = (long long)smem;
+  out[1] = groups;
+  out[2] = a.tile_h;
+  out[3] = a.stages;
+  out[4] = (long long)(w + kCols - 1) / kCols * groups * ((h + a.tile_h - 1) / a.tile_h) * b *
+           a.n_cg;
+  return 0;
+}
+
+// roi_align_bwd_bf16's float32 epilogue: the same sums, stored unrounded in
+// a float32 dfeat.  A measuring aid for the gates, on no path.
+extern "C" int roi_align_bwd_bf16_f32(const __nv_bfloat16* g, const float* rois,
+                                      const float* valid_hw, int b, int h, int w, int c, int r,
+                                      int ph, int pw, int s, float scale, void* scratch,
+                                      float* dfeat, void* stream) {
+  return stage_bwd<ResidentTaps, true>(g, rois, valid_hw, b, h, w, c, r, ph, pw, s, scale,
+                                       scratch, dfeat, static_cast<cudaStream_t>(stream));
 }

@@ -6,10 +6,11 @@
 // _fwd_kernel (entry _fwd_impl, kernel 4) and ::_bwd_kernel (entry
 // _bwd_impl, kernel 5).  Contract: feat (B, H, W, C) f32 or bf16, C % 4 ==
 // 0, rois (B, R, 4) f32 image coordinates -> out (B, R, PH, PW, C) of feat's
-// dtype; the backward reads g of that dtype and writes an f32 dfeat, which
-// the wrapper casts (the JAX kernels' f32 accumulator and cast,
-// roi_align_stream.py:174-181, 316).  The _bf16 exports are the templates'
-// bf16 instances (see roi_align.cu).  The samples
+// dtype; the backward reads g of that dtype and writes dfeat of that dtype,
+// summed in f32 (the JAX kernels' f32 accumulator and cast,
+// roi_align_stream.py:174-181, 316).  The _bf16 exports are the forward
+// template's bf16 instance and roi_align_bwd_bf16.cuh's backward (see
+// roi_align.cu).  The samples
 // are kernel 2's, clamped to the canvas (roi_align_taps.cuh: bit-identical
 // positions).  A roi whose scaled x2 < x1 is invalid (the TPU kernels' filler
 // rule): its output is zeros and it adds nothing to dfeat.
@@ -39,6 +40,7 @@
 
 #include <cuda_runtime.h>
 
+#include "roi_align_bwd_bf16.cuh"
 #include "roi_align_fwd.cuh"
 #include "roi_align_table.cuh"
 
@@ -79,12 +81,22 @@ extern "C" int roi_align_stream_bwd(const float* g, const float* rois, int b,
                                                 static_cast<cudaStream_t>(stream));
 }
 
-// roi_align_stream_bwd of a bf16 g: dfeat stays f32.
+// roi_align_stream_bwd of a bf16 g -> dfeat (B, H, W, C) bf16, each cell's
+// float32 sum rounded once (roi_align_bwd_bf16.cuh).
 extern "C" int roi_align_stream_bwd_bf16(const __nv_bfloat16* g, const float* rois, int b,
                                          int h, int w, int c, int r, int ph, int pw, int s,
-                                         float scale, void* scratch, float* dfeat,
+                                         float scale, void* scratch, __nv_bfloat16* dfeat,
                                          void* stream) {
-  return table_bwd<StreamTaps, 4, 8, 1, uint2>(g, rois, nullptr, b, h, w, c, r, ph, pw, s,
-                                               scale, scratch, dfeat,
-                                               static_cast<cudaStream_t>(stream));
+  return stage_bwd<StreamTaps, false>(g, rois, nullptr, b, h, w, c, r, ph, pw, s, scale,
+                                      scratch, dfeat, static_cast<cudaStream_t>(stream));
+}
+
+// roi_align_stream_bwd_bf16's float32 epilogue: the same sums, stored
+// unrounded in a float32 dfeat.  A measuring aid for the gates, on no path.
+extern "C" int roi_align_stream_bwd_bf16_f32(const __nv_bfloat16* g, const float* rois, int b,
+                                             int h, int w, int c, int r, int ph, int pw, int s,
+                                             float scale, void* scratch, float* dfeat,
+                                             void* stream) {
+  return stage_bwd<StreamTaps, true>(g, rois, nullptr, b, h, w, c, r, ph, pw, s, scale,
+                                     scratch, dfeat, static_cast<cudaStream_t>(stream));
 }

@@ -25,8 +25,8 @@
 // the warp's partial sums (kTileW cells x 128 channels).  A cell's entries
 // are sorted by bin, so it takes its terms in the order of its entries, and
 // each g element a visit needs is loaded once.
-// The cotangent g is float32 or bfloat16 (the element type V, four channels a
-// lane, widened to float32 as it is loaded); the sums and dfeat are float32.
+// The cotangent g is float32 (the element type V, four channels a lane; a
+// bfloat16 g goes to roi_align_bwd_bf16.cuh); the sums and dfeat are float32.
 // After one barrier (a cluster barrier for kGroups > 1) each cell is
 // written once, its partial sums added in block order, then warp order, and
 // divided by s * s.  No zero fill, no atomics, and a fixed sum order (rois,
@@ -365,10 +365,22 @@ inline long long table_scratch_bytes(int b, int h, int w, int r, int ph, int pw,
   return (long long)b * r * TableLayout(h, w, ph, pw, s).bytes;
 }
 
+// The table launch on `stream`: one table per (image, roi) into `table`
+// (valid_hw is read under ResidentTaps only).  Returns a cudaError_t.
+template <typename Rule>
+int launch_roi_tables(const float* rois, const float* valid_hw, int b, int h, int w, int r,
+                      int ph, int pw, int s, float scale, char* table, cudaStream_t stream) {
+  const size_t smem = (sizeof(Tap) + 2 * sizeof(Entry)) * (ph + pw) * s;
+  if (const int rc = set_smem(roi_table_kernel<Rule>, smem)) return rc;
+  roi_table_kernel<Rule><<<dim3(r, b), kTableThreads, smem, stream>>>(
+      rois, valid_hw, h, w, r, ph, pw, s, scale, table);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Both launches of the backward on `stream`: the tables (valid_hw is read
 // under ResidentTaps only), then the tiles, in clusters of kGroups blocks a
-// tile when kGroups > 1, reading g of the element type V (float4: f32, uint2:
-// bf16).  Every dfeat element is written.  Returns a cudaError_t.
+// tile when kGroups > 1, reading g of the element type V (float4: f32).
+// Every dfeat element is written.  Returns a cudaError_t.
 template <typename Rule, int kSplit, int kTileW, int kGroups, typename V>
 int table_bwd(const void* g, const float* rois, const float* valid_hw, int b, int h, int w,
               int c, int r, int ph, int pw, int s, float scale, void* scratch, float* dfeat,
@@ -380,12 +392,10 @@ int table_bwd(const void* g, const float* rois, const float* valid_hw, int b, in
   }
   char* table = static_cast<char*>(scratch);
   if (r > 0) {
-    const size_t smem = (sizeof(Tap) + 2 * sizeof(Entry)) * (ph + pw) * s;
-    if (const int rc = set_smem(roi_table_kernel<Rule>, smem)) return rc;
-    roi_table_kernel<Rule><<<dim3(r, b), kTableThreads, smem, stream>>>(
-        rois, valid_hw, h, w, r, ph, pw, s, scale, table);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (const int rc = launch_roi_tables<Rule>(rois, valid_hw, b, h, w, r, ph, pw, s, scale,
+                                               table, stream)) {
+      return rc;
+    }
   }
   constexpr int kTileH = kWarps / kSplit;
   const int c4 = c / 4, n_cs = (c4 + kLanes - 1) / kLanes;

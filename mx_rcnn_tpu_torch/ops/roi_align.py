@@ -18,9 +18,12 @@ Features are float32 or bfloat16 (the compute dtype), each dtype its own
 instance of each kernel with its own launch count (:data:`FWD_KERNELS`,
 :data:`BWD_KERNELS`): taps, weights and sums in float32, the forward's output
 rounded once to the feature's dtype; the backward reads a cotangent of that
-dtype and writes a float32 dfeat, which ``RoIAlignFunction`` casts to the
-feature's dtype, as the JAX package's ``_roi_align_bwd_impl`` does.  No
-tensor is converted to reach a kernel: another dtype raises.
+dtype and writes dfeat in it, the bf16 kernel rounding each float32 sum once
+as it stores it (the JAX package's ``_roi_align_bwd_impl`` casts its float32
+sum outside the kernel: the same values).  The bf16 backward's float32
+epilogue (:data:`bwd_kernel_bf16_f32`, the same sums unrounded) is a
+measuring aid for the card's gates, on no path.  No tensor is converted to
+reach a kernel: another dtype raises.
 
 :func:`extract_roi_features_batched` routes as the JAX package does: maps
 that :func:`fits_vmem` go to :func:`roi_align` (kernels 2/3), larger ones in
@@ -51,6 +54,8 @@ kernel = CudaKernel(library, "roi_align_fwd", _IN_ARGS + (ctypes.c_void_p,) * 2)
 bwd_kernel = CudaKernel(library, "roi_align_bwd", _IN_ARGS + (ctypes.c_void_p,) * 3)
 kernel_bf16 = CudaKernel(library, "roi_align_fwd_bf16", _IN_ARGS + (ctypes.c_void_p,) * 2)
 bwd_kernel_bf16 = CudaKernel(library, "roi_align_bwd_bf16", _IN_ARGS + (ctypes.c_void_p,) * 3)
+# the bf16 backward with a float32 epilogue: its sums unrounded, for the gates
+bwd_kernel_bf16_f32 = CudaKernel(library, "roi_align_bwd_bf16_f32", bwd_kernel_bf16.argtypes)
 # the instance for each feature (forward) or cotangent (backward) dtype
 FWD_KERNELS = {torch.float32: kernel, torch.bfloat16: kernel_bf16}
 BWD_KERNELS = {torch.float32: bwd_kernel, torch.bfloat16: bwd_kernel_bf16}
@@ -230,10 +235,14 @@ def bwd_scratch(b, h, w, r, pooled, sample_ratio, device) -> torch.Tensor:
                          sample_ratio, device)
 
 
-def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio, valid_hw):
-    """The float32 dfeat of a cotangent ``g`` of either dtype (kernel 3)."""
+def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio, valid_hw,
+                        f32_sum=False):
+    """The dfeat of a cotangent ``g`` of either dtype (kernel 3), of ``g``'s
+    dtype; ``f32_sum`` takes a bf16 ``g``'s float32 sums unrounded (the
+    gates' float32-epilogue instance)."""
     g = kernel_input("g", g, tuple(BWD_KERNELS), 5)
-    launch = BWD_KERNELS[g.dtype]
+    f32_sum = f32_sum and g.dtype == torch.bfloat16
+    launch = bwd_kernel_bf16_f32 if f32_sum else BWD_KERNELS[g.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat_shape
     r = rois.shape[1]
@@ -244,7 +253,8 @@ def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio
         )
     valid_hw = _kernel_valid_hw(valid_hw, b)
     # every element is written by the kernel: no zero fill
-    dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    dtype = torch.float32 if f32_sum else g.dtype
+    dfeat = torch.empty((b, h, w, c), dtype=dtype, device=g.device)
     with torch.cuda.device(g.device):
         scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
         launch(
@@ -257,27 +267,26 @@ def _roi_align_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio
 
 class RoIAlignFunction(torch.autograd.Function):
     """ROIAlign on CUDA tensors: the forward launches kernel 2, the
-    backward kernel 3, each in the feature's dtype; the backward's float32
-    dfeat is cast to that dtype here.  ``rois`` and ``valid_hw`` get no
-    gradient, as the JAX vjp returns zeros for the rois (proposals are a
-    stop-gradient input of the second stage)."""
+    backward kernel 3, each in the feature's dtype (the bf16 backward
+    rounds its float32 sums into a bf16 dfeat itself).  ``rois`` and
+    ``valid_hw`` get no gradient, as the JAX vjp returns zeros for the rois
+    (proposals are a stop-gradient input of the second stage)."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale, sample_ratio, valid_hw):
         ctx.save_for_backward(rois, valid_hw)
-        ctx.meta = (tuple(feat.shape), feat.dtype, pooled, spatial_scale, sample_ratio)
+        ctx.meta = (tuple(feat.shape), pooled, spatial_scale, sample_ratio)
         return _roi_align_cuda(feat, rois, pooled, spatial_scale, sample_ratio, valid_hw)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         rois, valid_hw = ctx.saved_tensors
-        shape, dtype, pooled, spatial_scale, sample_ratio = ctx.meta
+        shape, pooled, spatial_scale, sample_ratio = ctx.meta
         dfeat = None
         if ctx.needs_input_grad[0]:
-            dfeat = _roi_align_bwd_cuda(
-                g, rois, shape, pooled, spatial_scale, sample_ratio, valid_hw
-            ).to(dtype)
+            dfeat = _roi_align_bwd_cuda(g, rois, shape, pooled, spatial_scale, sample_ratio,
+                                        valid_hw)
         return dfeat, None, None, None, None, None
 
 

@@ -14,8 +14,10 @@ scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_stream_plain`, which torch autograd differentiates, and
 :func:`roi_align_stream_bwd_plain` is the backward's plain version.  As in
 ``ops/roi_align.py``, float32 and bfloat16 features each have their own
-instance of each kernel (:data:`FWD_KERNELS`, :data:`BWD_KERNELS`), and the
-float32 dfeat of the backward is cast to the feature's dtype outside it.
+instance of each kernel (:data:`FWD_KERNELS`, :data:`BWD_KERNELS`); the
+backward writes dfeat in the cotangent's dtype (the bf16 kernel rounds each
+float32 sum once as it stores it), and :data:`bwd_kernel_bf16_f32`, its
+float32 epilogue, is the card's gates' measuring aid, on no path.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ bwd_kernel = CudaKernel(
 )
 fwd_kernel_bf16 = CudaKernel(library, "roi_align_stream_fwd_bf16", fwd_kernel.argtypes)
 bwd_kernel_bf16 = CudaKernel(library, "roi_align_stream_bwd_bf16", bwd_kernel.argtypes)
+# the bf16 backward with a float32 epilogue: its sums unrounded, for the gates
+bwd_kernel_bf16_f32 = CudaKernel(library, "roi_align_stream_bwd_bf16_f32", bwd_kernel.argtypes)
 # the instance for each feature (forward) or cotangent (backward) dtype
 FWD_KERNELS = {torch.float32: fwd_kernel, torch.bfloat16: fwd_kernel_bf16}
 BWD_KERNELS = {torch.float32: bwd_kernel, torch.bfloat16: bwd_kernel_bf16}
@@ -121,10 +125,14 @@ def _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio):
     return out
 
 
-def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio):
-    """The float32 dfeat of a cotangent ``g`` of either dtype (kernel 5)."""
+def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sample_ratio,
+                               f32_sum=False):
+    """The dfeat of a cotangent ``g`` of either dtype (kernel 5), of ``g``'s
+    dtype; ``f32_sum`` takes a bf16 ``g``'s float32 sums unrounded (the
+    gates' float32-epilogue instance)."""
     g = kernel_input("g", g, tuple(BWD_KERNELS), 5)
-    launch = BWD_KERNELS[g.dtype]
+    f32_sum = f32_sum and g.dtype == torch.bfloat16
+    launch = bwd_kernel_bf16_f32 if f32_sum else BWD_KERNELS[g.dtype]
     rois = kernel_input("rois", rois, torch.float32, 3)
     b, h, w, c = feat_shape
     r = rois.shape[1]
@@ -134,7 +142,8 @@ def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sampl
             f"g {tuple(g.shape)} / rois {tuple(rois.shape)} / feat {tuple(feat_shape)} (C % 4 == 0)"
         )
     # every element is written by the kernel: no zero fill
-    dfeat = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
+    dtype = torch.float32 if f32_sum else g.dtype
+    dfeat = torch.empty((b, h, w, c), dtype=dtype, device=g.device)
     with torch.cuda.device(g.device):
         scratch = bwd_scratch(b, h, w, r, pooled, sample_ratio, g.device)
         launch(
@@ -147,26 +156,25 @@ def _roi_align_stream_bwd_cuda(g, rois, feat_shape, pooled, spatial_scale, sampl
 
 class RoIAlignStreamFunction(torch.autograd.Function):
     """Streamed ROIAlign on CUDA tensors: the forward launches kernel 4, the
-    backward kernel 5, each in the feature's dtype; the backward's float32
-    dfeat is cast to that dtype here.  ``rois`` get no gradient, as the JAX
+    backward kernel 5, each in the feature's dtype (the bf16 backward
+    rounds its float32 sums into a bf16 dfeat itself).  ``rois`` get no gradient, as the JAX
     vjp returns zeros for them."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled, spatial_scale, sample_ratio):
         ctx.save_for_backward(rois)
-        ctx.meta = (tuple(feat.shape), feat.dtype, pooled, spatial_scale, sample_ratio)
+        ctx.meta = (tuple(feat.shape), pooled, spatial_scale, sample_ratio)
         return _roi_align_stream_cuda(feat, rois, pooled, spatial_scale, sample_ratio)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (rois,) = ctx.saved_tensors
-        shape, dtype, pooled, spatial_scale, sample_ratio = ctx.meta
+        shape, pooled, spatial_scale, sample_ratio = ctx.meta
         dfeat = None
         if ctx.needs_input_grad[0]:
-            dfeat = _roi_align_stream_bwd_cuda(
-                g, rois, shape, pooled, spatial_scale, sample_ratio
-            ).to(dtype)
+            dfeat = _roi_align_stream_bwd_cuda(g, rois, shape, pooled, spatial_scale,
+                                               sample_ratio)
         return dfeat, None, None, None, None
 
 

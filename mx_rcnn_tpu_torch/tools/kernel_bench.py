@@ -20,6 +20,15 @@ for kernel 3 the wrapper launched eagerly as well.  The ptxas lines
 (registers, spills) of every library come first, then a digest of each
 kernel's SASS (``cuobjdump``: equal digests in two checkouts mean the
 same machine code); the last line is one JSON object of every number.
+
+``--bf16`` times the bf16 backwards (kernels 3 and 5 on a bf16 cotangent)
+on the same synthetic cases; ``--cases FILE`` times them instead on the
+cases in FILE (a ``torch.save`` of a list of dicts: ``kind`` "resident" or
+"stream", ``label``, ``g``, ``rois``, ``shape``, ``pooled``, ``scale``,
+``s``, ``valid_hw``; ``chip_smoke.py --save-bwd-cases`` writes the bf16
+paths' captured calls), so that two checkouts' kernels are timed on the
+same tensors; ``--sass-dump DIR`` writes each library's whole SASS into
+DIR.
 """
 
 from __future__ import annotations
@@ -314,10 +323,49 @@ def stream_fwd_bench(label, feat, rois, scale, reps) -> dict:
     return res
 
 
+def bwd_case_bench(case, reps) -> dict:
+    """A backward of one saved case through the package's wrapper for its
+    cotangent's dtype: graph ms, and each CUDA kernel's ms."""
+    g, rois, shape = case["g"].cuda(), case["rois"].cuda(), tuple(case["shape"])
+    valid_hw = None if case.get("valid_hw") is None else case["valid_hw"].cuda()
+    pooled, scale, s = tuple(case["pooled"]), case["scale"], case["s"]
+    if case["kind"] == "stream":
+        call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)  # noqa: E731
+    else:
+        call = lambda: roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)  # noqa: E731
+    res = {"ms": graph_ms(call, reps), "kernels_ms": kernel_ms(call), "g": list(g.shape),
+           "dtype": str(g.dtype), "out_dtype": str(call().dtype)}
+    plan = getattr(roi_mod.library.lib(), "roi_align_bwd_bf16_plan", None)
+    if plan is not None and g.dtype == torch.bfloat16:
+        out = (ctypes.c_longlong * 5)()
+        plan.argtypes = (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+        plan.restype = ctypes.c_int
+        b, h, w, c = shape
+        if plan(b, h, w, c, g.shape[1], pooled[0], pooled[1], s, out) == 0:
+            res["plan"] = dict(zip(("smem_bytes", "cluster", "tile_rows", "stages", "blocks"),
+                                   list(out)))
+            print(f"    plan {res['plan']}", flush=True)
+    print(f"  {case['kind']} bwd {case['label']} g {tuple(g.shape)} {g.dtype}: {res['ms']:.4f} ms "
+          "(graph); " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
+    return res
+
+
+def sass_dump(lib, out_dir: str) -> None:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-sass", str(lib.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{lib.source.stem}.sass"), "w") as f:
+        f.write(dump)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="calls in each timed CUDA graph")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true", help="also time the bf16 backwards")
+    ap.add_argument("--cases", help="time only the backwards of the saved cases in this file")
+    ap.add_argument("--sass-dump", help="write each library's SASS into this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
@@ -336,6 +384,14 @@ def main(argv=None) -> int:
         result["sass"][lib.source.name] = sass_digests(lib)
         for name, digest in result["sass"][lib.source.name].items():
             print(f"  {lib.source.name} SASS {name[:90]}: {digest}", flush=True)
+        if args.sass_dump:
+            sass_dump(lib, args.sass_dump)
+    if args.cases:
+        result["cases"] = {c["label"]: bwd_case_bench(c, args.reps)
+                           for c in torch.load(args.cases, weights_only=False)}
+        print(json.dumps(result), flush=True)
+        return 0
+    result["bf16_bwd"] = {}
     rng = np.random.RandomState(args.seed)
     for label, boxes, valid, thresh, max_keep in nms_cases(rng, dev):
         call = lambda: nms_mod.nms_mask_sorted(boxes, valid, thresh, max_keep)  # noqa: E731
@@ -350,6 +406,12 @@ def main(argv=None) -> int:
         if valid_hw is None:
             result["roi_bwd"][label] = roi_bwd_bench(label, shape, rois, valid_hw, scale,
                                                      args.reps, dev)
+            if args.bf16:
+                g = torch.from_numpy(rng.randn(shape[0], rois.shape[1], 14, 14, shape[3])
+                                     .astype(np.float32)).to(dev, torch.bfloat16)
+                result["bf16_bwd"][label] = bwd_case_bench(
+                    {"kind": "resident", "label": label, "g": g, "rois": rois, "shape": shape,
+                     "pooled": (14, 14), "scale": scale, "s": 2}, args.reps)
     for label, g, rois, shape, scale in stream_cases(rng, dev):
         feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
         result["stream_fwd"][label] = stream_fwd_bench(label, feat, rois, scale, args.reps)
@@ -359,6 +421,11 @@ def main(argv=None) -> int:
         result["stream_bwd"][label] = {"ms": ms, "kernels_ms": per}
         print(f"  roi_align_stream_bwd {label}: {ms:.4f} ms (graph); "
               + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+        if args.bf16:
+            result["bf16_bwd"][f"stream {label}"] = bwd_case_bench(
+                {"kind": "stream", "label": f"stream {label}", "g": g.to(torch.bfloat16),
+                 "rois": rois, "shape": shape, "pooled": (14, 14), "scale": scale, "s": 2},
+                args.reps)
     print(json.dumps(result), flush=True)
     return 0
 
