@@ -201,8 +201,11 @@
    and on;
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
-   mask branch's R = 32 calls; ``--save-bwd-cases FILE`` saves those calls
-   for ``tools/kernel_bench.py --cases``): NMS and kernel 2 at the serving
+   mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
+   Mask R-CNN serving forward's eight calls, each bf16 forward's launch plan
+   held to its Python twin; ``--save-bwd-cases FILE`` and
+   ``--save-fwd-cases FILE`` save those calls for ``tools/kernel_bench.py
+   --cases``): NMS and kernel 2 at the serving
    shapes (the batch-of-2 call), NMS and kernels 2–3 at the C4 train shapes,
    and at the FPN train shapes NMS, kernels 4–5 at P2 and P3, kernels 2–3
    at P4 and, for the comparison of the two tap rules' kernels, at P2 (and
@@ -3959,8 +3962,9 @@ def ptxas_summary(lib):
 
 # the instances of the redesigned kernels that the paths launch, each by the
 # name printed for it and the piece of its mangled name that picks it out:
-# NMS, kernels 2 and 4 (the forward template <S, Rule, V>, V the four
-# channels a lane: float4 in float32, uint2 in bf16) at s = 2, the table
+# NMS, kernels 2 and 4 at s = 2 (the float32 forward template <S, Rule, V>,
+# V the four channels a lane, float4; the bf16 forward's <S, Rule, V>, V a
+# lane's 16-byte vector of eight channels, uint4, at the path's widths), the table
 # and tile kernels (template <Rule, kSplit, kTileW, kGroups, V>) of the
 # float32 kernel 3, in each cluster size the path picks, and of kernel 5,
 # and the table and stage kernels (roi_align_bwd_bf16.cuh, template <Rule,
@@ -3985,9 +3989,9 @@ def _stage_instances(rule):
         for g in STAGE_GROUPS})
 
 
-def _fwd_instance(rule, vec):
-    return {f"roi_align_fwd_kernel<2, {rule}, {vec}>":
-            f"20roi_align_fwd_kernelILi2ENS_{len(rule)}{rule}E{len(vec)}{vec}EE"}
+def _fwd_instance(rule, vec, kernel="roi_align_fwd_kernel"):
+    return {f"{kernel}<2, {rule}, {vec}>":
+            f"{len(kernel)}{kernel}ILi2ENS_{len(rule)}{rule}E{len(vec)}{vec}EE"}
 
 
 RESIDENT_TILES = ((8, 1), (8, 2), (8, 4))
@@ -4000,8 +4004,8 @@ PATH_INSTANCES = {
     "roi_align_stream_fwd": _fwd_instance("StreamTaps", "float4"),
     "roi_align_bwd": _bwd_instances("ResidentTaps", RESIDENT_TILES, "float4"),
     "roi_align_stream_bwd": _bwd_instances("StreamTaps", STREAM_TILES, "float4"),
-    "roi_align_fwd_bf16": _fwd_instance("ResidentTaps", "uint2"),
-    "roi_align_stream_fwd_bf16": _fwd_instance("StreamTaps", "uint2"),
+    "roi_align_fwd_bf16": _fwd_instance("ResidentTaps", "uint4", "roi_align_fwd_bf16_kernel"),
+    "roi_align_stream_fwd_bf16": _fwd_instance("StreamTaps", "uint4", "roi_align_fwd_bf16_kernel"),
     "roi_align_bwd_bf16": _stage_instances("ResidentTaps"),
     "roi_align_stream_bwd_bf16": _stage_instances("StreamTaps"),
 }
@@ -4045,6 +4049,32 @@ def f32_same_inputs_ms(kind, entry) -> float:
     return ms
 
 
+def mask_serve_calls(cap) -> dict:
+    """The bf16 Mask R-CNN batch-of-2 forward's kernel 2 calls, by name:
+    the box head's P2..P5 (mask_serve_box_p2..), then the mask head's."""
+    calls = cap.roi[-MASK_BF16_SERVE_LAUNCHES["roi_align_fwd_bf16"]:]
+    out = {}
+    for i, entry in enumerate(calls):
+        head = "box" if i < 4 else "mask"
+        level = int(round(-np.log2(entry[3])))
+        out[f"mask_serve_{head}_p{level}"] = entry
+    if sorted(out) != sorted(f"mask_serve_{h}_p{lv}" for h in ("box", "mask")
+                              for lv in (2, 3, 4, 5)):
+        raise AssertionError(f"the bf16 mask serving forward's calls are {sorted(out)}")
+    return out
+
+
+def bf16_fwd_plan(entry) -> dict:
+    """The library's launch plan of a bf16 forward call, which must be its
+    Python twin's (``ops/roi_align.py::fwd_bf16_plan``)."""
+    feat, rois, pooled, _, s = entry[:5]
+    args = tuple(feat.shape) + (rois.shape[1], tuple(pooled), s)
+    plan = roi_mod.fwd_bf16_plan_of_library(*args)
+    if plan != roi_mod.fwd_bf16_plan(*args):
+        raise AssertionError(f"bf16 forward plan {plan} != its twin {roi_mod.fwd_bf16_plan(*args)}")
+    return plan
+
+
 def bf16_kernel_entries(redesigned, launches, diffs, timing, r32):
     """The kernels line's rows of the four bf16 instances: launches from the
     bf16 C4 train run (kernels 2 and 3) or the bf16 Mask R-CNN train run
@@ -4063,7 +4093,9 @@ def bf16_kernel_entries(redesigned, launches, diffs, timing, r32):
          "ptxas": redesigned["roi_align_fwd_bf16"],
          "launches": launches["train"]["roi_align_fwd_bf16"], **counts("roi_align_fwd_bf16"),
          "max_abs_err": fwd.max_abs_err, "max_bf16_ulps": fwd.ulps, **timing["train_fwd"],
-         **_prefixed("serve", timing["serve"]), **_prefixed("mask_p4", timing["p4_fwd"])},
+         **_prefixed("serve", timing["serve"]), **_prefixed("mask_p4", timing["p4_fwd"]),
+         **{k: v for name, t in timing.items() if name.startswith("mask_serve_")
+            for k, v in _prefixed(name, t).items()}},
         {"name": "roi_align_bwd_bf16", **common,
          "source": "mx_rcnn_tpu_torch/csrc/roi_align_bwd_bf16.cuh",
          "replaces": "mx_rcnn_tpu/ops/pallas/roi_align.py:148",
@@ -4096,22 +4128,28 @@ def bf16_kernel_entries(redesigned, launches, diffs, timing, r32):
     ]
 
 
-def save_bwd_cases(path, timed):
-    """The bf16 backwards' timed calls (their tensors on the host), for
-    ``tools/kernel_bench.py --cases``: another checkout's kernels timed on
-    the same tensors."""
+def save_cases(path, timed, forward):
+    """The bf16 forwards' or backwards' timed calls (their tensors on the
+    host), for ``tools/kernel_bench.py --cases``: another checkout's kernels
+    timed on the same tensors."""
     cases = []
     for name, t in timed.items():
-        entry = t["entry"]
-        if "_bwd" not in name:
-            continue
-        g, rois, shape, pooled, scale, s = entry[:6]
-        cases.append({"kind": "resident" if len(entry) == 7 else "stream", "label": name,
-                      "g": g.cpu(), "rois": rois.cpu(), "shape": list(shape),
-                      "pooled": list(pooled), "scale": scale, "s": s,
-                      "valid_hw": None if len(entry) < 7 or entry[6] is None else entry[6].cpu()})
+        entry, route = t["entry"], t["route"]
+        host = None if entry[-1] is None or not torch.is_tensor(entry[-1]) else entry[-1].cpu()
+        if forward and route in ("fwd", "stream"):
+            feat, rois, pooled, scale, s = entry[:5]
+            cases.append({"kind": "resident_fwd" if route == "fwd" else "stream_fwd",
+                          "label": name, "feat": feat.cpu(), "rois": rois.cpu(),
+                          "pooled": list(pooled), "scale": scale, "s": s,
+                          "valid_hw": host if route == "fwd" else None})
+        elif not forward and route in ("bwd", "stream_bwd"):
+            g, rois, shape, pooled, scale, s = entry[:6]
+            cases.append({"kind": "resident" if route == "bwd" else "stream", "label": name,
+                          "g": g.cpu(), "rois": rois.cpu(), "shape": list(shape),
+                          "pooled": list(pooled), "scale": scale, "s": s,
+                          "valid_hw": host if route == "bwd" else None})
     torch.save(cases, path)
-    log(f"  saved {len(cases)} backward cases to {path}")
+    log(f"  saved {len(cases)} {'forward' if forward else 'backward'} cases to {path}")
 
 
 def _prefixed(prefix, d):
@@ -4124,6 +4162,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one card.")
     ap.add_argument("--save-bwd-cases", metavar="FILE",
                     help="also save the bf16 backwards' timed calls for kernel_bench --cases")
+    ap.add_argument("--save-fwd-cases", metavar="FILE",
+                    help="also save the bf16 forwards' timed calls for kernel_bench --cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4413,17 +4453,21 @@ def main(argv=None) -> int:
                                  f"bf16 mask branch P{lv}") for lv in (4, 5)},
         **{f"p{lv}_bwd_r{nfg}": (stream_bwd_timing, at_scale(branch["stream_bwd"], 0.5 ** lv),
                                  f"bf16 mask branch P{lv}") for lv in (2, 3)},
+        **{name: (roi_fwd_timing, entry, f"bf16 mask serving, {name.split('_')[2]} head P{name[-1]}")
+           for name, entry in mask_serve_calls(bf16_caps["mask_serve"]).items()},
     }
-    b16 = {k: dict(fn(entry, label), entry=entry) for k, (fn, entry, label) in b16_entries.items()}
+    routes = {roi_fwd_timing: "fwd", roi_bwd_timing: "bwd", stream_fwd_timing: "stream",
+              stream_bwd_timing: "stream_bwd"}
+    b16 = {k: dict(fn(entry, label), entry=entry, route=routes[fn])
+           for k, (fn, entry, label) in b16_entries.items()}
     if args.save_bwd_cases:
-        save_bwd_cases(args.save_bwd_cases, b16)
-    for name, route in (("serve", "fwd"), ("train_fwd", "fwd"), ("train_bwd", "bwd"),
-                        ("p4_fwd", "fwd"), ("p4_bwd", "bwd"), ("p2_fwd", "stream"),
-                        ("p2_bwd", "stream_bwd"), ("p3_fwd", "stream"), ("p3_bwd", "stream_bwd"),
-                        ("train_b8_bwd", "bwd"), (f"p4_bwd_r{nfg}", "bwd"),
-                        (f"p5_bwd_r{nfg}", "bwd"), (f"p2_bwd_r{nfg}", "stream_bwd"),
-                        (f"p3_bwd_r{nfg}", "stream_bwd")):
-        b16[name]["f32_same_inputs_ms"] = f32_same_inputs_ms(route, b16[name].pop("entry"))
+        save_cases(args.save_bwd_cases, b16, forward=False)
+    if args.save_fwd_cases:
+        save_cases(args.save_fwd_cases, b16, forward=True)
+    for name, t in b16.items():
+        if t["route"] in ("fwd", "stream"):
+            t["plan"] = bf16_fwd_plan(t["entry"])
+        t["f32_same_inputs_ms"] = f32_same_inputs_ms(t.pop("route"), t.pop("entry"))
     del fpn_serve_cap, mask_cap, cap_in, mtrain_cap, alt_cap, bf16_caps
 
     log("[profile] where one request's device time goes")

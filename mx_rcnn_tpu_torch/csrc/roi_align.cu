@@ -14,8 +14,9 @@
 // casts it to the feature dtype outside, roi_align.py:367; the bf16
 // backward rounds each sum once as it stores it).  Each dtype has its own
 // exports: roi_align_fwd / roi_align_bwd and roi_align_fwd_bf16 /
-// roi_align_bwd_bf16; the forwards are instances of one template on the
-// element type (float4 or uint2, four channels a lane), the bf16 backward is
+// roi_align_bwd_bf16; the float32 forward is roi_align_fwd.cuh's template,
+// the bf16 one roi_align_fwd_bf16.cuh's (16-byte lanes, the feature columns
+// staged by cp.async ahead of a walk by column), the bf16 backward
 // roi_align_bwd_bf16.cuh's (g staged in shared memory by bulk asynchronous
 // copies).  The bf16
 // instances keep the taps, weights and sums in f32 and round the forward's
@@ -31,7 +32,7 @@
 // _feat_limits).  roi_align_taps.cuh puts every sample at the same position
 // in all four ROIAlign kernels.
 //
-// Kernel 2, forward: roi_align_fwd.cuh's separable template under
+// Kernel 2, forward in float32: roi_align_fwd.cuh's separable template under
 // ResidentTaps (one block per roi, channel slice and image; a warp on an
 // output row, holding the y lerps of the last two columns in registers;
 // streaming stores, so the 482 MB of the serving call evict less of the two
@@ -64,6 +65,7 @@
 
 #include "roi_align_bwd_bf16.cuh"
 #include "roi_align_fwd.cuh"
+#include "roi_align_fwd_bf16.cuh"
 #include "roi_align_table.cuh"
 
 namespace {
@@ -90,14 +92,31 @@ extern "C" int roi_align_fwd(const float* feat, const float* rois, const float* 
                                                     static_cast<cudaStream_t>(stream));
 }
 
-// roi_align_fwd on bf16 features: out (B, R, PH, PW, C) bf16.
+// roi_align_fwd on bf16 features: out (B, R, PH, PW, C) bf16, the same
+// float32 sums rounded once (roi_align_fwd_bf16.cuh).
 extern "C" int roi_align_fwd_bf16(const __nv_bfloat16* feat, const float* rois,
                                   const float* valid_hw, int b, int h, int w, int c, int r,
                                   int ph, int pw, int s, float scale, __nv_bfloat16* out,
                                   void* stream) {
-  return roi_align_fwd_launch<ResidentTaps, uint2>(feat, rois, valid_hw, b, h, w, c, r, ph,
-                                                   pw, s, scale, out,
-                                                   static_cast<cudaStream_t>(stream));
+  return roi_align_fwd_bf16_launch<ResidentTaps>(feat, rois, valid_hw, b, h, w, c, r, ph, pw, s,
+                                                 scale, out, static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan of roi_align_fwd_bf16 and roi_align_stream_fwd_bf16 (one
+// plan for both tap rules): into out[0..5] the bytes of a lane's vector, the
+// warps of a block, its row groups and channel slices, the blocks and a
+// block's dynamic shared memory (bytes).  Returns a cudaError_t.
+extern "C" int roi_align_fwd_bf16_plan(int b, int h, int w, int c, int r, int ph, int pw, int s,
+                                       long long* out) {
+  FwdPlan p;
+  if (const int rc = fwd_bf16_plan(b, h, w, c, r, ph, pw, s, &p)) return rc;
+  out[0] = p.vec_bytes;
+  out[1] = p.warps;
+  out[2] = p.groups;
+  out[3] = p.slices;
+  out[4] = p.blocks;
+  out[5] = (long long)p.smem;
+  return 0;
 }
 
 // n_floats (a multiple of 4) zeros into out: the store floor of a forward

@@ -1,13 +1,14 @@
-// The separable ROIAlign forward on NHWC features, shared by kernel 2
-// (roi_align.cu, the resident maps, under ResidentTaps) and kernel 4
+// The separable ROIAlign forward on float32 NHWC features, shared by kernel
+// 2 (roi_align.cu, the resident maps, under ResidentTaps) and kernel 4
 // (roi_align_stream.cu, FPN's P2/P3 in the train step, under StreamTaps).
+// bf16 features have their own forward, roi_align_fwd_bf16.cuh, which
+// computes what an instance of this template on them would, bit for bit.
 //
-// Contract: feat (B, H, W, C) f32 or bf16, C % 4 == 0, rois (B, R, 4) f32
-// image coordinates, valid_hw (B, 2) f32 or NULL (read under ResidentTaps
-// only) -> out (B, R, PH, PW, C) of feat's dtype, any PH, PW and sample
-// ratio s >= 1.  The element type is a template parameter, V, four channels
-// a lane (roi_align_taps.cuh): the taps, weights and sums are float32 in
-// both, and a bf16 output rounds once as it is stored.  Each bin
+// Contract: feat (B, H, W, C) f32, C % 4 == 0, rois (B, R, 4) f32 image
+// coordinates, valid_hw (B, 2) f32 or NULL (read under ResidentTaps only)
+// -> out (B, R, PH, PW, C) f32, any PH, PW and sample ratio s >= 1.  The
+// element type is a template parameter, V, four channels a lane
+// (roi_align_taps.cuh); the launchers instantiate it for float4.  Each bin
 // averages s x s bilinear samples at (i + 0.5) / s of the roi scaled to the
 // map (roi_align_taps.cuh).  The tap rule is a template parameter:
 // ResidentTaps floors the roi's width and height at 1 (an inverted roi taps
@@ -39,7 +40,7 @@
 // 4 loads a sample, in the same arithmetic order.  No configuration of the
 // repository uses s > 4 (ROI_SAMPLE_RATIO is 2).
 //
-// Bound: the output writes, B*R*PH*PW*C*4 bytes (2 in bf16), and the feature
+// Bound: the output writes, B*R*PH*PW*C*4 bytes, and the feature
 // cells the samples read once, over the card's memory rate.  About 40 flops an output,
 // so the f32 rate is never the limit and tensor cores have no role: there is
 // no product to give them.  What sets the time is the chain of dependent loads
@@ -243,9 +244,9 @@ int launch_fwd_s(const V* feat, const float* rois, const float* valid_hw, int b,
 }
 
 // The forward under the tap rule Rule on `stream` (valid_hw is read under
-// ResidentTaps only), on features of the element type V (float4: f32, uint2:
-// bf16): s = 1..kMaxS to its compiled-in instance, larger s to the run-time
-// one.  Returns a cudaError_t.
+// ResidentTaps only), on features of the element type V (float4: f32):
+// s = 1..kMaxS to its compiled-in instance, larger s to the run-time one.
+// Returns a cudaError_t.
 template <typename Rule, typename V>
 int roi_align_fwd_launch(const void* feat, const float* rois, const float* valid_hw, int b,
                          int h, int w, int c, int r, int ph, int pw, int s, float scale,

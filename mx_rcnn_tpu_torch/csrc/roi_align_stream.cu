@@ -8,14 +8,14 @@
 // 0, rois (B, R, 4) f32 image coordinates -> out (B, R, PH, PW, C) of feat's
 // dtype; the backward reads g of that dtype and writes dfeat of that dtype,
 // summed in f32 (the JAX kernels' f32 accumulator and cast,
-// roi_align_stream.py:174-181, 316).  The _bf16 exports are the forward
-// template's bf16 instance and roi_align_bwd_bf16.cuh's backward (see
-// roi_align.cu).  The samples
+// roi_align_stream.py:174-181, 316).  The _bf16 exports are
+// roi_align_fwd_bf16.cuh's forward and roi_align_bwd_bf16.cuh's backward
+// (see roi_align.cu).  The samples
 // are kernel 2's, clamped to the canvas (roi_align_taps.cuh: bit-identical
 // positions).  A roi whose scaled x2 < x1 is invalid (the TPU kernels' filler
 // rule): its output is zeros and it adds nothing to dfeat.
 //
-// Kernel 4, forward: roi_align_fwd.cuh's separable template under
+// Kernel 4, forward in float32: roi_align_fwd.cuh's separable template under
 // StreamTaps, kernel 2's code: a block whose roi is inverted writes zeros
 // with streaming stores and reads nothing; the rest agree with kernel 2 bit
 // for bit, with kernel 2's launch shape (a block of 14 warps a roi).  Bound:
@@ -42,6 +42,7 @@
 
 #include "roi_align_bwd_bf16.cuh"
 #include "roi_align_fwd.cuh"
+#include "roi_align_fwd_bf16.cuh"
 #include "roi_align_table.cuh"
 
 // feat (B, H, W, C) f32 with C % 4 == 0, rois (B, R, 4) f32, s >= 1 -> out
@@ -54,12 +55,13 @@ extern "C" int roi_align_stream_fwd(const float* feat, const float* rois, int b,
                                                   static_cast<cudaStream_t>(stream));
 }
 
-// roi_align_stream_fwd on bf16 features: out bf16.
+// roi_align_stream_fwd on bf16 features: out bf16 (roi_align_fwd_bf16.cuh;
+// its launch plan is roi_align.cu's roi_align_fwd_bf16_plan).
 extern "C" int roi_align_stream_fwd_bf16(const __nv_bfloat16* feat, const float* rois, int b,
                                          int h, int w, int c, int r, int ph, int pw, int s,
                                          float scale, __nv_bfloat16* out, void* stream) {
-  return roi_align_fwd_launch<StreamTaps, uint2>(feat, rois, nullptr, b, h, w, c, r, ph, pw, s,
-                                                 scale, out, static_cast<cudaStream_t>(stream));
+  return roi_align_fwd_bf16_launch<StreamTaps>(feat, rois, nullptr, b, h, w, c, r, ph, pw, s,
+                                               scale, out, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of the scratch roi_align_stream_bwd takes: one table per (image, roi).

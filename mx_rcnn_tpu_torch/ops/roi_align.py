@@ -3,8 +3,9 @@
 
 :func:`roi_align` is the batched, differentiable forward: CUDA tensors go
 through :class:`RoIAlignFunction`, whose forward launches kernel 2 (the
-template of ``csrc/roi_align_fwd.cuh`` under the resident tap rule, any
-sample ratio and pooled size) and whose backward launches kernel 3 (both
+template of ``csrc/roi_align_fwd.cuh`` under the resident tap rule on float32
+maps, ``csrc/roi_align_fwd_bf16.cuh``'s on bf16 ones; any sample ratio and
+pooled size) and whose backward launches kernel 3 (both
 exported by ``csrc/roi_align.cu``; the backward is deterministic, and takes
 a scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_plain`, which torch autograd differentiates.  With
@@ -17,7 +18,10 @@ version: an explicit scatter-add over the same taps.
 Features are float32 or bfloat16 (the compute dtype), each dtype its own
 instance of each kernel with its own launch count (:data:`FWD_KERNELS`,
 :data:`BWD_KERNELS`): taps, weights and sums in float32, the forward's output
-rounded once to the feature's dtype; the backward reads a cotangent of that
+rounded once to the feature's dtype (the bf16 forward is
+``csrc/roi_align_fwd_bf16.cuh``, which computes what the float32 template
+would on the same bf16 values, its launch plan :func:`fwd_bf16_plan`); the
+backward reads a cotangent of that
 dtype and writes dfeat in it, the bf16 kernel rounding each float32 sum once
 as it stores it (the JAX package's ``_roi_align_bwd_impl`` casts its float32
 sum outside the kernel: the same values).  The bf16 backward's float32
@@ -59,6 +63,49 @@ bwd_kernel_bf16_f32 = CudaKernel(library, "roi_align_bwd_bf16_f32", bwd_kernel_b
 # the instance for each feature (forward) or cotangent (backward) dtype
 FWD_KERNELS = {torch.float32: kernel, torch.bfloat16: kernel_bf16}
 BWD_KERNELS = {torch.float32: bwd_kernel, torch.bfloat16: bwd_kernel_bf16}
+
+
+# the bf16 forward's launch plan (csrc/roi_align_fwd_bf16.cuh): warps a block,
+# one output row each; sample ratios with a compiled-in instance (larger ones
+# take the run-time instance)
+FWD_BF16_WARPS, FWD_BF16_MAX_S = 7, 4
+_LANES = 32
+_TAP_BYTES = 16  # a Tap or an XStep
+
+
+def fwd_bf16_plan(b: int, h: int, w: int, c: int, r: int, pooled, sample_ratio: int) -> dict:
+    """The launch plan of the bf16 forwards (kernels 2 and 4 on bf16 maps),
+    from the shapes only, as the library's ``roi_align_fwd_bf16_plan``
+    computes it: ``vec_bytes`` of a lane (16, eight channels; 8, four, where
+    C % 8 == 4 and a cell's stride is not 16-byte aligned), ``warps`` a
+    block, row ``groups`` and channel ``slices`` a roi, the ``blocks`` and a
+    block's dynamic shared memory ``smem`` in bytes.  Block (image, roi,
+    slice k, group g) computes the output rows g·warps + warp, lane l the
+    channels of vector 32·k + l."""
+    ph, pw = pooled
+    s = int(sample_ratio)
+    if s < 1 or c % 4 or min(b, c, r, ph, pw) < 0 or min(h, w) < 1:
+        raise ValueError(f"no plan for {(b, h, w, c, r, ph, pw, s)}")
+    vec_bytes = 16 if c % 8 == 0 else 8
+    cv = c // (vec_bytes // 2)
+    groups = -(-ph // FWD_BF16_WARPS)
+    slices = -(-cv // _LANES)
+    nx = pw * s
+    # the x steps, the block's rows' y taps, the distinct columns (at most 2 nx)
+    return {"vec_bytes": vec_bytes, "warps": FWD_BF16_WARPS, "groups": groups, "slices": slices,
+            "blocks": r * groups * slices * b,
+            "smem": _TAP_BYTES * nx + _TAP_BYTES * FWD_BF16_WARPS * s + 4 * 2 * nx}
+
+
+def fwd_bf16_plan_of_library(b, h, w, c, r, pooled, sample_ratio) -> dict:
+    """:func:`fwd_bf16_plan` as the built library computes it (card only)."""
+    fn = library.lib().roi_align_fwd_bf16_plan
+    fn.argtypes, fn.restype = (ctypes.c_int,) * 8 + (ctypes.c_void_p,), ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    rc = fn(b, h, w, c, r, pooled[0], pooled[1], int(sample_ratio), out)
+    if rc:
+        raise ValueError(f"roi_align_fwd_bf16_plan failed with cudaError {rc}")
+    return dict(zip(("vec_bytes", "warps", "groups", "slices", "blocks", "smem"), list(out)))
 
 
 def table_scratch(lib: CudaLibrary, function: str, b, h, w, r, pooled, sample_ratio, device):

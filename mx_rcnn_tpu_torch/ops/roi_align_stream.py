@@ -8,7 +8,8 @@ canvas, with one rule of its own: a roi whose scaled ``x2 < x1`` (the TPU
 kernels' filler) pools to zeros and gets no gradient.  CUDA tensors go
 through :class:`RoIAlignStreamFunction`, whose forward launches kernel 4 (the
 template of ``csrc/roi_align_fwd.cuh`` under the streamed tap rule, kernel
-2's code) and whose backward launches kernel 5 (both exported by
+2's code, or on bf16 maps ``csrc/roi_align_fwd_bf16.cuh``'s, with kernel 2's
+bf16 launch plan) and whose backward launches kernel 5 (both exported by
 ``csrc/roi_align_stream.cu``; the backward is deterministic, and takes a
 scratch for its per-roi tables, :func:`bwd_scratch`); CPU tensors run
 :func:`roi_align_stream_plain`, which torch autograd differentiates, and

@@ -22,13 +22,18 @@ kernel's SASS (``cuobjdump``: equal digests in two checkouts mean the
 same machine code); the last line is one JSON object of every number.
 
 ``--bf16`` times the bf16 backwards (kernels 3 and 5 on a bf16 cotangent)
-on the same synthetic cases; ``--cases FILE`` times them instead on the
-cases in FILE (a ``torch.save`` of a list of dicts: ``kind`` "resident" or
-"stream", ``label``, ``g``, ``rois``, ``shape``, ``pooled``, ``scale``,
-``s``, ``valid_hw``; ``chip_smoke.py --save-bwd-cases`` writes the bf16
-paths' captured calls), so that two checkouts' kernels are timed on the
-same tensors; ``--sass-dump DIR`` writes each library's whole SASS into
-DIR.
+and the bf16 forwards (kernels 2 and 4 on bf16 maps, beside the float32
+instance on the same values) on the same synthetic cases, and the serving
+forward at 1, 2 and 4 images of 300 rois; ``--cases FILE`` times instead
+the cases in FILE (a ``torch.save`` of a list of dicts: ``kind``
+"resident" or "stream", ``label``, ``g``, ``rois``, ``shape``, ``pooled``,
+``scale``, ``s``, ``valid_hw`` for a backward; ``kind`` "resident_fwd" or
+"stream_fwd", ``label``, ``feat``, ``rois``, ``pooled``, ``scale``, ``s``,
+``valid_hw`` for a forward; ``chip_smoke.py --save-bwd-cases`` and
+``--save-fwd-cases`` write the bf16 paths' captured calls) and prints a
+sha256 of each output, so that two checkouts' kernels are timed on the same
+tensors and equal digests show equal bits; ``--sass-dump DIR`` writes each
+library's whole SASS into DIR.
 """
 
 from __future__ import annotations
@@ -323,9 +328,52 @@ def stream_fwd_bench(label, feat, rois, scale, reps) -> dict:
     return res
 
 
+def out_digest(t: torch.Tensor) -> str:
+    """A sha256 prefix of a tensor's bytes: equal digests, equal bits."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def fwd_case_bench(case, reps) -> dict:
+    """A forward of one saved case through the package's wrapper for its
+    map's dtype (kernel 2, or kernel 4 for "stream_fwd"): graph ms, each
+    CUDA kernel's ms, the output's digest and, where the package has one,
+    the bf16 launch plan."""
+    feat, rois = case["feat"].cuda(), case["rois"].cuda()
+    valid_hw = None if case.get("valid_hw") is None else case["valid_hw"].cuda()
+    pooled, scale, s = tuple(case["pooled"]), case["scale"], case["s"]
+    if case["kind"] == "stream_fwd":
+        call = lambda: stream_mod.roi_align_stream(feat, rois, pooled, scale, s)  # noqa: E731
+    else:
+        call = lambda: roi_mod.roi_align(feat, rois, pooled, scale, s, valid_hw)  # noqa: E731
+    res = {"ms": graph_ms(call, reps), "kernels_ms": kernel_ms(call), "feat": list(feat.shape),
+           "rois": list(rois.shape), "dtype": str(feat.dtype), "sha256": out_digest(call())}
+    plan = getattr(roi_mod, "fwd_bf16_plan", None)
+    if plan is not None and feat.dtype == torch.bfloat16:
+        b, h, w, c = feat.shape
+        res["plan"] = plan(b, h, w, c, rois.shape[1], pooled, s)
+        print(f"    plan {res['plan']}", flush=True)
+    print(f"  {case['kind']} {case['label']} feat {tuple(feat.shape)} rois {tuple(rois.shape)} "
+          f"{feat.dtype}: {res['ms']:.4f} ms (graph), sha256 {res['sha256']}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
+    return res
+
+
+def bf16_fwd_bench(label, feat, rois, valid_hw, scale, reps, stream=False) -> dict:
+    """A bf16 forward on synthetic tensors (kernel 2, or 4 with ``stream``),
+    and the float32 instance on the same values."""
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        case = {"kind": "stream_fwd" if stream else "resident_fwd", "label": f"{label} {dtype}",
+                "feat": feat.to(dtype), "rois": rois, "pooled": (14, 14), "scale": scale, "s": 2,
+                "valid_hw": valid_hw}
+        res[str(dtype).split(".")[-1]] = fwd_case_bench(case, reps)
+    return res
+
+
 def bwd_case_bench(case, reps) -> dict:
     """A backward of one saved case through the package's wrapper for its
-    cotangent's dtype: graph ms, and each CUDA kernel's ms."""
+    cotangent's dtype: graph ms, each CUDA kernel's ms and the output's
+    digest."""
     g, rois, shape = case["g"].cuda(), case["rois"].cuda(), tuple(case["shape"])
     valid_hw = None if case.get("valid_hw") is None else case["valid_hw"].cuda()
     pooled, scale, s = tuple(case["pooled"]), case["scale"], case["s"]
@@ -333,8 +381,9 @@ def bwd_case_bench(case, reps) -> dict:
         call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, pooled, scale, s)  # noqa: E731
     else:
         call = lambda: roi_mod._roi_align_bwd_cuda(g, rois, shape, pooled, scale, s, valid_hw)  # noqa: E731
+    out = call()
     res = {"ms": graph_ms(call, reps), "kernels_ms": kernel_ms(call), "g": list(g.shape),
-           "dtype": str(g.dtype), "out_dtype": str(call().dtype)}
+           "dtype": str(g.dtype), "out_dtype": str(out.dtype), "sha256": out_digest(out)}
     plan = getattr(roi_mod.library.lib(), "roi_align_bwd_bf16_plan", None)
     if plan is not None and g.dtype == torch.bfloat16:
         out = (ctypes.c_longlong * 5)()
@@ -346,7 +395,8 @@ def bwd_case_bench(case, reps) -> dict:
                                    list(out)))
             print(f"    plan {res['plan']}", flush=True)
     print(f"  {case['kind']} bwd {case['label']} g {tuple(g.shape)} {g.dtype}: {res['ms']:.4f} ms "
-          "(graph); " + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
+          f"(graph), sha256 {res['sha256']}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["kernels_ms"].items()), flush=True)
     return res
 
 
@@ -363,8 +413,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="calls in each timed CUDA graph")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--bf16", action="store_true", help="also time the bf16 backwards")
-    ap.add_argument("--cases", help="time only the backwards of the saved cases in this file")
+    ap.add_argument("--bf16", action="store_true",
+                    help="also time the bf16 backwards and forwards")
+    ap.add_argument("--cases", help="time only the saved cases in this file")
     ap.add_argument("--sass-dump", help="write each library's SASS into this directory")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -387,11 +438,12 @@ def main(argv=None) -> int:
         if args.sass_dump:
             sass_dump(lib, args.sass_dump)
     if args.cases:
-        result["cases"] = {c["label"]: bwd_case_bench(c, args.reps)
-                           for c in torch.load(args.cases, weights_only=False)}
+        result["cases"] = {
+            c["label"]: (fwd_case_bench if c["kind"].endswith("_fwd") else bwd_case_bench)(
+                c, args.reps) for c in torch.load(args.cases, weights_only=False)}
         print(json.dumps(result), flush=True)
         return 0
-    result["bf16_bwd"] = {}
+    result["bf16_bwd"], result["bf16_fwd"] = {}, {}
     rng = np.random.RandomState(args.seed)
     for label, boxes, valid, thresh, max_keep in nms_cases(rng, dev):
         call = lambda: nms_mod.nms_mask_sorted(boxes, valid, thresh, max_keep)  # noqa: E731
@@ -403,6 +455,10 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     for label, shape, rois, valid_hw, scale in resident_cases(rng, dev):
         result["roi_fwd"][label] = roi_fwd_bench(label, shape, rois, valid_hw, scale, args.reps, dev)
+        if args.bf16:
+            feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+            result["bf16_fwd"][label] = bf16_fwd_bench(label, feat, rois, valid_hw, scale,
+                                                       args.reps)
         if valid_hw is None:
             result["roi_bwd"][label] = roi_bwd_bench(label, shape, rois, valid_hw, scale,
                                                      args.reps, dev)
@@ -415,6 +471,9 @@ def main(argv=None) -> int:
     for label, g, rois, shape, scale in stream_cases(rng, dev):
         feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
         result["stream_fwd"][label] = stream_fwd_bench(label, feat, rois, scale, args.reps)
+        if args.bf16:
+            result["bf16_fwd"][f"stream {label}"] = bf16_fwd_bench(
+                f"stream {label}", feat, rois, None, scale, args.reps, stream=True)
         call = lambda: stream_mod._roi_align_stream_bwd_cuda(g, rois, shape, (14, 14), scale, 2)  # noqa: E731
         ms = graph_ms(call, args.reps)
         per = kernel_ms(call)
@@ -426,6 +485,15 @@ def main(argv=None) -> int:
                 {"kind": "stream", "label": f"stream {label}", "g": g.to(torch.bfloat16),
                  "rois": rois, "shape": shape, "pooled": (14, 14), "scale": scale, "s": 2},
                 args.reps)
+    if args.bf16:
+        # the serving forward's time against its blocks: 1, 2 and 4 images of
+        # 300 rois (2400 blocks of 14 warps an image at the first bf16 launch shape)
+        for b in (1, 2, 4):
+            feat = torch.from_numpy(rng.randn(b, 64, 64, 1024).astype(np.float32)).to(dev)
+            rois = torch.from_numpy(serving_rois(rng, b, 300)).to(dev)
+            valid_hw = torch.tensor([[600.0, 1000.0], [1000.0, 600.0]] * 2, device=dev)[:b]
+            result["bf16_fwd"][f"serving {b} images"] = bf16_fwd_bench(
+                f"serving {b}x64x64x1024, {b}x300 rois", feat, rois, valid_hw, 1 / 16, args.reps)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -195,6 +195,98 @@ def test_bf16_backward_launches_no_cast(card):
                              for n in names), names
 
 
+def exact_order(feat, rois, pooled, scale, s, valid_hw=None, stream=False):
+    """The forwards' arithmetic spelled out on the card: per sample the y
+    lerps at both x taps, the x lerp, the sum with the sample rows outer,
+    then / s² (true division: a device tensor), rounded once to bf16; no op
+    fuses another (each is its own PyTorch call)."""
+    b, h, w, c = feat.shape
+    ph, pw = pooled
+    (ylo, yhi, wy0, wy1), (xlo, xhi, wx0, wx1) = troi._roi_taps(rois, h, w, pooled, scale, s,
+                                                                 valid_hw)
+    f = feat.float()
+    out = torch.empty((b, rois.shape[1], ph, pw, c), dtype=torch.bfloat16, device=feat.device)
+    for i in range(b):
+        acc = torch.zeros((rois.shape[1], ph, pw, c), device=feat.device)
+        for iy in range(s):
+            yl, yh = ylo[i][:, iy::s, None], yhi[i][:, iy::s, None]
+            a0, a1 = wy0[i][:, iy::s, None, None], wy1[i][:, iy::s, None, None]
+            for ix in range(s):
+                xl, xh = xlo[i][:, None, ix::s], xhi[i][:, None, ix::s]
+                lo = f[i][yl, xl] * a0 + f[i][yh, xl] * a1
+                hi = f[i][yl, xh] * a0 + f[i][yh, xh] * a1
+                acc = acc + (lo * wx0[i][:, None, ix::s, None] + hi * wx1[i][:, None, ix::s, None])
+        out[i] = (acc / torch.tensor(float(s * s), device=feat.device)).bfloat16()
+    if stream:
+        keep = tstream.valid_rois(rois, scale)[..., None, None, None]
+        out = torch.where(keep, out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out
+
+
+# (label, stream?, (b, h, w, c), r, pooled, s, valid_hw?): the path's widths
+# (1024, 256) at a one-wave roi count and a small one, C % 8 == 4 (8-byte
+# lanes), s = 1..5 (5: the run-time instance), pooled 7 and 15 (three row
+# groups), R = 0
+BF16_FWD_CASES = [
+    ("C4 1024", False, (1, 38, 64, 1024), 128, (14, 14), 2, True),
+    ("P2 256 stream", True, (1, 152, 256, 256), 128, (14, 14), 2, False),
+    ("P4 256 few rois", False, (1, 38, 64, 256), 9, (14, 14), 2, False),
+    ("C % 8 == 4", False, (2, 20, 30, 260), 40, (14, 14), 2, True),
+    ("stream C % 8 == 4", True, (1, 40, 100, 68), 40, (7, 7), 2, False),
+    ("s = 1", True, (2, 24, 40, 128), 20, (14, 14), 1, False),
+    ("s = 3", False, (2, 24, 40, 128), 20, (14, 14), 3, True),
+    ("s = 4", True, (1, 24, 40, 264), 20, (7, 7), 4, False),
+    ("s = 5", False, (2, 24, 40, 136), 20, (14, 14), 5, True),
+    ("s = 5 stream", True, (1, 24, 40, 128), 20, (7, 7), 5, False),
+    ("pooled 15", False, (1, 24, 40, 64), 12, (15, 9), 2, False),
+    ("R = 0", True, (1, 12, 20, 128), 0, (14, 14), 2, False),
+]
+
+
+@pytest.mark.parametrize("case", BF16_FWD_CASES, ids=[c[0] for c in BF16_FWD_CASES])
+def test_bf16_forwards_match_plain(card, case):
+    """Kernels 2 and 4 on bf16 maps: bit for bit the exact-order arithmetic
+    at every s, torch.equal to the plain versions at s = 1, 2 (their mean
+    sums as the kernels do there) and within chip_smoke.py's bar at the
+    other s (1e-5, then one bf16 ulp: their mean sums in another order),
+    two launches bit-identical, inverted rois zeros under kernel 4's rule,
+    the launch plan the library's, only the bf16 forward's counter moved."""
+    _, stream, shape, r, pooled, s, with_valid = case
+    b, h, w, c = shape
+    scale = 0.25 if stream else 1.0 / 16
+    rng = np.random.RandomState(sum(shape) + r + s)
+    feat = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card, torch.bfloat16)
+    rois = (_bwd_rois(rng, b, max(r, 9), h, w, scale)[:, :r]).to(card)
+    valid_hw = None
+    if with_valid:
+        valid_hw = torch.tensor([[h / scale * 0.7, w / scale * 0.9]] * b, device=card)
+    assert troi.fwd_bf16_plan_of_library(b, h, w, c, r, pooled, s) == troi.fwd_bf16_plan(
+        b, h, w, c, r, pooled, s)
+    kernels = (troi.kernel, troi.kernel_bf16, tstream.fwd_kernel, tstream.fwd_kernel_bf16)
+    before = [k.launches for k in kernels]
+    if stream:
+        got = tstream.roi_align_stream(feat, rois, pooled, scale, s)
+        again = tstream.roi_align_stream(feat, rois, pooled, scale, s)
+        plain = tstream.roi_align_stream_plain(feat, rois, pooled, scale, s)
+    else:
+        got = troi.roi_align(feat, rois, pooled, scale, s, valid_hw)
+        again = troi.roi_align(feat, rois, pooled, scale, s, valid_hw)
+        plain = troi.roi_align_plain(feat, rois, pooled, scale, s, valid_hw)
+    torch.cuda.synchronize()
+    moved = [k.launches - n for k, n in zip(kernels, before)]
+    assert moved == ([0, 0, 0, 2] if stream else [0, 2, 0, 0])
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    assert torch.equal(got, exact_order(feat, rois, pooled, scale, s, valid_hw, stream))
+    if s <= 2:
+        assert torch.equal(got, plain)
+    else:  # beyond float32's bar, one bf16 ulp of the larger magnitude (BF16_FWD_ULPS)
+        ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), plain.float().abs()).clamp_min(
+            2.0 ** -126)
+        assert ((got.float() - plain.float()).abs() - 1e-5 <= ulp).all()
+    if stream and r > 6:
+        assert not got[:, 6].any()  # the inverted roi
+
+
 def test_kernels_take_only_the_dtypes_they_are_built_for(card):
     """No wrapper converts a dtype: a float16 map and float64 rois raise."""
     rois = torch.zeros((1, 2, 4), device=card)
