@@ -199,6 +199,21 @@
    calibrated ones); FOLD_BN in float32 against the unfolded graph at JAX's
    exact-rewrite bars; the CUDA kernels a step launches with the fold off
    and on;
+9c. ``[images]``: real JPEG files at full width on the calibrated C4
+   weights: each committed fixture (``tests/fixtures/jpeg/``) decoded by
+   the port with the SHA-256 of its RGB bytes held to the manifest's, which
+   ``cv2.imread`` produced; the host decode's median ms (the 4:2:0 baseline
+   375 × 500 fixture and the largest); the first calls of the host NMS, the
+   RLE encode and the JPEG decode from 8 threads at once into a fresh build
+   directory (every thread on the C libraries, one file built per library,
+   no temporary left); on a Pascal VOC tree of the fixtures written here,
+   ``tools/test.py --vis`` in the threads mode with 2 completion workers
+   (mAP a gate, images/s printed, NMS twice and kernel 2 once an image,
+   every ``det_%06d.png`` read back to the overlay drawn from the dumped
+   detections), ``tools/train_end2end.py`` for 2 steps on the files and
+   their flips with assembly processes that decode and build the decoder
+   themselves (NMS and kernels 2 and 3 once a step), and ``tools/demo.py``
+   on one fixture (``demo_out.png`` read back to its overlay);
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
    mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
@@ -231,6 +246,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
@@ -240,12 +256,15 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import warnings
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -271,6 +290,7 @@ from mx_rcnn_tpu_torch.core.train import (
     make_optimizer,
     train_step,
 )
+from mx_rcnn_tpu_torch.data.image import load_image
 from mx_rcnn_tpu_torch.data.imdb import IMDB
 from mx_rcnn_tpu_torch.data.loader import (
     TestLoader,
@@ -280,6 +300,7 @@ from mx_rcnn_tpu_torch.data.loader import (
     make_batch,
 )
 from mx_rcnn_tpu_torch.data.masks import polygons_to_box_frame
+from mx_rcnn_tpu_torch.data.pascal_voc import CLASSES as VOC_CLASS_NAMES
 from mx_rcnn_tpu_torch.data.synthetic import SyntheticDataset, shape_polygon
 from mx_rcnn_tpu_torch.eval.segm import paste_mask_canvas, rles_for_detections
 from mx_rcnn_tpu_torch.models import build_model
@@ -291,6 +312,9 @@ from mx_rcnn_tpu_torch.models.fpn import mask_bce
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, normalize_images
 from mx_rcnn_tpu_torch.models.stage_models import FastRCNN, RPNOnly
 from mx_rcnn_tpu_torch.native import hostops
+from mx_rcnn_tpu_torch.native import jpeg as jpeg_mod
+from mx_rcnn_tpu_torch.native import rle as rle_mod
+from mx_rcnn_tpu_torch.native.jpeg import decode_jpeg
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
@@ -307,9 +331,10 @@ from mx_rcnn_tpu_torch.utils.bridge import _leaves as tree_leaves
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch, torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import load_params, save_params
 from mx_rcnn_tpu_torch.utils.cuda_build import build_all
-from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, load_gt_roidb
+from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, get_imdb, load_gt_roidb
 from mx_rcnn_tpu_torch.utils.precision import full_float32
 from mx_rcnn_tpu_torch.utils.run_meta import load_run_meta, save_run_meta
+from mx_rcnn_tpu_torch.utils.visualize import draw_detections
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
@@ -3215,6 +3240,310 @@ def mask_eval_phase(cfg, weights, dev):
     return figures
 
 
+# ---------------------------------------------------------- images phase
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "jpeg"
+DECODE_REPS = 30
+IMAGES_TRAIN_STEPS = 2
+FIRST_USE_THREADS = 8
+# pred_eval's overlay threshold (tools/test.py has no flag for it), and the
+# demo's: it logs a line for each detection at or above its threshold
+VIS_THRESH = 0.7
+DEMO_VIS_THRESH = 0.5
+# a library file hostops.build_library installs: ``<source stem>-<16 hex>.so``
+BUILT_NAME = re.compile(r"[a-z]+-[0-9a-f]{16}\.so")
+
+
+def read_png(path) -> np.ndarray:
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use
+    filter 0, as ``utils/visualize.py::save_image`` writes them (the
+    script's own reader: no image library is installed)."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: no PNG signature")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos: pos + 8])
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data[pos + 8: pos + 8 + n])
+        elif kind == b"IDAT":
+            idat += data[pos + 8: pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = header[:4]
+    if (depth, color) != (8, 2):
+        raise AssertionError(f"{path}: bit depth {depth}, colour type {color}, not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: a row with a filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def decode_fixtures(smi: str) -> dict:
+    """Every fixture decoded by the port, its RGB bytes' SHA-256 held to
+    the manifest's (cv2's decode); the host decode's median ms for the
+    4:2:0 baseline 375 x 500 fixture and the largest one."""
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())["files"]
+    for e in manifest:
+        got = decode_jpeg((FIXTURES / e["name"]).read_bytes(), e["name"])
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        log(f"  {e['name']}: {e['sampling']} {e['mode']}, restart {e['restart_interval']}, "
+            f"orientation {e['orientation']}: {got.shape} sha256 {digest[:16]}.. "
+            f"{'==' if digest == e['sha256'] else '!='} cv2's")
+        if digest != e["sha256"] or list(got.shape) != e["shape"]:
+            raise AssertionError(f"{e['name']}: the port's decode differs from cv2's")
+    baseline = next(e for e in manifest if e["sampling"] == "4:2:0" and e["mode"] == "baseline"
+                    and e["shape"][:2] == [375, 500])
+    largest = max(manifest, key=lambda e: e["shape"][0] * e["shape"][1])
+    figures = {}
+    for label, e in (("baseline_420_375x500", baseline), ("largest", largest)):
+        data = (FIXTURES / e["name"]).read_bytes()
+        times = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            decode_jpeg(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        figures[label] = {"name": e["name"], "shape": e["shape"],
+                          "median_ms": statistics.median(times), "min_ms": min(times)}
+        log(f"  host decode {e['name']} {e['shape'][1]}x{e['shape'][0]} ({e['sampling']} "
+            f"{e['mode']}): median {figures[label]['median_ms']:.3f} ms, min "
+            f"{figures[label]['min_ms']:.3f} ms over {DECODE_REPS} ({smi})")
+    return figures
+
+
+def first_use_in_threads() -> dict:
+    """Point the host libraries' builds at a fresh directory, forget the
+    loaded ones, and make the first calls of the NMS, the RLE encode and
+    the JPEG decode from FIRST_USE_THREADS threads at once: every thread
+    must get the C libraries, one file built per library, no temporary
+    left."""
+    build = Path(tempfile.mkdtemp(prefix="native_build_"))
+    saved = hostops.BUILD_DIR
+    hostops.BUILD_DIR = build
+    for mod in (hostops, rle_mod):
+        mod._LIB, mod._TRIED = None, False
+    jpeg_mod._LIB = None
+    dets = np.array([[0, 0, 10, 10, 0.9], [1, 1, 11, 11, 0.8], [50, 50, 60, 60, 0.7]], np.float32)
+    mask = np.zeros((6, 5), np.uint8)
+    mask[1:4, 2:4] = 1
+    fixture = str(FIXTURES / "voc_420_baseline.jpg")
+    calls = (lambda: hostops.nms_host(dets, 0.5), lambda: rle_mod.encode(mask)["counts"],
+             lambda: float(load_image(fixture).sum()))
+    barrier = threading.Barrier(FIRST_USE_THREADS)
+    results, errors = [None] * FIRST_USE_THREADS, []
+
+    def work(i):
+        barrier.wait()
+        try:
+            # each thread makes all three first calls, starting at another one
+            out = [None] * 3
+            for k in range(3):
+                j = (i + k) % 3
+                out[j] = calls[j]()
+            results[i] = out
+        except Exception as e:  # noqa: BLE001 — every failure fails the phase below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(FIRST_USE_THREADS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a first-use thread did not finish in 300 s")
+        built = sorted(os.listdir(build))
+    finally:
+        hostops.BUILD_DIR = saved
+        shutil.rmtree(build, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    backends = {"hostops": hostops.backend(), "rle": rle_mod.backend(),
+                "jpeg": "c" if jpeg_mod._LIB is not None else "none"}
+    log(f"  {FIRST_USE_THREADS} threads' first calls in {secs:.2f} s: backends {backends}; "
+        f"built {built}; errors {errors}")
+    if errors or any(r != results[0] for r in results) or results[0][0] != [0, 2]:
+        raise AssertionError(f"first use in threads: errors {errors}, results {results}")
+    if set(backends.values()) != {"c"}:
+        raise AssertionError(f"a thread's first call did not get the C library: {backends}")
+    if ([n.split("-")[0] for n in built] != ["hostops", "jpegdec", "rlelib"]
+            or not all(BUILT_NAME.fullmatch(n) for n in built)):
+        raise AssertionError(f"first use in threads built {built}, not one file per library")
+    return {"threads": FIRST_USE_THREADS, "seconds": secs, "built": built}
+
+
+def write_voc_fixture_tree(root: Path):
+    """``VOCdevkit/VOC2007`` under ``root`` with every fixture JPEG as an
+    image of both the test and the trainval split, and an annotation per
+    image written here (size from the decoded shape, two objects)."""
+    base = root / "VOCdevkit" / "VOC2007"
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (base / d).mkdir(parents=True)
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())["files"]
+    names = []
+    for i, e in enumerate(manifest, 1):
+        name = f"{i:06d}"
+        names.append(name)
+        shutil.copy(FIXTURES / e["name"], base / "JPEGImages" / f"{name}.jpg")
+        h, w = e["shape"][:2]
+        objects = "".join(
+            f"<object><name>{cls}</name><difficult>0</difficult><bndbox><xmin>{x1}</xmin>"
+            f"<ymin>{y1}</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox></object>"
+            for cls, (x1, y1, x2, y2) in (
+                (VOC_CLASS_NAMES[i], (w // 8, h // 6, w // 2, h // 2)),
+                (VOC_CLASS_NAMES[i + 6], (w // 3, h // 3, w - w // 10, h - h // 12))))
+        (base / "Annotations" / f"{name}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth>"
+            f"</size>{objects}</annotation>")
+    for split in ("test", "trainval"):
+        (base / "ImageSets" / "Main" / f"{split}.txt").write_text("\n".join(names) + "\n")
+    return root / "VOCdevkit", len(names)
+
+
+def images_phase(cfg, weights, dev, workers, smi) -> dict:
+    """``[images]``: real JPEG files through the port's public entry points
+    at full width, from the calibrated C4 weights: the fixtures' decode
+    against cv2's hashes and its host time, first use of the host C
+    libraries from threads, and on a VOC tree of the fixtures
+    ``tools/test.py --vis`` (threads mode, completion workers),
+    ``tools/train_end2end.py`` for IMAGES_TRAIN_STEPS steps with assembly
+    processes that decode and build the decoder themselves, and
+    ``tools/demo.py``; the PNGs are read back to the drawn arrays."""
+    from mx_rcnn_tpu_torch.tools import demo as demo_mod
+    from mx_rcnn_tpu_torch.tools import train_end2end as e2e
+
+    stats = {"decode": decode_fixtures(smi), "first_use": first_use_in_threads()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        devkit, n_images = write_voc_fixture_tree(tmp)
+        tree_cfg = cfg.replace(dataset=dataclasses.replace(
+            cfg.dataset, root_path=str(tmp / "root"), dataset_path=str(devkit)))
+        params = str(tmp / "c4.pkl")
+        save_params(params, torch_to_flax(loaded_model(cfg, weights)))
+
+        # tools/test.py --vis: threads mode, completion workers
+        vis, dump = tmp / "vis", str(tmp / "dets.pkl")
+        orig_pipelined, orig_pred_eval, orig_cfg = (tester_mod.pipelined, test_cli.pred_eval,
+                                                    test_cli.generate_config)
+        modes, timed = [], {}
+
+        def threads_mode(*a, **k):
+            modes.append("threads")
+            return orig_pipelined(*a, **dict(k, mode="threads"))
+
+        def timed_pred_eval(*a, **k):
+            t0 = time.perf_counter()
+            out = orig_pred_eval(*a, **k)
+            timed["seconds"] = time.perf_counter() - t0
+            return out
+
+        tester_mod.pipelined, test_cli.pred_eval = threads_mode, timed_pred_eval
+        test_cli.generate_config = lambda network, dataset: tree_cfg
+        env = os.environ.get("MX_RCNN_POSTPROCESS_WORKERS")
+        os.environ["MX_RCNN_POSTPROCESS_WORKERS"] = "2"
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            results = test_cli.main(["--network", "resnet", "--dataset", "PascalVOC",
+                                     "--params", params, "--vis", str(vis), "--dump", dump])
+        finally:
+            tester_mod.pipelined, test_cli.pred_eval, test_cli.generate_config = (
+                orig_pipelined, orig_pred_eval, orig_cfg)
+            if env is None:
+                os.environ.pop("MX_RCNN_POSTPROCESS_WORKERS")
+            else:
+                os.environ["MX_RCNN_POSTPROCESS_WORKERS"] = env
+        eval_launches = read_launches()
+        with open(dump, "rb") as f:
+            all_boxes = pickle.load(f)
+        imdb = get_imdb(tree_cfg, tree_cfg.dataset.test_image_set)[0]
+        drawn = 0
+        for i, rec in enumerate(imdb.gt_roidb()):
+            dets = {imdb.classes[j]: all_boxes[j][i] for j in range(1, NUM_CLASSES)}
+            want = draw_detections(load_record_image(rec), dets, VIS_THRESH)
+            got = read_png(vis / f"det_{i:06d}.png")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"det_{i:06d}.png does not read back to its overlay")
+            drawn += sum(int((d[:, 4] >= VIS_THRESH).sum()) for d in dets.values())
+        images_per_s = n_images / timed["seconds"]
+        want_launches = dict(NO_LAUNCHES, nms=2 * n_images, roi_align_fwd=n_images)
+        log(f"  tools/test.py --vis on {n_images} JPEGs (VOC tree; threads mode, 2 completion "
+            f"workers): mAP {results['mAP']:.6f}, pred_eval {timed['seconds']:.3f} s = "
+            f"{images_per_s:.3f} images/s ({smi}); launches {eval_launches}; {n_images} PNGs "
+            f"read back to their overlays ({drawn} boxes at or above {VIS_THRESH})")
+        if modes != ["threads"]:
+            raise AssertionError(f"the eval loop ran {modes}, not one threads-mode loop")
+        if not (math.isfinite(results["mAP"]) and 0.0 <= results["mAP"] <= 1.0):
+            raise AssertionError(f"the real-file eval's mAP is {results['mAP']}")
+        if eval_launches != want_launches:
+            raise AssertionError(f"the real-file eval launched {eval_launches}, not {want_launches}")
+        stats["eval"] = {"images": n_images, "mAP": results["mAP"], "seconds": timed["seconds"],
+                         "images_per_s": images_per_s, "launches": eval_launches,
+                         "boxes_drawn": drawn}
+
+        # train_end2end on the tree's files: the assembly processes decode
+        # and build the decoder themselves (none is built where they look)
+        for stale in hostops.BUILD_DIR.glob("jpegdec-*.so"):
+            stale.unlink()
+        saved = (e2e.generate_config, e2e.build_model)
+        e2e.generate_config = lambda network, dataset: tree_cfg
+        e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
+        env = os.environ.get("MX_RCNN_ASSEMBLY_WORKERS")
+        os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = str(max(2, workers))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = e2e.main(["--network", "resnet", "--dataset", "PascalVOC", "--epochs", "1",
+                            "--max_steps", str(IMAGES_TRAIN_STEPS), "--frequent", "1",
+                            "--aux_interval", "1", "--prefix", str(tmp / "e2e")])
+        finally:
+            e2e.generate_config, e2e.build_model = saved
+            if env is None:
+                os.environ.pop("MX_RCNN_ASSEMBLY_WORKERS")
+            else:
+                os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = env
+        train_s = time.perf_counter() - t0
+        train_launches = read_launches()
+        built = sorted(p.name for p in hostops.BUILD_DIR.iterdir())
+        losses = out["history"]
+        want_launches = {k: n * IMAGES_TRAIN_STEPS for k, n in C4_LAUNCHES_PER_STEP.items()}
+        log(f"  train_end2end on the tree's {n_images} JPEGs and their flips, "
+            f"{max(2, workers)} assembly processes: {out['steps']} steps in {train_s:.2f} s; "
+            f"launches {train_launches}; losses {losses}; native/build after: {built}")
+        if out["steps"] != IMAGES_TRAIN_STEPS or train_launches != want_launches:
+            raise AssertionError(f"the real-file train run took {out['steps']} steps, launches "
+                                 f"{train_launches}, not {want_launches}")
+        if not all(math.isfinite(v) for h in losses for v in h.values()):
+            raise AssertionError(f"the real-file train run's losses are not finite: {losses}")
+        if (sum(n.startswith("jpegdec-") for n in built) != 1
+                or not all(BUILT_NAME.fullmatch(n) for n in built)):
+            raise AssertionError(f"the assembly processes' builds left {built}")
+        stats["train"] = {"steps": out["steps"], "seconds": train_s, "launches": train_launches,
+                          "assembly_workers": max(2, workers), "native_build": built}
+
+        # the demo CLI on one fixture
+        image = FIXTURES / "voc_420_baseline.jpg"
+        demo_out = tmp / "demo_out.png"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        dets = demo_mod.main(["--image", str(image), "--out", str(demo_out), "--params", params,
+                              "--vis_thresh", str(DEMO_VIS_THRESH)])
+        demo_s = time.perf_counter() - t0
+        demo_launches = read_launches()
+        want = draw_detections(load_image(str(image)), dets, DEMO_VIS_THRESH)
+        got = read_png(demo_out)
+        n_dets = sum(int((d[:, 4] >= DEMO_VIS_THRESH).sum()) for d in dets.values())
+        log(f"  tools/demo.py {image.name}: {n_dets} detections at or above {DEMO_VIS_THRESH} in "
+            f"{len(dets)} classes, {demo_s:.2f} s; launches {demo_launches}; demo_out.png "
+            f"{got.shape} reads back to the overlay: {np.array_equal(got, want)}")
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("demo_out.png does not read back to the drawn overlay")
+        if demo_launches != dict(NO_LAUNCHES, nms=1, roi_align_fwd=1):
+            raise AssertionError(f"the demo launched {demo_launches}, not NMS and kernel 2 once")
+        stats["demo"] = {"seconds": demo_s, "detections": n_dets, "launches": demo_launches}
+    return stats
+
+
 # ------------------------------------------------------------ bf16 phase
 # The bf16 instances of kernels 2-5 against their plain versions: a forward
 # within one bf16 ulp of the plain value beyond the float32 forward's bar
@@ -4346,6 +4675,14 @@ def main(argv=None) -> int:
     log("[eval] kernels vs plain on the captured tensors")
     roi_err = max(roi_err, hold_captured(nms_diff, eval_cap, bwd_diff, stream_diff))
 
+    log(f"[images] real JPEG files at full width (ResNet-{cfg.network.depth} C4, "
+        f"{cfg.dataset.NUM_CLASSES} classes, the calibrated weights the [train] run started "
+        f"from): the fixtures decoded against cv2's hashes, the host C libraries' first use "
+        f"from {FIRST_USE_THREADS} threads, and on a VOC tree of the fixtures tools/test.py "
+        f"--vis, {IMAGES_TRAIN_STEPS} steps of train_end2end with assembly processes, "
+        f"tools/demo.py")
+    images_stats = images_phase(cfg, c4_weights, dev, workers, smi)
+
     fpn_cfg = generate_config("resnet_fpn", "coco")
     mask_cfg = generate_config("mask_resnet_fpn", "coco")
     for name, c in (("fpn serve", fpn_cfg), ("mask serve", mask_cfg)):
@@ -4524,6 +4861,7 @@ def main(argv=None) -> int:
     log(f"[alternate] stats {json.dumps(alt_stats)}")
     log(f"[frozen fpn] stats {json.dumps(frozen_stats)}")
     log(f"[eval] stats {json.dumps(eval_stats)}")
+    log(f"[images] stats {json.dumps(images_stats)}")
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
     log(f"[mask eval] stats {json.dumps(mask_eval_stats)}")
@@ -4534,6 +4872,11 @@ def main(argv=None) -> int:
                 "mask_serve_launches": mask_serve_launches[kernel],
                 "mask_eval_launches": mask_eval_stats["launches"][kernel],
                 "mask_train_launches": mask_launches[kernel]}
+
+    def images_launches(kernel):
+        """The [images] runs' launches of a kernel."""
+        return {f"images_{run}_launches": images_stats[run]["launches"][kernel]
+                for run in ("eval", "train", "demo")}
 
     stages = alt_stats["stages"]
 
@@ -4559,7 +4902,7 @@ def main(argv=None) -> int:
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
             "eval_launches": eval_launches["nms"],
             "serve_launches": serve_launches["nms"],
-            **infer_launches("nms"),
+            **infer_launches("nms"), **images_launches("nms"),
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
             **train_nms, "library_ms": None,
             **_prefixed("serve", serve_nms), **_prefixed("class", classes),
@@ -4574,7 +4917,7 @@ def main(argv=None) -> int:
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
             "eval_launches": eval_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
-            **infer_launches("roi_align_fwd"),
+            **infer_launches("roi_align_fwd"), **images_launches("roi_align_fwd"),
             "max_abs_err": roi_err, f"s{RUNTIME_S}_max_abs_err": s5_err, **train_roi,
             "library_ms": None, **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
             **_prefixed("p2", resident_p2), **_prefixed("p3", resident_p3),
@@ -4589,6 +4932,7 @@ def main(argv=None) -> int:
             "ptxas": redesigned["roi_align_bwd"],
             "launches": launches["roi_align_bwd"], "fpn_launches": fpn_launches["roi_align_bwd"],
             "eval_launches": eval_launches["roi_align_bwd"], **infer_launches("roi_align_bwd"),
+            **images_launches("roi_align_bwd"),
             "max_abs_err": bwd_diff.max_abs_err, "scaled_err": bwd_diff.scaled_err,
             "bitwise_repeatable": bwd_diff.repeatable,
             f"s{RUNTIME_S}_scaled_err": s5_bwd.scaled_err,

@@ -302,16 +302,16 @@ def pred_eval(
     so the result does not depend on which worker finishes first.
     ``dump_path`` writes the ``all_boxes`` pickle; ``stats_out`` receives
     the completion pool's counters (``completion``) and the eval loop's
-    (``feed``: mode, window, waits, feed occupancy).  ``vis`` raises: the
-    overlays need an image writer (ROADMAP queue 1 item 7)."""
+    (``feed``: mode, window, waits, feed occupancy).  ``vis`` names a
+    directory that receives each image's detection overlay,
+    ``det_%06d.png`` by dataset index, drawn on ``load_record_image(rec)``
+    (``utils/visualize.py``)."""
     from mx_rcnn_tpu_torch.data.assembler import CompletionPool
     from mx_rcnn_tpu_torch.eval.segm import rles_for_detections
     from mx_rcnn_tpu_torch.serve.runner import cap_detections, detections_from_output
 
     if vis:
-        raise NotImplementedError(
-            "vis (detection overlays) needs an image writer: ROADMAP queue 1 item 7"
-        )
+        os.makedirs(vis, exist_ok=True)
     te = cfg.TEST
     thresh = te.SCORE_THRESH if thresh is None else thresh
     num_classes = imdb.num_classes
@@ -356,6 +356,13 @@ def pred_eval(
                     all_masks = [[[] for _ in range(num_images)] for _ in range(num_classes)]
             for j in range(1, num_classes):
                 all_masks[j][i] = rles[j]
+        if vis:
+            from mx_rcnn_tpu_torch.data.loader import load_record_image
+            from mx_rcnn_tpu_torch.utils.visualize import draw_detections, save_image
+
+            dets_by_class = {imdb.classes[j]: all_boxes[j][i] for j in range(1, num_classes)}
+            im = draw_detections(load_record_image(rec), dets_by_class, vis_thresh)
+            save_image(os.path.join(vis, f"det_{i:06d}.png"), im)
         with acc_lock:
             done += 1
             n_done = done

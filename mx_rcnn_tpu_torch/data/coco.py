@@ -1,7 +1,7 @@
 """MS COCO instances reader (port of ``mx_rcnn_tpu/data/coco.py``): the
-annotation side, with the standard library's JSON parser (no pycocotools).
-The image files themselves need a decoder, which the port does not have yet
-(``data/loader.py::load_record_image`` raises for them).
+annotations through the standard library's JSON parser (no pycocotools);
+the JPEG files are read by ``data/loader.py::load_record_image`` with the
+port's decoder.
 
 Crowd regions (``iscrowd`` 1) are left out of the training roidb and are
 ignore regions in evaluation, as upstream.  ``evaluate_detections`` runs the

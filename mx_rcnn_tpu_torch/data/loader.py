@@ -32,7 +32,7 @@ import numpy as np
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.data.assembler import AssemblyPool, default_assembly_workers
-from mx_rcnn_tpu_torch.data.image import prepare_image
+from mx_rcnn_tpu_torch.data.image import load_image, prepare_image
 from mx_rcnn_tpu_torch.data.masks import record_gt_masks
 from mx_rcnn_tpu_torch.data.synthetic import synthetic_image
 from mx_rcnn_tpu_torch.utils import faults
@@ -129,8 +129,9 @@ def _prepared_key(rec: Dict, scales, bucket, uint8: bool, means, stds) -> Tuple:
 def load_record_image(rec: Dict) -> np.ndarray:
     """The record's RGB float32 pixels.  Synthetic records render from their
     own (already flipped) geometry, through the render LRU (read-only
-    downstream: ``prepare_image`` copies); image files need a decoder, which
-    the port does not have yet."""
+    downstream: ``prepare_image`` copies); image files are decoded
+    (``data/image.py::load_image``) and mirrored when the record is
+    flipped, as the JAX loader does."""
     if str(rec["image"]).startswith("synthetic://"):
         key = _render_key(rec)
         im = _RENDER_CACHE.get(key)
@@ -138,10 +139,10 @@ def load_record_image(rec: Dict) -> np.ndarray:
             im = synthetic_image(rec, rec["synthetic_seed"])
             _RENDER_CACHE.put(key, im)
         return im
-    raise NotImplementedError(
-        f"{rec['image']}: reading image files needs a decoder, which the port does not "
-        f"have (ROADMAP queue 1 item 7); only synthetic records are ported"
-    )
+    im = load_image(rec["image"])
+    if rec.get("flipped"):
+        im = im[:, ::-1]
+    return im
 
 
 def make_batch(

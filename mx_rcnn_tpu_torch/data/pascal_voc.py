@@ -1,7 +1,6 @@
-"""Pascal VOC dataset (port of ``mx_rcnn_tpu/data/pascal_voc.py``): the
-annotation side.  The XML goes through the standard library; the image
-files themselves need a decoder, which the port does not have yet
-(``data/loader.py::load_record_image`` raises for them).
+"""Pascal VOC dataset (port of ``mx_rcnn_tpu/data/pascal_voc.py``).  The
+XML goes through the standard library; the JPEG files are read by
+``data/loader.py::load_record_image`` with the port's decoder.
 
 Reference: ``rcnn/dataset/pascal_voc.py :: PascalVOC`` — XML annotation
 parsing → gt_roidb; detection writing + ``voc_eval`` mAP in

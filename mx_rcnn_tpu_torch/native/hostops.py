@@ -3,11 +3,13 @@ of ``nms_host`` in ``mx_rcnn_tpu/native/hostops.py`` and its build helper).
 
 The library is built at first use with the host C compiler (``$CC``, else
 ``cc``, else ``gcc``) into ``native/build/`` (git-ignored), named by a hash
-of the source and the flags, written to a temporary name and renamed into
-place, so concurrent processes never load a half-written file.  Without a
-compiler :func:`nms_host` runs ``ops/nms.py::nms_numpy``, which keeps the
-same indices in the same order; :func:`backend` says which one loaded, and
-the first call logs it.
+of the source and the flags.  Each build writes a temporary file of its own
+(``mkstemp``) and renames it into place, so concurrent processes never load
+a half-written file; within a process a lock per library covers the check,
+the build and the load, and the first call's lock makes threads that call
+at once share one load.  Without a compiler :func:`nms_host` runs
+``ops/nms.py::nms_numpy``, which keeps the same indices in the same order;
+:func:`backend` says which one loaded, and the first call logs it.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import logging
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -33,6 +37,10 @@ CFLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOCK = threading.Lock()
+# one lock per built library (keyed by its output path), made under _BUILD_LOCKS_LOCK
+_BUILD_LOCKS: Dict[Path, threading.Lock] = {}
+_BUILD_LOCKS_LOCK = threading.Lock()
 
 
 def _compiler() -> Optional[str]:
@@ -42,22 +50,36 @@ def _compiler() -> Optional[str]:
     return None
 
 
+def _build_lock(path: Path) -> threading.Lock:
+    with _BUILD_LOCKS_LOCK:
+        return _BUILD_LOCKS.setdefault(path, threading.Lock())
+
+
 def build_library(src: Path) -> ctypes.CDLL:
     """Compile the C source ``src`` (unless built) into ``BUILD_DIR`` and
-    load it; raises when there is no compiler or the build or load fails.
-    ``native/rle.py`` builds ``rlelib.c`` with it too."""
+    load it; raises when there is no compiler or the build or load fails
+    (with the compiler's error).  ``native/rle.py`` and ``native/jpeg.py``
+    build their sources with it too."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(CFLAGS).encode()).hexdigest()[:16]
     so_path = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if not so_path.exists():
-        cc = _compiler()
-        if cc is None:
-            raise RuntimeError("no C compiler found ($CC, cc, gcc)")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([cc, *CFLAGS, str(src), "-o", str(tmp)], check=True,
-                       capture_output=True)
-        os.replace(tmp, so_path)
-    return ctypes.CDLL(str(so_path))
+    with _build_lock(so_path):
+        if not so_path.exists():
+            cc = _compiler()
+            if cc is None:
+                raise RuntimeError("no C compiler found ($CC, cc, gcc)")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run([cc, *CFLAGS, str(src), "-o", tmp], capture_output=True,
+                                      text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cc} failed for {src.name}:\n{proc.stderr}")
+                os.replace(tmp, so_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        return ctypes.CDLL(str(so_path))
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
@@ -78,8 +100,10 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
 def _lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if not _TRIED:
-        _LIB = _build_and_load()
-        _TRIED = True
+        with _LOCK:
+            if not _TRIED:
+                _LIB = _build_and_load()
+                _TRIED = True
     return _LIB
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -24,6 +25,7 @@ logger = logging.getLogger(__name__)
 _SRC = Path(__file__).resolve().parent / "rlelib.c"
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
@@ -59,8 +61,10 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
 def _lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if not _TRIED:
-        _LIB = _build_and_load()
-        _TRIED = True
+        with _LOCK:
+            if not _TRIED:
+                _LIB = _build_and_load()
+                _TRIED = True
     return _LIB
 
 

@@ -17,8 +17,8 @@ warns and evaluates the seeded random model).  It applies the run's
 over the test set and logs each class's AP and the mAP to standard output.
 Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the
 kernels on the CPU.  The ResNet C4, ResNet FPN and Mask R-CNN FPN networks
-are ported (``--synthetic`` COCO runs read polygon records); ``--vis``
-(ROADMAP queue 1 item 7) is not.
+are ported (``--synthetic`` COCO runs read polygon records); ``--vis DIR``
+writes each image's detection overlay to ``DIR/det_%06d.png``.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def parse_args(argv=None):
                         "checkpoint")
     p.add_argument("--dump", default=None, help="save the all_boxes pickle")
     p.add_argument("--vis", default=None, metavar="DIR",
-                   help="render detection overlays into DIR (not ported)")
+                   help="render detection overlays into DIR (det_%%06d.png per image)")
     p.add_argument("--test_batch", type=int, default=1,
                    help="images per device forward (same-bucket batching)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
@@ -115,8 +115,6 @@ def test_rcnn(args) -> Dict:
     if args.network in _UNPORTED:
         raise NotImplementedError(f"--network {args.network} is not ported: ROADMAP queue 1 "
                                   f"{_UNPORTED[args.network]}")
-    if args.vis:
-        raise NotImplementedError("--vis needs an image writer: ROADMAP queue 1 item 7")
     device = resolve_device("cpu" if args.cpu else None)
     cfg = generate_config(args.network, args.dataset)
     # the training run's preprocessing and normalization stats
@@ -145,7 +143,8 @@ def test_rcnn(args) -> Dict:
                        args.prefix)
     predictor = Predictor(model, device=device)
     loader = TestLoader(roidb, cfg, batch_size=args.test_batch)
-    _, results = pred_eval(predictor, loader, imdb, cfg, thresh=args.thresh, dump_path=args.dump)
+    _, results = pred_eval(predictor, loader, imdb, cfg, thresh=args.thresh, vis=args.vis,
+                           dump_path=args.dump)
     for k, v in results.items():
         logger.info("%s: %.4f", k, v)
     return results

@@ -25,9 +25,9 @@ SIGTERM/SIGINT stops the run mid-epoch or the watchdog aborts a hung step
 ``tools/test.py --prefix`` evaluates one.  The log, the Speedometer lines
 included, goes to standard output (``--metrics_jsonl`` also writes them as
 JSON lines); ``--profile DIR`` writes a ``torch.profiler`` trace of steps
-10–20.  The dataset readers (VOC, COCO) are ported but not an image decoder,
-so a run without ``--synthetic N`` stops at the first image (ROADMAP queue 1
-item 7); the weights start seeded random (``--seed``).  ``--compute_dtype
+10–20.  Without ``--synthetic N`` it reads the config's dataset (VOC or COCO
+annotations, JPEG images through the port's decoder); the weights start
+seeded random (``--seed``).  ``--compute_dtype
 bfloat16`` trains the bf16 graph (COMPUTE_DTYPE; FOLD_BN comes from the
 config, as in the JAX CLI, which has no flag for it).
 """
@@ -131,8 +131,8 @@ def train_net(args) -> Dict:
                              synthetic_size=args.synthetic)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
     if not args.synthetic:
-        # a dataset's images need a decoder: fail at the first one here rather
-        # than spend the loader's failure budget
+        # an unreadable dataset (missing files, another format) fails at its
+        # first image here rather than spend the loader's failure budget
         load_record_image(roidb[0])
     model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
     save_run_meta(args.prefix, cfg)

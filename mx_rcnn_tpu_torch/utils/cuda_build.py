@@ -9,9 +9,12 @@ on machines without ``nvcc``.
 
 A :class:`CudaLibrary` is one source; a :class:`CudaKernel` is one C launcher
 it exports, with its own launch count.  One library may export several
-launchers (``roi_align.cu``: forward and backward), and builds once.  A
-source may include the shared headers ``csrc/*.cuh``; they are hashed into
-every library's name.
+launchers (``roi_align.cu``: forward and backward), and builds once: a lock
+per library covers the check, the build and the load, so threads that first
+call it at once share one build.  ``nvcc`` writes a temporary file of its
+own (``mkstemp``) that is renamed into place, so concurrent processes never
+load a half-written library.  A source may include the shared headers
+``csrc/*.cuh``; they are hashed into every library's name.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -61,6 +66,7 @@ class CudaLibrary:
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
 
     def library_path(self) -> Path:
         # the shared headers (``*.cuh``) are part of every source's build
@@ -74,25 +80,34 @@ class CudaLibrary:
         """The loaded library, running ``nvcc`` first unless it is built.
         ptxas' log is kept beside the library, so a build made earlier
         still reports its registers and spills."""
-        if self._lib is None:
-            out = self.library_path()
-            log = out.with_suffix(".ptxas.txt")
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                t0 = time.monotonic()
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed for {self.source.name}:\n{proc.stdout}")
-                log.write_text(proc.stdout)
-                os.replace(tmp, out)
-                self.build_seconds = time.monotonic() - t0
-            self.ptxas_log = log.read_text() if log.exists() else ""
-            self._lib = ctypes.CDLL(str(out))
-        return self._lib
+        with self._lock:
+            if self._lib is None:
+                out = self.library_path()
+                log = out.with_suffix(".ptxas.txt")
+                if not out.exists():
+                    self._build(out, log)
+                self.ptxas_log = log.read_text() if log.exists() else ""
+                self._lib = ctypes.CDLL(str(out))
+            return self._lib
+
+    def _build(self, out: Path, log: Path) -> None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.source.name}:\n{proc.stdout}")
+            log.write_text(proc.stdout)
+            os.replace(tmp, out)
+            self.build_seconds = time.monotonic() - t0
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 class CudaKernel:

@@ -3,9 +3,8 @@
 the proposal roidbs of Fast R-CNN training (dumped proposals attached to
 the gt records).
 
-Synthetic data, Pascal VOC and COCO are ported (the readers of the
-annotations; reading the image files waits for a decoder, ROADMAP queue 1
-item 7).  A proposal dump is a pickled list of one (P, 5) float32 numpy
+Synthetic data, Pascal VOC and COCO are ported (the annotation readers,
+and the JPEG files through ``data/image.py::load_image``).  A proposal dump is a pickled list of one (P, 5) float32 numpy
 array per image, so the JAX package and the port read each other's.
 """
 

@@ -538,7 +538,7 @@ def test_train_end2end_compute_dtype_bfloat16_trains_and_checkpoints(monkeypatch
                                   "test_rpn", "test", "reeval", "demo"])
 def test_every_cli_main_turns_tf32_off(name):
     """Each CLI main of ``tools/`` turns TF32 off before it reads its
-    arguments (``--help`` then exits; ``demo``'s main then raises)."""
+    arguments (``--help`` then exits)."""
     import importlib
 
     cli = importlib.import_module(f"mx_rcnn_tpu_torch.tools.{name}")

@@ -407,8 +407,6 @@ def test_cli_refuses_what_is_not_ported(params_pickle, tmp_path):
             test_cli.main(base)
     with pytest.raises(NotImplementedError, match="item 11"):
         test_cli.main(base + ["--cpu", "1", "--network", "vgg"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        test_cli.main(base + ["--cpu", "1", "--vis", str(tmp_path)])
     # a pickle of jax.Array leaves needs JAX to read
     jax_path = str(tmp_path / "jax_params.pkl")
     save_params(jax_path, {"rpn": {"bias": jnp.zeros(3)}})

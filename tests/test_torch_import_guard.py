@@ -1,9 +1,9 @@
-"""The PyTorch port imports and runs where JAX, Flax, OpenCV and the JAX
-package cannot be imported (it serves a request and a mask request, a bf16
-request, trains a step of the C4 (float32 and bf16) and of the mask network
-through its CLI, runs the alternate
-training CLI and evaluates through ``tools/test.py``), and ``chip_smoke.py``
-refuses
+"""The PyTorch port imports and runs where JAX, Flax, OpenCV, PIL and the
+JAX package cannot be imported (it serves a request and a mask request, a
+bf16 request, trains a step of the C4 (float32 and bf16) and of the mask
+network through its CLI, runs the alternate
+training CLI, evaluates through ``tools/test.py``, decodes a JPEG and writes
+a PNG), and ``chip_smoke.py`` refuses
 to report without a card or outside the repository."""
 
 import json
@@ -18,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # makes every import of the named top-level packages fail in the child
 BLOCK = """
 import sys
-_BLOCKED = ("jax", "jaxlib", "flax", "orbax", "mx_rcnn_tpu", "cv2")
+_BLOCKED = ("jax", "jaxlib", "flax", "orbax", "mx_rcnn_tpu", "cv2", "PIL")
 class _Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in _BLOCKED:
@@ -327,6 +327,31 @@ print("ok")
 """)
     assert r.returncode == 0, r.stderr
     assert "mAP:" in r.stdout
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_decodes_a_jpeg_and_writes_a_png_without_jax(tmp_path):
+    """A fixture JPEG decoded to its manifest hash (cv2's decode) and the
+    overlay written as a PNG, with OpenCV and PIL blocked."""
+    r = run_blocked(f"""
+import hashlib, json, zlib
+import numpy as np
+from mx_rcnn_tpu_torch.data.image import load_image
+from mx_rcnn_tpu_torch.utils.visualize import draw_detections, save_image
+entry = json.load(open("tests/fixtures/jpeg/manifest.json"))["files"][0]
+im = load_image("tests/fixtures/jpeg/" + entry["name"])
+assert hashlib.sha256(im.astype(np.uint8).tobytes()).hexdigest() == entry["sha256"]
+dets = {{"dog": np.array([[10, 20, 200, 150, 0.9]], np.float32)}}
+out = {str(tmp_path / "o.png")!r}
+save_image(out, draw_detections(im, dets))
+data = open(out, "rb").read()
+assert data[:8] == b"\\x89PNG\\r\\n\\x1a\\n"
+h, w = im.shape[:2]
+raw = zlib.decompress(data[data.index(b"IDAT") + 4:data.index(b"IEND") - 8])
+assert len(raw) == h * (1 + 3 * w)
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
     assert r.stdout.split()[-1] == "ok"
 
 

@@ -623,7 +623,8 @@ def test_coco_gt_roidb_matches_jax(coco_tree, tmp_path):
     assert_same(tcoco.COCO("val2017", str(tmp_path / "port"), str(coco_tree)).gt_roidb(), want)
     assert_same(IMDB.append_flipped_images(got), JIMDB.append_flipped_images(want))
     assert got[1]["image"].endswith("val2017/000005.jpg")
-    with pytest.raises(NotImplementedError, match="decoder"):
+    # the fixture writes no image files: the decoder's read names the file, as JAX's
+    with pytest.raises(FileNotFoundError, match="000005.jpg"):
         tloader.load_record_image(got[1])
 
 
@@ -711,17 +712,26 @@ def test_cli_trains_the_mask_network_on_the_cpu(monkeypatch, tmp_path):
 
 def test_cli_on_coco_reaches_the_reader_then_the_decoder(monkeypatch, coco_tree, tmp_path):
     """Without ``--synthetic`` the CLI reads the COCO annotations and stops
-    at the first image, which needs a decoder the port does not have."""
+    at the first image, which the decoder refuses: the tree's files are
+    PNGs, which the port does not read."""
+    import shutil
+
     from mx_rcnn_tpu_torch.tools import train_end2end as cli
+
+    tree = tmp_path / "coco"
+    shutil.copytree(coco_tree, tree)
+    (tree / "val2017").mkdir()
+    for name in ("000002.jpg", "000005.jpg", "000009.jpg"):
+        (tree / "val2017" / name).write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(16))
 
     def on_fixture(network, dataset):
         cfg = small_mask_cfg(network, dataset)
         return cfg.replace(dataset=dataclasses.replace(
-            cfg.dataset, root_path=str(tmp_path), dataset_path=str(coco_tree),
+            cfg.dataset, root_path=str(tmp_path), dataset_path=str(tree),
             image_set="val2017"))
 
     monkeypatch.setattr(cli, "generate_config", on_fixture)
-    with pytest.raises(NotImplementedError, match="decoder"):
+    with pytest.raises(NotImplementedError, match="PNG file.*item 7"):
         cli.main(["--network", "mask_resnet_fpn", "--dataset", "coco", "--cpu", "1",
                   "--max_steps", "1", "--prefix", str(tmp_path / "e2e")])
     assert (tmp_path / "cache" / "coco_val2017_gt_roidb.pkl").exists()
