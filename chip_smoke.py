@@ -214,6 +214,23 @@
    their flips with assembly processes that decode and build the decoder
    themselves (NMS and kernels 2 and 3 once a step), and ``tools/demo.py``
    on one fixture (``demo_out.png`` read back to its overlay);
+9d. ``[vgg]``: VGG-16 (``generate_config("vgg", "PascalVOC")``: 13 convs,
+   7 × 7 ROIPooling at stride 16, fc6 / fc7 at 4096, 21 classes) at full
+   width on seeded weights calibrated on the 8 training images (every conv
+   and fc6 / fc7 to unit output scale: no BN): 10 steps of ``fit`` (the
+   loss gates, conv1 / conv2 bitwise frozen, finite differences through
+   ROIPooling's backward, one profiled step), the six requests and a batch
+   of 2, ``pred_eval`` on 16 images, a bf16 request and 4 bf16 steps of
+   ``train_end2end --compute_dtype bfloat16``, the alternate schedule at 2
+   steps a stage with ``tools/test.py --params final.pkl --synthetic 8``;
+   every run launches NMS as reckoned (1 a step, 2 a forward, 1 an image
+   of a proposal pass) and kernels 2–5 never, and pools once a step or
+   forward.  ROIPooling (``ops/roi_pool.py``, plain PyTorch: the JAX
+   package leaves it to XLA) on the captured serving, train and bf16
+   calls, card vs CPU: the forward bit for bit, the backward within
+   1e-6 of the largest sum of a cell's |terms|; its ms beside a bytes
+   bound (the cells its rois cover and its output); a small request and a
+   small step card vs CPU;
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
    mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
@@ -311,6 +328,7 @@ from mx_rcnn_tpu_torch.models.faster_rcnn import sampling_uniforms
 from mx_rcnn_tpu_torch.models.fpn import mask_bce
 from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm, normalize_images
 from mx_rcnn_tpu_torch.models.stage_models import FastRCNN, RPNOnly
+from mx_rcnn_tpu_torch.models.vgg import VGGBackbone
 from mx_rcnn_tpu_torch.native import hostops
 from mx_rcnn_tpu_torch.native import jpeg as jpeg_mod
 from mx_rcnn_tpu_torch.native import rle as rle_mod
@@ -318,6 +336,7 @@ from mx_rcnn_tpu_torch.native.jpeg import decode_jpeg
 from mx_rcnn_tpu_torch.ops import nms as nms_mod
 from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
+from mx_rcnn_tpu_torch.ops import roi_pool as roi_pool_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve import runner as runner_mod
@@ -768,20 +787,25 @@ def make_model(cfg, seed: int = 0, cls=None):
     return model
 
 
-def loaded_model(cfg, weights, cls=None):
+def bare_model(cfg, cls=None):
     """The config's graph (``build_model``, or the stage graph ``cls``)
-    holding ``weights``, a calibrated run's ``state_dict``: its own seeded
-    init, which ``weights`` replaces, is skipped (seconds of host time at
-    ResNet-101)."""
+    without its seeded init, for weights that replace every tensor (seconds
+    of host time at ResNet-101, more at VGG-16's fc6)."""
     skip = (lambda *a, **k: None)
     saved = [(m, m.init_weights) for m in (fr_mod, fpn_mod, stage_mod)]
     for m, _ in saved:
         m.init_weights = skip
     try:
-        model = build_model(cfg) if cls is None else cls(cfg)
+        return build_model(cfg) if cls is None else cls(cfg)
     finally:
         for m, fn in saved:
             m.init_weights = fn
+
+
+def loaded_model(cfg, weights, cls=None):
+    """:func:`bare_model` holding ``weights``, a calibrated run's
+    ``state_dict``."""
+    model = bare_model(cfg, cls)
     model.load_state_dict(weights)
     return model
 
@@ -864,10 +888,66 @@ NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+    ROI_POOL.reset()
 
 
 def read_launches():
+    ROI_POOL.read()
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def path_kernels(cfg) -> tuple:
+    """The kernels a single-level forward of ``cfg``'s model launches: NMS,
+    and under ROI_MODE 'roi_align' kernel 2 of the compute dtype.
+    ROIPooling (VGG-16) is plain PyTorch and launches none."""
+    if cfg.network.ROI_MODE != "roi_align":
+        return ("nms",)
+    return ("nms", "roi_align_fwd_bf16" if cfg.network.COMPUTE_DTYPE == "bfloat16"
+            else "roi_align_fwd")
+
+
+class RoiPoolCalls:
+    """Counts the model's ROIPooling calls (``ops/roi_pool.py``, plain
+    PyTorch: no kernel of its own) beside the kernels' launch counts:
+    ``reset_launches`` zeroes it and ``read_launches`` notes it in ``last``,
+    so a path's window reads it as it reads the kernels.  While installed
+    (``with``) it wraps the name ``ops/roi_align.py`` calls and keeps the
+    inputs of the first call of each kind and dtype: a differentiated call
+    (train), a forward with ``valid_hw`` over 2 images (a serving batch of
+    2), any other."""
+
+    def __init__(self):
+        self.n, self.last, self.calls = 0, 0, {}
+        self._orig = roi_mod.roi_pool
+
+    def reset(self):
+        self.n = 0
+
+    def read(self):
+        self.last = self.n
+
+    def __enter__(self):
+        orig = self._orig
+
+        def rec(feat, rois, pooled, spatial_scale, valid_hw=None):
+            self.n += 1
+            kind = ("train" if feat.requires_grad else
+                    "serve" if valid_hw is not None and feat.shape[0] == 2 else "other")
+            key = f"{kind}_{str(feat.dtype).split('.')[-1]}"
+            if key not in self.calls:
+                self.calls[key] = (feat.detach().clone(), rois.clone(), tuple(pooled),
+                                   spatial_scale, None if valid_hw is None else valid_hw.clone())
+            return orig(feat, rois, pooled, spatial_scale, valid_hw)
+
+        roi_mod.roi_pool = rec
+        return self
+
+    def __exit__(self, *exc):
+        roi_mod.roi_pool = self._orig
+        return False
+
+
+ROI_POOL = RoiPoolCalls()
 
 
 def main_path(cfg, dev):
@@ -1258,15 +1338,18 @@ def calibrate_bn(model, batch):
 
 def calibrate_scales(model, batch):
     """Rescale each layer that no frozen BN follows, the FPN neck's convs,
-    its 2-fc head and the mask head's layers (none in C4), so that its
+    its 2-fc head and the mask head's layers (none in C4), and every conv of
+    VGG-16 (no BN at all) and its fc6 / fc7, so that its
     output has unit standard deviation on ``batch``: layer by layer in
     forward order, one forward each (LSUV, Mishkin & Matas 2016).  ``calibrate_bn`` gives the
     backbone unit-scale activations; without this the random neck and head
     leave the pooled features and the head's outputs far above unit scale,
     each clipped SGD step moves the 50176-input ``fc1`` outputs by far more
     than their scale, and the losses run away within a few steps."""
+    vgg = isinstance(getattr(model, "backbone", None), VGGBackbone)
     layers = [(n, m) for n, m in model.named_modules()
-              if n.startswith(("neck.", "mask_head.")) or n in ("top_head.fc1", "top_head.fc2")]
+              if n.startswith(("neck.", "mask_head.")) or (vgg and n.startswith("backbone.conv"))
+              or n in ("top_head.fc1", "top_head.fc2", "top_head.fc6", "top_head.fc7")]
     for name, layer in layers:
         seen = []
         hook = layer.register_forward_hook(lambda m, i, o: seen.append(float(o.std())))
@@ -2285,6 +2368,12 @@ def train_step_agrees(dev, cfg, gts, label, cls=None):
     if cls is FastRCNN:
         masks = {"proposals": small_proposals(gts, cfg.TRAIN.RPN_POST_NMS_TOP_N),
                  "prop_valid": torch.ones((1, cfg.TRAIN.RPN_POST_NMS_TOP_N), dtype=torch.bool)}
+    if isinstance(model.backbone, VGGBackbone):
+        # no BN: unit output scales on this image, as the [vgg] phase calibrates;
+        # uncalibrated on [0, 1) pixels, the random RPN's scores are flat to
+        # float32 rounding and the card and the CPU order the proposals apart
+        calibrate_scales(model, {"images": images, "im_info": im_info, "gt_boxes": gt,
+                                 "gt_valid": gt_valid, "sample_seeds": [0], **masks})
 
     runs = {}
     orig = (getattr(model_mod, "assign_anchor", None), getattr(model_mod, "sample_rois", None))
@@ -2436,23 +2525,23 @@ def frozen_leaves_equal(tree, donor, fixed) -> int:
     return len(held)
 
 
-def stage_train_checks(name, rec, per_step) -> dict:
+def stage_train_checks(name, rec, per_step, steps=ALT_STEPS) -> dict:
     """A training stage's gates, after its line is logged: it dispatched
-    ALT_STEPS steps and launched ``per_step`` a step; finite losses, none
+    ``steps`` steps and launched ``per_step`` a step; finite losses, none
     above 100× the first step's.  Returns its step statistics."""
     out = rec["fit"]
     hist = out["history"]
     want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
     losses = [h["loss"] for h in hist]
     growth = max(losses) / losses[0] if losses and losses[0] > 0 else math.inf
-    timed = [h["step_ms"] for h in hist[TRAIN_WARMUP:]]
+    timed = [h["step_ms"] for h in hist[min(TRAIN_WARMUP, len(hist) - 1):]]
     worst = max(hist, key=lambda h: h["loss"]) if hist else {}
     log(f"  {name}: losses {[round(v, 5) for v in losses]} (largest / first {growth:.3f}), "
         f"the largest step's aux "
         f"{ {k: round(v, 5) for k, v in worst.items() if k not in ('index', 'wait_ms')} }, "
         f"step median {statistics.median(timed) if timed else math.nan:.3f} ms after "
-        f"{TRAIN_WARMUP} warm-up, launches {rec['launches']}")
-    if rec["launches"] != want or out["dispatched_steps"] != ALT_STEPS or len(hist) != ALT_STEPS:
+        f"{len(hist) - len(timed)} warm-up, launches {rec['launches']}")
+    if rec["launches"] != want or out["dispatched_steps"] != steps or len(hist) != steps:
         raise AssertionError(f"{name} dispatched {out['dispatched_steps']} steps, ran "
                              f"{len(hist)} and launched {rec['launches']}, not {want}")
     if not all(math.isfinite(v) for v in losses):
@@ -2464,34 +2553,31 @@ def stage_train_checks(name, rec, per_step) -> dict:
             "dispatched_steps": out["dispatched_steps"]}
 
 
-def alternate_phase(cfg, weights, dev):
+def alternate_phase(cfg, weights, dev, steps=ALT_STEPS, per_stage=STAGE_LAUNCHES_PER_STEP):
     """The four-stage schedule (``tools/train_alternate.py::
-    alternate_train``) at full width: ResNet-101 C4, ALT_IMAGES synthetic
-    480 × 640 images and their flipped copies, ALT_STEPS steps of ``fit`` a
+    alternate_train``) at full width: ResNet-101 C4 (or VGG-16), ALT_IMAGES synthetic
+    480 × 640 images and their flipped copies, ``steps`` steps of ``fit`` a
     training stage, from the calibrated weights the ``[train]`` run started
     from (its BN moments from ``calibration_batch`` on these images) as the
     donor of stages 1 and 3; then ``tools/test.py --params final.pkl`` with
-    the run's per-class statistics.  Gates: each stage's launches (RPN
-    stages none, Fast R-CNN kernel 2 once a step and kernel 3 once a step
-    of stage 3 (:data:`STAGE_LAUNCHES_PER_STEP`), each proposal
-    pass one NMS an image), losses, the frozen leaves of every stage bitwise
+    the run's per-class statistics.  Gates: each stage's launches
+    (``per_stage``: for C4 RPN stages none, Fast R-CNN kernel 2 once a step
+    and kernel 3 once a step of stage 3 (:data:`STAGE_LAUNCHES_PER_STEP`);
+    VGG-16's ROIPooling launches none), each proposal
+    pass one NMS an image, losses, the frozen leaves of every stage bitwise
     its donor's, the final backbone bitwise RPN-2's, the evaluation's
     launches and statistics.  Returns the captured kernel inputs, the
-    stats, and the Fast R-CNN-1 model and proposal roidb for the finite
+    stats, and Fast R-CNN-1's tree and proposal roidb for the finite
     differences."""
     roidb = SyntheticDataset(num_images=ALT_IMAGES, image_size=(480, 640)).gt_roidb()
-    donor_model = make_model(cfg)
-    donor_model.load_state_dict(weights)
-    donor = torch_to_flax(donor_model)
-    del donor_model
+    donor = torch_to_flax(loaded_model(cfg, weights))
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_alt_")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with Capture(keep=2) as cap, StageRecorder() as rec:
         alt_mod.alternate_train(cfg, roidb, epochs_rpn=1, epochs_rcnn=1, pretrained_donor=donor,
-                                out_dir=out_dir, max_steps=ALT_STEPS, device=dev,
-                                frequent=ALT_STEPS)
+                                out_dir=out_dir, max_steps=steps, device=dev, frequent=steps)
     seconds = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     names = ["rpn1", "test_rpn1", "rcnn1", "rpn2", "test_rpn2", "rcnn2"]
@@ -2511,7 +2597,7 @@ def alternate_phase(cfg, weights, dev):
             if r["launches"] != want:
                 raise AssertionError(f"{name} launched {r['launches']}, not {want}")
         else:
-            st = stage_train_checks(name, r, STAGE_LAUNCHES_PER_STEP[name])
+            st = stage_train_checks(name, r, per_stage[name], steps)
         stats["stages"][name] = st
 
     trees = {n: load_params(os.path.join(out_dir, f"{n}.pkl"))
@@ -2533,7 +2619,8 @@ def alternate_phase(cfg, weights, dev):
     stats["frozen_leaves_held"] = held
     start = dict(tree_leaves(donor))
     if not any(not np.array_equal(a, start[p]) for p, a in tree_leaves(trees["rcnn1"])
-               if p[:2] == ("backbone", "stage3") and p[-1] == "kernel"):
+               if p[0] == "backbone" and p[-1] == "kernel"
+               and not is_frozen_path(p, net.FIXED_PARAMS)):
         raise AssertionError("Fast R-CNN-1 did not move the shared convolutions it trains")
 
     meta = load_run_meta(out_dir)
@@ -2550,7 +2637,7 @@ def alternate_phase(cfg, weights, dev):
         reset_launches()
         t0 = time.perf_counter()
         results = test_cli.test_rcnn(test_cli.parse_args(
-            ["--network", "resnet", "--dataset", "PascalVOC", "--synthetic", "8",
+            ["--network", cfg.network.name, "--dataset", "PascalVOC", "--synthetic", "8",
              "--params", os.path.join(out_dir, "final.pkl")]))
         eval_s = time.perf_counter() - t0
     finally:
@@ -2562,17 +2649,16 @@ def alternate_phase(cfg, weights, dev):
         f"{seen['cfg'].TRAIN.BBOX_STDS_PER_CLASS == per_class}")
     if seen["cfg"].TRAIN.BBOX_STDS_PER_CLASS != per_class:
         raise AssertionError("tools/test.py did not apply final.pkl's run_meta statistics")
-    if eval_launches != dict(NO_LAUNCHES, nms=16, roi_align_fwd=8):
-        raise AssertionError(f"tools/test.py launched {eval_launches}")
+    want = dict(NO_LAUNCHES, **{k: 16 if k == "nms" else 8 for k in path_kernels(cfg)})
+    if eval_launches != want:
+        raise AssertionError(f"tools/test.py launched {eval_launches}, not {want}")
     stats["eval"] = {"mAP": results["mAP"], "seconds": eval_s, "launches": eval_launches}
     log(f"  the schedule {seconds:.1f} s; max_memory_allocated {peak_mib:.1f} MiB")
 
     props1 = load_params(os.path.join(out_dir, "proposals1.pkl"))
     prop_roidb = IMDB.append_flipped_images(attach_proposals(roidb, props1))
-    rcnn1 = flax_to_torch(trees["rcnn1"], make_model(cfg, cls=FastRCNN))
-    rcnn1.to(dev, memory_format=torch.channels_last)
     shutil.rmtree(out_dir, ignore_errors=True)
-    return cap, stats, rcnn1, prop_roidb
+    return cap, stats, trees["rcnn1"], prop_roidb
 
 
 def frozen_fpn_phase(fcfg, weights, dev):
@@ -2728,7 +2814,7 @@ def eval_run(predictor, cfg, roidb, imdb, batch, knobs, loop_knobs, label):
         f"the dispatch thread's wait per batch median {fig['wait_ms_median']:.3f} ms (mean "
         f"{fig['wait_ms_mean']:.3f}); loop {fig['feed']}; completion {fig['completion']}; "
         f"launches {launches} ({fig['launches_per_image']} per image); mAP {results['mAP']:.6f}")
-    if min(launches["nms"], launches["roi_align_fwd"]) <= 0:
+    if min(launches[k] for k in path_kernels(cfg)) <= 0:
         raise AssertionError(f"{label}: a kernel of the eval path never launched: {launches}")
     return all_boxes, results, fig, launches, timed_imdb.all_masks
 
@@ -3084,8 +3170,8 @@ def paste_cost(model, cfg, batch, dev):
 
 def infer_serve_phase(label, cfg, dev, per_forward, weights=None):
     """Serve the six REQUEST_HW synthetic COCO-like requests (both buckets)
-    and a same-bucket batch of 2 through the FPN or Mask R-CNN model at full
-    width, from seeded weights calibrated on the first request (BN moments
+    and a same-bucket batch of 2 through the FPN, Mask R-CNN or VGG-16 model
+    at full width, from seeded weights calibrated on the first request (BN moments
     and unit scales from one inference forward).  A box model serves with
     ``detect_single``; a mask model through the Predictor with the canvas
     paste, ``detections_from_output``, the cap and ``rles_for_detections``.
@@ -3097,6 +3183,7 @@ def infer_serve_phase(label, cfg, dev, per_forward, weights=None):
     cannot be: its BN layers do not run).  Returns (capture, launches,
     figures, predictor, one request image, the calibrated weights)."""
     mask = cfg.network.USE_MASK
+    num_classes = cfg.dataset.NUM_CLASSES
     images = masked_images(REQUEST_HW)
     ladder = BucketLadder(cfg.SHAPE_BUCKETS)
     reqs = [prepare_request(im, cfg, ladder) for im in images]
@@ -3113,13 +3200,13 @@ def infer_serve_phase(label, cfg, dev, per_forward, weights=None):
     else:
         model = loaded_model(cfg, weights)
     te = cfg.TEST
-    pp = make_test_postprocess(cfg, COCO_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS, paste=mask)
+    pp = make_test_postprocess(cfg, num_classes, te.SCORE_THRESH, te.DET_PER_CLASS, paste=mask)
     predictor = Predictor(model, pp, device=dev)
 
     def serve(im):
         if mask:
             return serve_masks(predictor, im, cfg)[0]
-        return detect_single(predictor, im, cfg, COCO_CLASSES)
+        return detect_single(predictor, im, cfg, num_classes)
 
     pair = [i for i, r in enumerate(reqs) if r.bucket == buckets[0]][:2]
     batch = {
@@ -3150,7 +3237,7 @@ def infer_serve_phase(label, cfg, dev, per_forward, weights=None):
         for d in dets[1:]:
             if d.ndim != 2 or d.shape[1] != 5 or not np.isfinite(d).all():
                 raise AssertionError("non-finite or misshapen detections")
-    if out["det_boxes"].shape != (2, COCO_CLASSES - 1, te.DET_PER_CLASS, 4):
+    if out["det_boxes"].shape != (2, num_classes - 1, te.DET_PER_CLASS, 4):
         raise AssertionError(f"det_boxes shape {out['det_boxes'].shape}")
     if not np.isfinite(out["det_boxes"]).all() or not out["det_valid"].any():
         raise AssertionError("batch detections are non-finite or empty")
@@ -3873,13 +3960,15 @@ def detections_agree(cfg, pp, images, f32, b16, label, dets=None, gate=False) ->
     return fig
 
 
-def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, keep=2):
+def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, keep=2,
+                   per_step=None):
     """``tools/train_end2end.py --compute_dtype bfloat16`` on the card with
     FOLD_BN from the config, on ``roidb`` (``load_gt_roidb`` patched to it)
     from the calibrated ``weights`` (``build_model`` patched to load them).
-    Launches reset just before, read just after: NMS and kernels 2 and 3's
-    bf16 instances once a step, no float32 ROIAlign.  Returns (capture,
-    launches, figures)."""
+    Launches reset just before, read just after: ``per_step`` a step (C4:
+    NMS and kernels 2 and 3's bf16 instances once a step, no float32
+    ROIAlign).  Returns (capture, launches, figures)."""
+    per_step = C4_BF16_LAUNCHES_PER_STEP if per_step is None else per_step
     from mx_rcnn_tpu_torch.tools import train_end2end as e2e
 
     epochs = -(-steps // (len(roidb) // batch))
@@ -3906,7 +3995,7 @@ def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, 
         launches = read_launches()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**20
     model_cfg = out["state"].model.cfg.network
-    want = {k: n * out["dispatched_steps"] for k, n in C4_BF16_LAUNCHES_PER_STEP.items()}
+    want = {k: n * out["dispatched_steps"] for k, n in per_step.items()}
     log(f"  {label}: train_end2end {' '.join(argv[:-2])}: COMPUTE_DTYPE "
         f"{model_cfg.COMPUTE_DTYPE}, FOLD_BN {model_cfg.FOLD_BN}; launches {launches} "
         f"(expected {want})")
@@ -4188,6 +4277,212 @@ def bf16_phase(cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mas
     log("[bf16] CUDA kernel launches per step and per forward, the fold off and on")
     figs["launches_per_step"] = launches_per_step(cfg, c4_weights, roidb, dev)
     return figs, (fwd, bwd, stream), caps, launches
+
+
+# ------------------------------------------------------------------ VGG-16
+# the groups a VGG-16 step trains (conv1/conv2 frozen, FIXED_PARAMS): one
+# conv of each trained block, the top head and the heads; the finite
+# differences move the last conv (its gradient comes through ROIPooling's
+# backward), the top head and the RCNN head
+VGG_TRAINED_GROUPS = ("backbone.conv3_1", "backbone.conv4_1", "backbone.conv5_3", "top_head",
+                      "rpn", "rcnn")
+VGG_FD_GROUPS = ("backbone.conv5_3", "top_head", "rcnn")
+# ROIPooling is plain PyTorch: a VGG-16 step launches the proposal NMS only,
+# a forward the proposal and the per-class NMS, kernels 2-5 never
+VGG_LAUNCHES_PER_STEP = dict(NO_LAUNCHES, nms=1)
+VGG_SERVE_LAUNCHES = {"nms": 2}
+VGG_STAGE_LAUNCHES = dict.fromkeys(("rpn1", "rcnn1", "rpn2", "rcnn2"), NO_LAUNCHES)
+VGG_ALT_STEPS = 2
+VGG_BF16_STEPS = 4
+VGG_EVAL_IMAGES = 16
+# ROIPooling's backward, card vs CPU: both sum a cell's terms (the split
+# gradients of the bins that chose it) in their own order, so |Δ| ≤ this
+# × the largest Σ|terms| of a cell (the backward of |g|); rois of the train
+# call held on the CPU (its masked form is ~1 G elements at 128 rois)
+ROI_POOL_BWD_TOL = 1e-6
+ROI_POOL_BWD_ROIS = 32
+
+
+def small_vgg_cfg():
+    """VGG-16 with anchors small enough (32–128 px) to meet the gts of a
+    128 × 128 image, as :func:`small_c4_cfg`."""
+    cfg = generate_config("vgg", "PascalVOC")
+    return cfg.replace(
+        network=dataclasses.replace(cfg.network, ANCHOR_SCALES=(2, 4, 8)),
+        TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=400, RPN_POST_NMS_TOP_N=64,
+                                  BATCH_ROIS=32, RPN_BATCH_SIZE=64),
+    )
+
+
+def roi_pool_work(feat, rois, pooled, scale, valid_hw, backward=False):
+    """The bytes ROIPooling must move: each roi's covered cells (the rows
+    and columns its bins span, clipped) read once and its output written
+    once; the backward reads g and the covered cells and writes dfeat."""
+    b, h, w, c = feat.shape
+    covered = 0
+    for i in range(b):
+        vhw = None if valid_hw is None else valid_hw[i].expand(rois.shape[1], 2)
+        (rlo, rhi), (clo, chi) = roi_pool_mod.bin_edges(rois[i], pooled, scale, (h, w), vhw)
+        rows = (rhi.max(1).values - rlo.min(1).values).clamp_min(0)
+        cols = (chi.max(1).values - clo.min(1).values).clamp_min(0)
+        covered += int((rows * cols).sum())
+    out = b * rois.shape[1] * pooled[0] * pooled[1] * c
+    cells = covered * c + out + (b * h * w * c if backward else 0)
+    return cells * feat.element_size()
+
+
+def _roi_pool_grad(feat, rois, pooled, scale, valid_hw, g):
+    f = feat.detach().requires_grad_(True)
+    roi_pool_mod.roi_pool(f, rois, pooled, scale, valid_hw).backward(g)
+    return f.grad
+
+
+def roi_pool_hold(entry, label, backward):
+    """ROIPooling on a path's captured call, on the card against the CPU:
+    the forward bit for bit; with ``backward`` the gradient of a seeded g
+    on the first ROI_POOL_BWD_ROIS rois at ROI_POOL_BWD_TOL.  Times the
+    forward (and forward + backward) on the card beside its bytes bound.
+    Returns the figures."""
+    feat, rois, pooled, scale, valid_hw = entry
+
+    def host(t):
+        return None if t is None else t.cpu()
+
+    with torch.no_grad():
+        got = roi_pool_mod.roi_pool(feat, rois, pooled, scale, valid_hw)
+        ref = roi_pool_mod.roi_pool(host(feat), host(rois), pooled, scale, host(valid_hw))
+    if got.dtype != feat.dtype or not torch.equal(got.cpu(), ref):
+        raise AssertionError(f"ROIPooling {label}: the card's forward is not the CPU's bit for bit")
+
+    def forward():
+        with torch.no_grad():
+            roi_pool_mod.roi_pool(feat, rois, pooled, scale, valid_hw)
+
+    ms = cuda_ms(forward, 10)
+    bound, _ = bound_ms(roi_pool_work(feat, rois, pooled, scale, valid_hw), 0.0)
+    fig = {"feat": list(feat.shape), "rois": list(rois.shape), "dtype": str(feat.dtype),
+           "valid_hw": valid_hw is not None, "forward_bitwise": True, "ms": ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+    if backward:
+        g = torch.randn(got.shape, generator=torch.Generator().manual_seed(8)).to(feat.dtype)
+        part = (feat, rois[:, :ROI_POOL_BWD_ROIS], pooled, scale, valid_hw)
+        gp = g[:, :ROI_POOL_BWD_ROIS]
+        card = _roi_pool_grad(*part, gp.to(feat.device)).cpu()
+        cpu_part = tuple(host(t) if torch.is_tensor(t) else t for t in part)
+        plain = _roi_pool_grad(*cpu_part, gp)
+        terms = float(_roi_pool_grad(*cpu_part, gp.abs()).max())
+        err = float((card - plain).abs().max())
+        gd = g.to(feat.device)
+        fb_ms = cuda_ms(lambda: _roi_pool_grad(feat, rois, pooled, scale, valid_hw, gd), 3, 1)
+        fb_bound, _ = bound_ms(roi_pool_work(feat, rois, pooled, scale, valid_hw, True), 0.0)
+        fig.update({"bwd_rois_held": ROI_POOL_BWD_ROIS, "bwd_max_abs_err": err,
+                    "bwd_terms_max": terms, "fwd_bwd_ms": fb_ms, "bwd_ms": fb_ms - ms,
+                    "bwd_bound_ms": fb_bound})
+        if not err <= ROI_POOL_BWD_TOL * terms:
+            raise AssertionError(f"ROIPooling {label}: backward card vs CPU {err} > "
+                                 f"{ROI_POOL_BWD_TOL} x {terms}")
+    log(f"  roi_pool {label} feat {tuple(feat.shape)} {feat.dtype} rois {tuple(rois.shape)} "
+        f"valid_hw {valid_hw is not None}: forward bitwise card = CPU; forward {ms:.4f} ms "
+        f"(eager, plain PyTorch), bound {bound:.5f} ms (bytes)"
+        + (f"; forward + backward {fig['fwd_bwd_ms']:.3f} ms (backward {fig['bwd_ms']:.3f}, "
+           f"bound {fig['bwd_bound_ms']:.5f}), backward on {ROI_POOL_BWD_ROIS} rois card vs "
+           f"CPU max|d| {fig['bwd_max_abs_err']:.3g} (bar {ROI_POOL_BWD_TOL} x the largest "
+           f"sum of |terms| {fig['bwd_terms_max']:.4g})" if backward else ""))
+    return fig
+
+
+def vgg_eval(cfg, weights, dev):
+    """``pred_eval`` of VGG-16 over VGG_EVAL_IMAGES synthetic VOC-sized
+    images, the JAX package's loop defaults: NMS twice an image, no other
+    kernel.  Returns the figures and the launches."""
+    imdb = SyntheticDataset(num_images=VGG_EVAL_IMAGES, num_classes=NUM_CLASSES,
+                            image_size=EVAL_HW)
+    predictor = Predictor(loaded_model(cfg, weights), device=dev)
+    _, _, fig, launches, _ = eval_run(predictor, cfg, imdb.gt_roidb(), imdb, 1,
+                                      {"postprocess_workers": 0}, {}, "VGG-16, JAX defaults")
+    want = dict(NO_LAUNCHES, nms=2 * VGG_EVAL_IMAGES)
+    if launches != want or ROI_POOL.last != VGG_EVAL_IMAGES:
+        raise AssertionError(f"VGG-16 eval launched {launches} and pooled {ROI_POOL.last} "
+                             f"times, not {want} and {VGG_EVAL_IMAGES}")
+    return fig, launches
+
+
+def vgg_phase(nms_diff, bwd_diff, stream_diff, dev):
+    """The ``[vgg]`` phase: VGG-16 (``generate_config("vgg", "PascalVOC")``:
+    13 convs, 7 × 7 ROIPooling at stride 16, fc6 / fc7 at 4096, 21 classes)
+    at full width.  Training: TRAIN_STEPS steps of ``fit`` on 8 synthetic
+    480 × 640 images from seeded weights calibrated on them (every conv and
+    fc6 / fc7 to unit output scale: VGG has no BN), the loss gates, conv1 /
+    conv2 bitwise frozen, the finite differences, one profiled step.
+    Serving the six requests and a batch of 2 (``detect_single``, the
+    Predictor) and ``pred_eval`` on the calibrated weights; a bf16 request
+    and bf16 steps (``train_end2end --compute_dtype bfloat16``); the
+    alternate schedule (VGG_ALT_STEPS steps a stage) with ``tools/test.py
+    --params final.pkl --synthetic 8``.  Every run: NMS as reckoned,
+    kernels 2–5 never, ROIPooling once a step or forward.  ROIPooling on
+    the captured calls card vs CPU (:func:`roi_pool_hold`); the NMS calls
+    against the plain version; a small request and a small step card vs
+    CPU.  Returns (figures, launches by run)."""
+    cfg = generate_config("vgg", "PascalVOC")
+    figs, launches, caps = {}, {}, {}
+    t = cfg.TRAIN
+    with ROI_POOL:
+        log(f"[vgg] training: {TRAIN_STEPS} steps of fit, BATCH_ROIS {t.BATCH_ROIS}, "
+            f"{t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} proposals, on 8 synthetic 480x640 "
+            f"images; weights calibrated on them (unit output scale, each conv and fc6 / fc7)")
+        caps["train"], launches["train"], model, roidb, figs["train"], weights, _ = train_path(
+            cfg, dev, VGG_TRAINED_GROUPS, VGG_LAUNCHES_PER_STEP)
+        figs["train"]["roi_pool_calls"] = ROI_POOL.last
+        if ROI_POOL.last != TRAIN_STEPS:
+            raise AssertionError(f"VGG-16 training pooled {ROI_POOL.last} times in "
+                                 f"{TRAIN_STEPS} steps")
+        log("[vgg] full-width gradient vs finite differences of the loss")
+        figs["train"]["fd"] = gradient_matches_finite_differences(model, cfg, roidb, dev,
+                                                                  VGG_FD_GROUPS)
+        log("[vgg] where one train step's device time goes")
+        figs["train"]["profile"] = profile_train_step(model, cfg, roidb, dev)
+        busy = figs["train"]["profile"].get("busy_ms")
+        if busy:
+            figs["train"]["idle"] = 1 - busy / figs["train"]["step_ms_median"]
+        del model
+        log(f"[vgg] serving the calibrated weights: {REQUEST_HW} requests and a batch of 2")
+        caps["serve"], launches["serve"], figs["serve"], *_ = infer_serve_phase(
+            "VGG-16 serving", cfg, dev, VGG_SERVE_LAUNCHES, weights=weights)
+        figs["serve"]["roi_pool_calls"] = ROI_POOL.last
+        log(f"[vgg] pred_eval: {VGG_EVAL_IMAGES} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} images")
+        figs["eval"], launches["eval"] = vgg_eval(cfg, weights, dev)
+        log("[vgg] bf16 (COMPUTE_DTYPE bfloat16; FOLD_BN has no BN to fold): serving and "
+            f"{VGG_BF16_STEPS} steps of train_end2end --compute_dtype bfloat16")
+        caps["bf16_serve"], launches["bf16_serve"], figs["bf16_serve"], *_ = infer_serve_phase(
+            "VGG-16 bf16 serving", bf16_cfg(cfg), dev, VGG_SERVE_LAUNCHES, weights=weights)
+        caps["bf16_train"], launches["bf16_train"], figs["bf16_train"] = bf16_train_cli(
+            cfg, weights, roidb, dev, "VGG-16 bf16 train", steps=VGG_BF16_STEPS,
+            per_step=VGG_LAUNCHES_PER_STEP)
+        log(f"[vgg] alternate training: {VGG_ALT_STEPS} steps a stage, the calibrated weights as "
+            f"the donor, then tools/test.py --params final.pkl --synthetic 8")
+        caps["alternate"], figs["alternate"], _, _ = alternate_phase(
+            cfg, weights, dev, steps=VGG_ALT_STEPS, per_stage=VGG_STAGE_LAUNCHES)
+        calls = dict(ROI_POOL.calls)
+        ROI_POOL.calls.clear()
+    log("[vgg] NMS vs plain on every VGG run's captured calls; ROIPooling card vs CPU on the "
+        "captured calls")
+    for cap in caps.values():
+        hold_captured(nms_diff, cap, bwd_diff, stream_diff)
+    figs["roi_pool"] = {
+        "serve": roi_pool_hold(calls["serve_float32"], "serving, batch of 2", False),
+        "train": roi_pool_hold(calls["train_float32"], "train step", True),
+        "bf16_serve": roi_pool_hold(calls["serve_bfloat16"], "bf16 serving, batch of 2", False),
+    }
+    del calls, caps
+    log("[vgg reference] small VGG-16 request, card vs CPU")
+    small_request_agrees(cfg, dev)
+    log("[vgg reference] small VGG-16 and VGG-16 Fast R-CNN train steps, card vs CPU")
+    for cls in (None, FastRCNN):
+        train_step_agrees(dev, small_vgg_cfg(), [[10.0, 10.0, 70.0, 70.0, 1.0],
+                                                 [60.0, 60.0, 120.0, 110.0, 2.0]],
+                          "VGG-16" + (" Fast R-CNN" if cls else ""), cls=cls)
+    return figs, launches
+
 
 
 # ------------------------------------------------------------------ timing
@@ -4643,7 +4938,10 @@ def main(argv=None) -> int:
         f"fit a training stage, proposal passes at {dump[0]}->{dump[1]} (IoU "
         f"{cfg.TEST.PROPOSAL_NMS}), Fast R-CNN batches padded to "
         f"{cfg.TRAIN.RPN_POST_NMS_TOP_N} proposals; the calibrated [train] weights as the donor")
-    alt_cap, alt_stats, rcnn1_model, prop_roidb = alternate_phase(cfg, c4_weights, dev)
+    alt_cap, alt_stats, rcnn1_tree, prop_roidb = alternate_phase(cfg, c4_weights, dev)
+    rcnn1_model = flax_to_torch(rcnn1_tree, bare_model(cfg, FastRCNN)).to(
+        dev, memory_format=torch.channels_last)
+    del rcnn1_tree
     log("[alternate] kernels vs plain on the captured tensors (every proposal pass's NMS, the "
         "first Fast R-CNN steps' ROIAlign)")
     if not alt_cap.nms or any((tuple(c[0].shape), c[3]) != ((1, dump[0], 4), dump[1])
@@ -4713,6 +5011,11 @@ def main(argv=None) -> int:
     bf16_stats, (bf16_fwd, bf16_bwd, bf16_stream), bf16_caps, bf16_launches = bf16_phase(
         cfg, c4_weights, roidb, mcfg, mask_train_weights, mask_roidb, mask_cfg, mask_weights,
         nms_diff, dev)
+
+    log(f"[vgg] VGG-16 at full width (13 convs, 7x7 ROIPooling at stride 16, fc6 / fc7 4096, "
+        f"{NUM_CLASSES} classes): training, serving, eval, bf16, alternate; ROIPooling is plain "
+        f"PyTorch (no TPU kernel)")
+    vgg_stats, vgg_launches = vgg_phase(nms_diff, bwd_diff, stream_diff, dev)
 
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
@@ -4866,6 +5169,7 @@ def main(argv=None) -> int:
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
     log(f"[mask eval] stats {json.dumps(mask_eval_stats)}")
     log(f"[bf16] stats {json.dumps(bf16_stats)}")
+    log(f"[vgg] stats {json.dumps(vgg_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
     def infer_launches(kernel):
         return {"fpn_serve_launches": fpn_serve_launches[kernel],
@@ -4879,6 +5183,14 @@ def main(argv=None) -> int:
                 for run in ("eval", "train", "demo")}
 
     stages = alt_stats["stages"]
+
+    def vgg_runs_launches(kernel):
+        """The [vgg] runs' launches of a kernel (NMS as reckoned, 2-5 none)."""
+        vgg_alt = vgg_stats["alternate"]["stages"]
+        return {**{f"vgg_{run}_launches": n[kernel] for run, n in vgg_launches.items()
+                   if run != "alternate"},
+                "vgg_alternate_launches": sum(st["launches"][kernel] for st in vgg_alt.values())
+                + vgg_stats["alternate"]["eval"]["launches"][kernel]}
 
     def alt_launches(kernel):
         """The [alternate] and [frozen fpn] runs' launches of a kernel."""
@@ -4908,7 +5220,8 @@ def main(argv=None) -> int:
             **_prefixed("serve", serve_nms), **_prefixed("class", classes),
             **_prefixed("fpn", fpn_nms), **_prefixed("fpn_serve_union", fpn_union),
             **_prefixed("fpn_serve_classes", fpn_classes),
-            **alt_launches("nms"), **_prefixed("proposal_dump", dump_nms),
+            **alt_launches("nms"), **vgg_runs_launches("nms"),
+            **_prefixed("proposal_dump", dump_nms),
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -4924,7 +5237,8 @@ def main(argv=None) -> int:
             **{k: v for lv, e in fpn_serve_roi.items() for k, v in
                _prefixed(f"fpn_serve_{lv}", e).items()},
             **_prefixed("mask_serve_p2", mask_roi), **mask_train_timing("roi_fwd"),
-            **alt_launches("roi_align_fwd"), **_prefixed("fast_rcnn", alt_roi),
+            **alt_launches("roi_align_fwd"), **vgg_runs_launches("roi_align_fwd"),
+            **_prefixed("fast_rcnn", alt_roi),
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -4940,7 +5254,8 @@ def main(argv=None) -> int:
             **train_bwd, "library_ms": None,
             **_prefixed("fpn_p4", fpn_bwd), **_prefixed("p2", resident_bwd_p2),
             **mask_train_timing("roi_bwd"),
-            **alt_launches("roi_align_bwd"), **_prefixed("fast_rcnn", alt_bwd),
+            **alt_launches("roi_align_bwd"), **vgg_runs_launches("roi_align_bwd"),
+            **_prefixed("fast_rcnn", alt_bwd),
         },
         {
             "name": "roi_align_stream_fwd", "route": "cuda",
@@ -4952,7 +5267,7 @@ def main(argv=None) -> int:
             "max_abs_err": stream_diff.fwd_err, f"s{RUNTIME_S}_max_abs_err": s5_stream.fwd_err,
             **stream_p2, "library_ms": None,
             **_prefixed("p3", stream_p3), **mask_train_timing("stream_fwd"),
-            **alt_launches("roi_align_stream_fwd"),
+            **alt_launches("roi_align_stream_fwd"), **vgg_runs_launches("roi_align_stream_fwd"),
         },
         {
             "name": "roi_align_stream_bwd", "route": "cuda",
@@ -4967,7 +5282,7 @@ def main(argv=None) -> int:
             f"s{RUNTIME_S}_bitwise_repeatable": s5_stream.repeatable,
             **stream_bwd_p2, "library_ms": None,
             **_prefixed("p3", stream_bwd_p3), **mask_train_timing("stream_bwd"),
-            **alt_launches("roi_align_stream_bwd"),
+            **alt_launches("roi_align_stream_bwd"), **vgg_runs_launches("roi_align_stream_bwd"),
         },
         *bf16_kernel_entries(redesigned, bf16_launches, (bf16_fwd, bf16_bwd, bf16_stream), b16,
                              nfg),

@@ -17,6 +17,7 @@ from torch import nn
 
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.models.faster_rcnn import fold_in
+from mx_rcnn_tpu_torch.models.layers import FrozenBatchNorm
 
 
 def is_frozen_path(path: Tuple[str, ...], fixed_params: Sequence[str]) -> bool:
@@ -108,14 +109,17 @@ def make_optimizer(
     ``cfg.network.FIXED_PARAMS``.
 
     The frozen BN affines are buffers here (``models/layers.py``), never
-    trained; a freeze set without ``"bn"`` would have the JAX package train
-    them, so it raises."""
+    trained: a freeze set that leaves one of the model's BNs out (a ResNet
+    set without ``"bn"``) would have the JAX package train it, so it raises.
+    A model with no BN (VGG-16) trains under any set."""
     t = cfg.TRAIN
     fixed = cfg.network.FIXED_PARAMS if fixed_params is None else tuple(fixed_params)
-    if "bn" not in fixed:
+    thawed_bn = [name for name, m in model.named_modules() if isinstance(m, FrozenBatchNorm)
+                 and not is_frozen_path(tuple(name.split(".")) + ("scale",), fixed)]
+    if thawed_bn:
         raise NotImplementedError(
-            "FIXED_PARAMS without 'bn' trains the BN affines, which the port keeps "
-            "as frozen buffers"
+            f"FIXED_PARAMS {fixed} trains the BN affines of {thawed_bn[:3]} "
+            f"(+{max(len(thawed_bn) - 3, 0)}), which the port keeps as frozen buffers"
         )
     trainable = []
     for name, p in model.named_parameters():

@@ -12,7 +12,8 @@ from mx_rcnn_tpu_torch.config import Config
 
 def build_model(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.Module:
     """The model the config names: the FPN graph when ``USE_FPN``, else the
-    single-level C4 graph (the JAX package's ``models.build_model``)."""
+    single-level graph, VGG-16 or ResNet C4 (the JAX package's
+    ``models.build_model``)."""
     if cfg.network.USE_FPN:
         from mx_rcnn_tpu_torch.models.fpn import FPNFasterRCNN
 

@@ -1,16 +1,18 @@
-"""Faster R-CNN, ResNet C4 (port of ``mx_rcnn_tpu/models/faster_rcnn.py``):
-the inference forward ``test_forward`` and the training forward
-``train_forward``, in the JAX graph's order, in the config's compute dtype
-(COMPUTE_DTYPE) with the frozen BNs folded into the convs or not (FOLD_BN).
+"""Faster R-CNN on one feature map, VGG-16 or ResNet C4 (port of
+``mx_rcnn_tpu/models/faster_rcnn.py``): the inference forward
+``test_forward`` and the training forward ``train_forward``, in the JAX
+graph's order, in the config's compute dtype (COMPUTE_DTYPE) with the frozen
+BNs folded into the convs or not (FOLD_BN).
 
 Inference: normalize → pad mask → backbone → RPN softmax fg → grid mask →
-propose → ``pad_feat_to_ladder`` → ROIAlign with ``valid_hw`` → top head →
-RCNN head → de-normalized deltas.  Training keeps the plain arithmetic (no
+propose → ``pad_feat_to_ladder`` → roi features with ``valid_hw`` → top head
+→ RCNN head → de-normalized deltas.  Training keeps the plain arithmetic (no
 pad mask, no grid mask, no ladder padding): backbone → RPN → anchor targets
-→ proposals from detached scores → roi sampling → ROIAlign clamped to the
-canvas → heads → the four losses.  The kernels of the two paths are the NMS
-inside ``propose`` and the ROIAlign forward, and in training also the
-ROIAlign backward.
+→ proposals from detached scores → roi sampling → roi features clamped to
+the canvas → heads → the four losses.  The roi features are the config's
+ROI_MODE: ROIAlign (ResNet) or ROIPooling (VGG, ``ops/roi_pool.py``, plain
+PyTorch).  The kernels of the two paths are the NMS inside ``propose`` and,
+under ROIAlign, its forward, and in training also its backward.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mx_rcnn_tpu_torch.models.layers import (
 )
 from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetTopHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
+from mx_rcnn_tpu_torch.models.vgg import VGGBackbone, VGGTopHead
 from mx_rcnn_tpu_torch.ops.anchors import shifted_anchors
 from mx_rcnn_tpu_torch.ops.losses import accuracy, softmax_cross_entropy, weighted_smooth_l1
 from mx_rcnn_tpu_torch.ops.nms import _NEG_INF
@@ -162,8 +165,27 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+def build_backbone(cfg: Config, with_top_head: bool = True
+                   ) -> Tuple[nn.Module, Optional[nn.Module], int, int]:
+    """(backbone, top head or None, feature channels, trunk width) of the
+    config's single-level family, in its COMPUTE_DTYPE (the JAX package's
+    ``build_backbone``): VGG-16 (conv5_3 at stride 16, 512 channels; fc6/fc7
+    on the pooled rois, 4096; no BN, so FOLD_BN changes nothing) or ResNet
+    C4 (1024; conv5 per roi, 2048; FOLD_BN folds its frozen BNs)."""
+    net = cfg.network
+    dtype = compute_dtype(cfg)
+    if net.name == "vgg":
+        return (VGGBackbone(dtype), VGGTopHead(dtype, net.POOLED_SIZE) if with_top_head else None,
+                512, 4096)
+    if net.name != "resnet":
+        raise NotImplementedError(f"network {net.name!r} is not ported")
+    return (ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN),
+            ResNetTopHead(net.depth, dtype, net.FOLD_BN) if with_top_head else None, 1024, 2048)
+
+
 class FasterRCNN(nn.Module):
-    """Two-stage detector over the single-level ResNet C4 feature map."""
+    """Two-stage detector over the single-level feature map (VGG-16 or
+    ResNet C4)."""
 
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -172,14 +194,11 @@ class FasterRCNN(nn.Module):
             raise NotImplementedError("USE_FPN: FasterRCNN builds a single-level C4 graph")
         if net.USE_MASK:
             raise NotImplementedError("USE_MASK: the mask family is not ported yet")
-        if net.name != "resnet":
-            raise NotImplementedError(f"network {net.name!r} is not ported yet")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
-        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
-        self.top_head = ResNetTopHead(net.depth, dtype, net.FOLD_BN)
-        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512, dtype)
-        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES, dtype)
+        self.backbone, self.top_head, feat_c, trunk_d = build_backbone(cfg)
+        self.rpn = RPNHead(feat_c, net.NUM_ANCHORS, 512, dtype)
+        self.rcnn = RCNNHead(trunk_d, cfg.dataset.NUM_CLASSES, dtype)
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         # constants of the graph, built once per (device, shape): a copy from
         # host memory in every forward would make the host wait for the card
@@ -266,7 +285,7 @@ class FasterRCNN(nn.Module):
             u=(draws["roi_fg"], draws["roi_bg"], draws["roi_tie"]),
         )
 
-        # second stage: ROIAlign clamped to the canvas (no valid_hw)
+        # second stage: roi features clamped to the canvas (no valid_hw)
         pooled = extract_roi_features_batched(
             feat.permute(0, 2, 3, 1), samples.rois, net.ROI_MODE, net.POOLED_SIZE,
             1.0 / net.RCNN_FEAT_STRIDE, net.ROI_SAMPLE_RATIO,
@@ -303,7 +322,7 @@ class FasterRCNN(nn.Module):
             te.RPN_POST_NMS_TOP_N, te.RPN_NMS_THRESH, te.RPN_MIN_SIZE,
         )
 
-        # one ladder-wide shape into ROIAlign for every bucket
+        # one ladder-wide shape into the roi features for every bucket
         feat = pad_feat_to_ladder(feat.permute(0, 2, 3, 1), net.RCNN_FEAT_STRIDE, cfg.SHAPE_BUCKETS)
         pooled = extract_roi_features_batched(
             feat, props.rois, net.ROI_MODE, net.POOLED_SIZE, 1.0 / net.RCNN_FEAT_STRIDE,

@@ -17,10 +17,11 @@ The graphs are the JAX package's, which differ from FasterRCNN's in two
 places: the RPN's test forward masks no bucket padding (no pad mask, no
 anchor grid mask), and Fast R-CNN's test forward pools the proposals with
 the canvas clamp (no ``valid_hw``), the rule of the train path.  The
-kernels: NMS (kernel 1) in the RPN's test forward only; ROIAlign forward
-(kernel 2) in both Fast R-CNN forwards, its backward (kernel 3) in
-training.  Both build in the config's COMPUTE_DTYPE and FOLD_BN, as
-FasterRCNN does (the JAX package's ``build_backbone``).
+kernels: NMS (kernel 1) in the RPN's test forward only; for ResNet C4 the
+ROIAlign forward (kernel 2) in both Fast R-CNN forwards, its backward
+(kernel 3) in training (VGG-16 pools with the plain ``ops/roi_pool.py``).
+Both build the config's family (VGG-16 or ResNet C4) in its COMPUTE_DTYPE
+and FOLD_BN, as FasterRCNN does (``faster_rcnn.build_backbone``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import nn
 from mx_rcnn_tpu_torch.config import Config
 from mx_rcnn_tpu_torch.models.faster_rcnn import (
     FasterRCNN,
+    build_backbone,
     init_weights,
     rcnn_losses,
     rpn_losses,
@@ -40,7 +42,6 @@ from mx_rcnn_tpu_torch.models.faster_rcnn import (
 )
 from mx_rcnn_tpu_torch.models.heads import RCNNHead
 from mx_rcnn_tpu_torch.models.layers import compute_dtype, normalize_images
-from mx_rcnn_tpu_torch.models.resnet import ResNetBackbone, ResNetTopHead
 from mx_rcnn_tpu_torch.models.rpn import RPNHead
 from mx_rcnn_tpu_torch.ops.proposal import propose
 from mx_rcnn_tpu_torch.ops.roi_align import extract_roi_features_batched
@@ -52,10 +53,8 @@ ROI_DRAWS = ("roi_fg", "roi_bg", "roi_tie")
 
 def _check(cfg: Config, what: str) -> None:
     net = cfg.network
-    if net.name == "vgg":
-        raise NotImplementedError(f"{what} for vgg: the VGG-16 graphs are ROADMAP queue 1 item 11")
-    if net.name != "resnet" or net.USE_FPN or net.USE_MASK:
-        raise NotImplementedError(f"{what} builds the ResNet C4 stage graphs only, "
+    if net.name not in ("vgg", "resnet") or net.USE_FPN or net.USE_MASK:
+        raise NotImplementedError(f"{what} builds the VGG-16 and ResNet C4 stage graphs only, "
                                   f"not {net.name!r} with FPN {net.USE_FPN}, mask {net.USE_MASK}")
 
 
@@ -67,11 +66,9 @@ class RPNOnly(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         _check(cfg, "RPNOnly")
-        net = cfg.network
         self.cfg = cfg
-        dtype = compute_dtype(cfg)
-        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
-        self.rpn = RPNHead(1024, net.NUM_ANCHORS, 512, dtype)
+        self.backbone, _, feat_c, _ = build_backbone(cfg, with_top_head=False)
+        self.rpn = RPNHead(feat_c, cfg.network.NUM_ANCHORS, 512, compute_dtype(cfg))
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self._constants: Dict = {}
 
@@ -118,7 +115,7 @@ class RPNOnly(nn.Module):
 
 class FastRCNN(nn.Module):
     """Fast R-CNN on given proposals (the reference's TRAIN.HAS_RPN off):
-    backbone → ROIAlign of the sampled proposals → conv5 top head → RCNN
+    backbone → roi features of the sampled proposals → top head → RCNN
     head → the two RCNN losses (train), or of every proposal → class
     probabilities and de-normalized deltas (test).  The proposals are the
     batch's ``proposals`` / ``prop_valid`` (``make_batch(proposal_count)``),
@@ -127,12 +124,9 @@ class FastRCNN(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
         _check(cfg, "FastRCNN")
-        net = cfg.network
         self.cfg = cfg
-        dtype = compute_dtype(cfg)
-        self.backbone = ResNetBackbone(net.depth, dtype=dtype, fold_bn=net.FOLD_BN)
-        self.top_head = ResNetTopHead(net.depth, dtype, net.FOLD_BN)
-        self.rcnn = RCNNHead(2048, cfg.dataset.NUM_CLASSES, dtype)
+        self.backbone, self.top_head, _, trunk_d = build_backbone(cfg)
+        self.rcnn = RCNNHead(trunk_d, cfg.dataset.NUM_CLASSES, compute_dtype(cfg))
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         self._constants: Dict = {}
 
@@ -140,8 +134,9 @@ class FastRCNN(nn.Module):
 
     def _roi_features(self, feat: torch.Tensor, rois: torch.Tensor,
                       fwd_only: bool = False) -> torch.Tensor:
-        """(B, 1024, H, W) feature × (B, R, 4) rois → (B·R, 2048): ROIAlign
-        clamped to the canvas (no ``valid_hw``), then the top head."""
+        """(B, C, H, W) feature × (B, R, 4) rois → (B·R, D): the roi
+        features (ROI_MODE) clamped to the canvas (no ``valid_hw``), then
+        the top head."""
         net = self.cfg.network
         pooled = extract_roi_features_batched(
             feat.permute(0, 2, 3, 1), rois, net.ROI_MODE, net.POOLED_SIZE,

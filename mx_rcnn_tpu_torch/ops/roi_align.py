@@ -31,7 +31,8 @@ reach a kernel: another dtype raises.
 
 :func:`extract_roi_features_batched` routes as the JAX package does: maps
 that :func:`fits_vmem` go to :func:`roi_align` (kernels 2/3), larger ones in
-a differentiated graph to ``ops/roi_align_stream.py`` (kernels 4/5).
+a differentiated graph to ``ops/roi_align_stream.py`` (kernels 4/5);
+ROI_MODE 'roi_pool' goes to ``ops/roi_pool.py`` (plain PyTorch, no kernel).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from mx_rcnn_tpu_torch.ops.roi_pool import roi_pool
 from mx_rcnn_tpu_torch.utils.cuda_build import (
     CudaKernel,
     CudaLibrary,
@@ -399,9 +401,12 @@ def extract_roi_features_batched(
     valid_hw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, H, W, C) × (B, R, 4) → (B, R, ph, pw, C), dispatched on config
-    ROI_MODE (only 'roi_align' is ported).
+    ROI_MODE.
 
-    Without ``valid_hw`` a map that :func:`fits_vmem` goes to
+    'roi_pool' (the VGG-16 family) goes to
+    :func:`~mx_rcnn_tpu_torch.ops.roi_pool.roi_pool` on either device, with
+    ``valid_hw`` when given, in a differentiated graph or not.  For
+    'roi_align', without ``valid_hw`` a map that :func:`fits_vmem` goes to
     :func:`roi_align` (kernels 2/3 on CUDA tensors), a larger one in a graph
     that differentiates it (``fwd_only`` False) to
     :func:`~mx_rcnn_tpu_torch.ops.roi_align_stream.roi_align_stream`
@@ -409,7 +414,7 @@ def extract_roi_features_batched(
     goes to :func:`roi_align`.  CPU tensors take each route's plain
     version."""
     if mode == "roi_pool":
-        raise NotImplementedError("roi_pool (the VGG-16 family) is not ported yet")
+        return roi_pool(feat, rois, pooled, spatial_scale, valid_hw)
     if mode != "roi_align":
         raise ValueError(f"unknown ROI_MODE {mode!r}")
     if valid_hw is None and not fwd_only and not fits_vmem(

@@ -81,7 +81,7 @@ def main(argv=None):
     from mx_rcnn_tpu_torch.core.checkpoint import load_checkpoint
     from mx_rcnn_tpu_torch.data.image import load_image
     from mx_rcnn_tpu_torch.models import build_model
-    from mx_rcnn_tpu_torch.tools.test import _UNPORTED, load_flax_params, pick_checkpoint
+    from mx_rcnn_tpu_torch.tools.test import load_flax_params, pick_checkpoint
     from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
     from mx_rcnn_tpu_torch.utils.run_meta import apply_run_meta, load_run_meta
     from mx_rcnn_tpu_torch.utils.visualize import draw_detections, save_image
@@ -91,9 +91,6 @@ def main(argv=None):
     args = parse_args(argv)
     if args.cpu > 1:
         raise NotImplementedError(f"--cpu {args.cpu}: data parallel is not ported")
-    if args.network in _UNPORTED:
-        raise NotImplementedError(f"--network {args.network} is not ported: ROADMAP queue 1 "
-                                  f"{_UNPORTED[args.network]}")
     device = resolve_device("cpu" if args.cpu else None)
     cfg = generate_config(args.network, args.dataset)
     meta = load_run_meta(args.params if args.params else args.prefix)

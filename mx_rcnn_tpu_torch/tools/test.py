@@ -16,8 +16,9 @@ warns and evaluates the seeded random model).  It applies the run's
 ``run_meta.json`` (beside the pickle, or in the prefix), runs ``pred_eval``
 over the test set and logs each class's AP and the mAP to standard output.
 Runs on the card; ``--cpu 1`` runs the plain PyTorch versions of the
-kernels on the CPU.  The ResNet C4, ResNet FPN and Mask R-CNN FPN networks
-are ported (``--synthetic`` COCO runs read polygon records); ``--vis DIR``
+kernels on the CPU.  Every network of the JAX CLI is ported: VGG-16, ResNet
+C4, ResNet FPN and Mask R-CNN FPN (``--synthetic`` COCO runs read polygon
+records); ``--vis DIR``
 writes each image's detection overlay to ``DIR/det_%06d.png``.
 """
 
@@ -41,10 +42,6 @@ from mx_rcnn_tpu_torch.utils.load_data import get_imdb
 from mx_rcnn_tpu_torch.utils.precision import full_float32
 
 logger = logging.getLogger(__name__)
-
-# networks the port cannot build yet, and the ROADMAP queue 1 item of each
-_UNPORTED = {"vgg": "item 11"}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate Faster R-CNN (PyTorch port)")
@@ -112,9 +109,6 @@ def test_rcnn(args) -> Dict:
 
     if args.cpu > 1:
         raise NotImplementedError(f"--cpu {args.cpu}: data parallel is not ported")
-    if args.network in _UNPORTED:
-        raise NotImplementedError(f"--network {args.network} is not ported: ROADMAP queue 1 "
-                                  f"{_UNPORTED[args.network]}")
     device = resolve_device("cpu" if args.cpu else None)
     cfg = generate_config(args.network, args.dataset)
     # the training run's preprocessing and normalization stats

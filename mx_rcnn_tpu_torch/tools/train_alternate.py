@@ -17,8 +17,10 @@ The stages are library calls that hand Flax-layout trees to each other in
 memory; the artifacts are the JAX package's: ``rpn1/rcnn1/rpn2/rcnn2/
 final.pkl``, ``proposals{1,2}.pkl`` and a ``run_meta.json`` with Fast
 R-CNN-2's per-class statistics, which ``tools/test.py --params
-<out_dir>/final.pkl`` applies.  Runs on the card; ``--cpu 1`` on the CPU;
-``--pretrained`` raises (ROADMAP queue 1 item 14's remainder).
+<out_dir>/final.pkl`` applies.  Runs on the card; ``--cpu 1`` on the CPU.
+``--pretrained CKPT`` imports a torchvision checkpoint's backbone and top
+head as the donor of stages 1 and 3 (``utils/pretrained.py``) and sets the
+torchvision pixel statistics.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from mx_rcnn_tpu_torch.tools.train_rpn import (
     add_train_flags,
     device_of,
     train_rpn,
+    with_pretrained,
 )
 from mx_rcnn_tpu_torch.utils.combine_model import combine_model, save_params
 from mx_rcnn_tpu_torch.utils.load_data import attach_proposals, load_gt_roidb
@@ -119,11 +122,11 @@ def main(argv=None) -> Dict:
     p.add_argument("--out_dir", default="model/alternate")
     args = p.parse_args(argv)
     device = device_of(args)
-    cfg = generate_config(args.network, args.dataset)
+    cfg, donor = with_pretrained(generate_config(args.network, args.dataset), args.pretrained)
     _, roidb = load_gt_roidb(cfg, args.image_set, flip=False, synthetic_size=args.synthetic)
     return alternate_train(cfg, roidb, epochs_rpn=args.epochs_rpn, epochs_rcnn=args.epochs_rcnn,
-                           out_dir=args.out_dir, seed=args.seed, max_steps=args.max_steps,
-                           device=device)
+                           out_dir=args.out_dir, pretrained_donor=donor, seed=args.seed,
+                           max_steps=args.max_steps, device=device)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ the same names).
     python -m mx_rcnn_tpu_torch.tools.train_end2end --network resnet \\
         --dataset PascalVOC --synthetic 64 --epochs 2 --prefix model/e2e
 
-``--network resnet_fpn`` trains ResNet-50 FPN and ``--network
-mask_resnet_fpn`` (with ``--dataset coco``) Mask R-CNN ResNet-101 FPN, whose
+``--network vgg`` trains VGG-16 (ROIPooling), ``--network resnet_fpn``
+ResNet-50 FPN and ``--network mask_resnet_fpn`` (with ``--dataset coco``) Mask R-CNN ResNet-101 FPN, whose
 batches carry the gt masks, through the same loop.  The roidb comes from
 ``utils/load_data.py::load_gt_roidb`` (``--image_set``) with flipped copies
 (TRAIN.FLIP, unless ``--no_flip``).  Runs on the card; ``--cpu 1`` runs the
@@ -27,7 +27,10 @@ included, goes to standard output (``--metrics_jsonl`` also writes them as
 JSON lines); ``--profile DIR`` writes a ``torch.profiler`` trace of steps
 10–20.  Without ``--synthetic N`` it reads the config's dataset (VOC or COCO
 annotations, JPEG images through the port's decoder); the weights start
-seeded random (``--seed``).  ``--compute_dtype
+seeded random (``--seed``), or with ``--pretrained CKPT`` the backbone and
+top head from a torchvision checkpoint (``utils/pretrained.py``), with
+torchvision's pixel statistics in the config and its ``run_meta.json``.
+``--compute_dtype
 bfloat16`` trains the bf16 graph (COMPUTE_DTYPE; FOLD_BN comes from the
 config, as in the JAX CLI, which has no flag for it).
 """
@@ -48,6 +51,11 @@ from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy
 from mx_rcnn_tpu_torch.data.loader import load_record_image
 from mx_rcnn_tpu_torch.models import build_model
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
+from mx_rcnn_tpu_torch.utils.pretrained import (
+    apply_pretrained,
+    load_state_dict,
+    torchvision_pixel_stats,
+)
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
 from mx_rcnn_tpu_torch.utils.precision import full_float32
 
@@ -55,7 +63,8 @@ from mx_rcnn_tpu_torch.utils.precision import full_float32
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train Faster R-CNN end-to-end (PyTorch port)")
     p.add_argument("--network", default="resnet",
-                   choices=["resnet", "resnet50", "resnet152", "resnet_fpn", "mask_resnet_fpn"])
+                   choices=["vgg", "resnet", "resnet50", "resnet152", "resnet_fpn",
+                            "mask_resnet_fpn"])
     p.add_argument("--dataset", default="PascalVOC", choices=["PascalVOC", "PascalVOC0712", "coco"])
     p.add_argument("--image_set", default=None)
     p.add_argument("--prefix", default="model/e2e", help="checkpoint dir")
@@ -66,6 +75,9 @@ def parse_args(argv=None):
                    help="microbatches per optimizer update (gradient accumulation for big "
                         "effective batches)")
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--pretrained", default=None, metavar="CKPT",
+                   help="torchvision checkpoint (.pth/.pt/.npz/pickle) for the backbone and top "
+                        "head; sets the torchvision pixel statistics")
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
                    help="override network COMPUTE_DTYPE (bfloat16 activations, float32 "
                         "parameters, gradients and optimizer state)")
@@ -124,9 +136,14 @@ def train_net(args) -> Dict:
         overrides["SHUFFLE"] = False
     if overrides:
         cfg = cfg.replace(TRAIN=dataclasses.replace(cfg.TRAIN, **overrides))
+    net_overrides = {}
     if args.compute_dtype:
-        cfg = cfg.replace(network=dataclasses.replace(cfg.network,
-                                                      COMPUTE_DTYPE=args.compute_dtype))
+        net_overrides["COMPUTE_DTYPE"] = args.compute_dtype
+    if args.pretrained:
+        # torchvision checkpoints expect their own pixel statistics
+        net_overrides["PIXEL_MEANS"], net_overrides["PIXEL_STDS"] = torchvision_pixel_stats()
+    if net_overrides:
+        cfg = cfg.replace(network=dataclasses.replace(cfg.network, **net_overrides))
     _, roidb = load_gt_roidb(cfg, args.image_set, flip=cfg.TRAIN.FLIP and not args.no_flip,
                              synthetic_size=args.synthetic)
     logging.getLogger(__name__).info("roidb size: %d", len(roidb))
@@ -135,6 +152,11 @@ def train_net(args) -> Dict:
         # first image here rather than spend the loader's failure budget
         load_record_image(roidb[0])
     model = build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
+    if args.pretrained:
+        net = cfg.network
+        apply_pretrained(model, load_state_dict(args.pretrained), net.name, net.depth,
+                         fpn=net.USE_FPN)
+        logging.getLogger(__name__).info("imported pretrained backbone from %s", args.pretrained)
     save_run_meta(args.prefix, cfg)
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,

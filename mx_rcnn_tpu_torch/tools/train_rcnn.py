@@ -11,10 +11,12 @@ the per-class regression target statistics of the proposal roidb into the
 config (``utils/bbox_stats.py::compute_bbox_stats``) and trains
 :class:`~mx_rcnn_tpu_torch.models.stage_models.FastRCNN` through
 ``core/fit.py::fit`` on batches padded to TRAIN.RPN_POST_NMS_TOP_N
-proposals.  ``--init`` seeds the shared subtrees from a params pickle (and
-applies its ``run_meta.json``).  Writes the tree ``{backbone, top_head,
-rcnn}`` to ``--out`` and a ``run_meta.json`` with the statistics beside
-it.  Runs on the card; ``--cpu 1`` on the CPU; ``--pretrained`` raises.
+proposals.  ``--pretrained CKPT`` seeds the backbone and top head from a
+torchvision checkpoint (with its pixel statistics); ``--init`` seeds the
+subtrees a params pickle has, over those (and applies its
+``run_meta.json``).  Writes the tree ``{backbone, top_head, rcnn}`` to
+``--out`` and a ``run_meta.json`` with the statistics beside it.  Runs on
+the card; ``--cpu 1`` on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from mx_rcnn_tpu_torch.config import Config, generate_config
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.data.imdb import IMDB
 from mx_rcnn_tpu_torch.models.stage_models import FastRCNN
-from mx_rcnn_tpu_torch.tools.train_rpn import add_common_flags, add_train_flags, device_of
+from mx_rcnn_tpu_torch.tools.train_rpn import (
+    add_common_flags,
+    add_train_flags,
+    device_of,
+    with_pretrained,
+)
 from mx_rcnn_tpu_torch.utils.bbox_stats import compute_bbox_stats
 from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import load_params, save_params
@@ -95,7 +102,7 @@ def main(argv=None) -> Tuple[Dict, Config]:
     p.add_argument("--init", default=None, help="donor params pickle")
     args = p.parse_args(argv)
     device = device_of(args)
-    cfg = generate_config(args.network, args.dataset)
+    cfg, donor = with_pretrained(generate_config(args.network, args.dataset), args.pretrained)
     if args.init:
         # the donor's preprocessing stats
         meta = load_run_meta(args.init)
@@ -107,7 +114,8 @@ def main(argv=None) -> Tuple[Dict, Config]:
     roidb = load_proposal_roidb(roidb, args.proposals)
     if cfg.TRAIN.FLIP:
         roidb = IMDB.append_flipped_images(roidb)
-    donor = load_params(args.init) if args.init else None
+    if args.init:
+        donor = {**(donor or {}), **load_params(args.init)}
     params, cfg_used = train_rcnn(
         cfg, roidb, epochs=args.epochs, init_donor=donor, seed=args.seed,
         max_steps=args.max_steps, prefix=args.prefix, resume=args.resume,

@@ -12,17 +12,18 @@ leaves, ``utils/bridge.py::torch_to_flax``) to ``--out`` with a
 ``run_meta.json`` beside it.  Runs on the card; ``--cpu 1`` runs the plain
 PyTorch versions of the kernels on the CPU.  ``--prefix``, ``--resume`` and
 ``--stream_log`` are ``fit``'s checkpoints, resume and batch digests.  The
-weights start seeded random (``--seed``): ``--pretrained`` raises, since no
-pretrained weights are on disk (ROADMAP queue 1 item 14's remainder,
-``utils/pretrained.py``).
+weights start seeded random (``--seed``); ``--pretrained CKPT`` seeds the
+backbone from a torchvision checkpoint (``utils/pretrained.py``) and sets
+the torchvision pixel statistics, which the ``run_meta.json`` records.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,11 @@ from mx_rcnn_tpu_torch.models.stage_models import RPNOnly
 from mx_rcnn_tpu_torch.utils.bridge import torch_to_flax
 from mx_rcnn_tpu_torch.utils.combine_model import save_params
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
+from mx_rcnn_tpu_torch.utils.pretrained import (
+    import_tree,
+    load_state_dict,
+    torchvision_pixel_stats,
+)
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
 from mx_rcnn_tpu_torch.utils.precision import full_float32
 
@@ -88,8 +94,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 def add_train_flags(p: argparse.ArgumentParser, checkpoints: bool = True) -> None:
     """The training flags; ``checkpoints``: a single stage's ``--prefix``,
     ``--resume`` and ``--stream_log`` (the alternate CLI has none)."""
-    p.add_argument("--pretrained", default=None,
-                   help="torchvision weights for the backbone (not ported)")
+    p.add_argument("--pretrained", default=None, metavar="CKPT",
+                   help="torchvision checkpoint (.pth/.pt/.npz/pickle) for the backbone and "
+                        "top head; sets the torchvision pixel statistics")
     p.add_argument("--max_steps", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     if not checkpoints:
@@ -106,11 +113,20 @@ def device_of(args) -> Optional[str]:
     """The device a stage CLI runs on; raises for what is not ported."""
     if args.cpu > 1:
         raise NotImplementedError(f"--cpu {args.cpu}: data-parallel training is not ported")
-    if getattr(args, "pretrained", None):
-        raise NotImplementedError(
-            "--pretrained: importing torchvision weights (utils/pretrained.py) is ROADMAP "
-            "queue 1 item 14's remainder; the stages start from seeded random weights")
     return "cpu" if args.cpu else None
+
+
+def with_pretrained(cfg: Config, path: Optional[str]) -> Tuple[Config, Optional[Dict]]:
+    """``--pretrained``: (the config with the torchvision pixel statistics,
+    the imported ``{backbone, top_head}`` tree as an init donor); without
+    it (``cfg``, None), as the JAX stage CLIs."""
+    if not path:
+        return cfg, None
+    means, stds = torchvision_pixel_stats()
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, PIXEL_MEANS=means,
+                                                  PIXEL_STDS=stds))
+    logger.info("importing pretrained %s from %s", cfg.network.name, path)
+    return cfg, import_tree(load_state_dict(path), cfg.network.name, cfg.network.depth)
 
 
 def main(argv=None) -> Dict:
@@ -123,12 +139,12 @@ def main(argv=None) -> Dict:
     p.add_argument("--out", default="model/rpn_params.pkl")
     args = p.parse_args(argv)
     device = device_of(args)
-    cfg = generate_config(args.network, args.dataset)
+    cfg, donor = with_pretrained(generate_config(args.network, args.dataset), args.pretrained)
     _, roidb = load_gt_roidb(cfg, args.image_set, flip=cfg.TRAIN.FLIP,
                              synthetic_size=args.synthetic)
-    params = train_rpn(cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,
-                       prefix=args.prefix, resume=args.resume, stream_log=args.stream_log,
-                       device=device)
+    params = train_rpn(cfg, roidb, epochs=args.epochs, init_donor=donor, seed=args.seed,
+                       max_steps=args.max_steps, prefix=args.prefix, resume=args.resume,
+                       stream_log=args.stream_log, device=device)
     save_params(args.out, params)
     save_run_meta(args.out, cfg)
     logger.info("saved RPN params -> %s", args.out)

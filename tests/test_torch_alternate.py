@@ -48,6 +48,7 @@ from mx_rcnn_tpu_torch.eval.recall import proposal_recall
 from mx_rcnn_tpu_torch.models import stage_models as tsm
 from mx_rcnn_tpu_torch.models.faster_rcnn import FasterRCNN
 from mx_rcnn_tpu_torch.models.stage_models import FastRCNN, RPNOnly
+from mx_rcnn_tpu_torch.utils.pretrained import torchvision_pixel_stats
 from mx_rcnn_tpu_torch.tools import reeval as reeval_cli
 from mx_rcnn_tpu_torch.tools import test as test_cli
 from mx_rcnn_tpu_torch.tools import test_rpn as test_rpn_cli
@@ -62,6 +63,7 @@ from mx_rcnn_tpu_torch.utils.run_meta import load_run_meta
 from tests.test_alternate import tiny_alt_cfg
 from tests.test_model import tiny_batch
 from tests.test_nms import random_dets
+from tests.test_pretrained import fake_resnet_sd
 from tests.test_torch_model import _perturb, _tame_rpn, port_cfg, uint8_batch
 
 torch.set_num_threads(2)
@@ -484,11 +486,15 @@ def test_fast_rcnn_test_forward_matches_with_the_canvas_clamp(stage_trees):
 
 
 def test_stage_models_refuse_what_is_not_ported():
+    """FastRCNN without the batch's proposals raises.  The VGG-16 stage
+    graphs are ported: both build (on the meta device: fc6 is 411 MB) with
+    VGG's widths."""
     tcfg = port_cfg(stage_cfg())
     vgg = tcfg.replace(network=dataclasses.replace(tcfg.network, name="vgg"))
-    for cls in (RPNOnly, FastRCNN):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cls(vgg)
+    with torch.device("meta"):
+        rpn, rcnn = RPNOnly(vgg), FastRCNN(vgg)
+    assert rpn.rpn.rpn_conv.in_channels == 512 and not hasattr(rpn, "top_head")
+    assert rcnn.rcnn.cls_score.in_features == 4096
     with pytest.raises(ValueError, match="proposals"):
         FastRCNN(tcfg)(torch.zeros(1, 128, 128, 3), torch.tensor([[128.0, 128.0, 1.0]]))
 
@@ -777,7 +783,9 @@ def test_stage_cli_chain_on_the_cpu(monkeypatch, tmp_path, caplog):
     """``train_rpn`` → ``test_rpn`` → ``train_rcnn --proposals --init`` with
     ``--prefix`` under tmp_path, then ``tools/test.py --dump`` of the
     combined tree and ``reeval``, whose results equal JAX's ``reeval`` of
-    the same dump; ``--pretrained`` and ``--cpu 2`` raise."""
+    the same dump; ``train_rpn --pretrained`` seeds the backbone from a
+    torchvision checkpoint and records its pixel statistics; ``--cpu 2``
+    raises."""
     for mod in (train_rpn_cli, test_rpn_cli, train_rcnn_cli, test_cli, reeval_cli):
         monkeypatch.setattr(mod, "generate_config", _small)
     rpn, props, rcnn = (str(tmp_path / n) for n in ("rpn.pkl", "props.pkl", "rcnn.pkl"))
@@ -806,7 +814,13 @@ def test_stage_cli_chain_on_the_cpu(monkeypatch, tmp_path, caplog):
 
     jimdb = JSyntheticDataset(num_images=3, num_classes=4)
     assert got == j_reeval(jimdb, dets)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_rpn_cli.main(common + ["--pretrained", "r50.pth"])
+    sd = fake_resnet_sd(np.random.RandomState(0), 50)
+    ckpt, rpn_pt = str(tmp_path / "r50.npz"), str(tmp_path / "rpn_pt.pkl")
+    np.savez(ckpt, **sd)
+    pt_tree = train_rpn_cli.main(common + ["--pretrained", ckpt, "--epochs", "1", "--max_steps",
+                                           "1", "--out", rpn_pt])
+    np.testing.assert_array_equal(pt_tree["backbone"]["conv0"]["kernel"],
+                                  sd["conv1.weight"].transpose(2, 3, 1, 0))
+    assert tuple(load_run_meta(rpn_pt)["PIXEL_MEANS"]) == torchvision_pixel_stats()[0]
     with pytest.raises(NotImplementedError, match="data-parallel"):
         alt_cli.main(["--cpu", "2", "--synthetic", "3"])

@@ -400,13 +400,28 @@ def test_cli_evaluates_on_the_cpu(params_pickle, tmp_path, caplog):
     assert len(all_boxes) == 21 and len(all_boxes[1]) == 2
 
 
-def test_cli_refuses_what_is_not_ported(params_pickle, tmp_path):
+def test_cli_refuses_what_is_not_ported(params_pickle, tmp_path, monkeypatch, caplog):
+    """No card: the CLI raises rather than fall back to the CPU.  A pickle
+    of jax.Array leaves raises.  ``--network vgg`` is ported: the seeded
+    VGG-16 (ROIPooling) evaluates on the CPU at a 96 × 128 canvas."""
     base = ["--synthetic", "2", "--params", params_pickle]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             test_cli.main(base)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        test_cli.main(base + ["--cpu", "1", "--network", "vgg"])
+
+    def vgg_cfg(network, dataset):
+        assert network == "vgg"
+        cfg = j_generate_config("vgg", dataset)
+        return port_cfg(cfg.replace(
+            dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+            SHAPE_BUCKETS=((96, 128),),
+            TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100, RPN_POST_NMS_TOP_N=16)))
+
+    monkeypatch.setattr(test_cli, "generate_config", vgg_cfg)
+    with caplog.at_level(logging.INFO):
+        results = test_cli.main(["--cpu", "1", "--synthetic", "2", "--network", "vgg",
+                                 "--prefix", str(tmp_path / "no_checkpoint")])
+    assert "mAP" in results and 0.0 <= results["mAP"] <= 1.0
     # a pickle of jax.Array leaves needs JAX to read
     jax_path = str(tmp_path / "jax_params.pkl")
     save_params(jax_path, {"rpn": {"bias": jnp.zeros(3)}})

@@ -195,6 +195,61 @@ print("ok")
     assert r.stdout.split()[-1] == "ok"
 
 
+def test_port_serves_a_vgg_request_without_jax():
+    """One request through VGG-16 (ROIPooling, fc6/fc7): finite
+    detections of every class."""
+    r = run_blocked("""
+import dataclasses, numpy as np, torch
+torch.set_num_threads(2)
+from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.tester import Predictor
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
+from mx_rcnn_tpu_torch.serve.runner import detect_single
+cfg = generate_config("vgg", "PascalVOC")
+cfg = cfg.replace(dataset=dataclasses.replace(cfg.dataset, SCALES=((96, 128),)),
+                  SHAPE_BUCKETS=((96, 128), (128, 96)),
+                  TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=100, RPN_POST_NMS_TOP_N=16))
+pred = Predictor(build_model(cfg), make_test_postprocess(cfg, 21, cfg.TEST.SCORE_THRESH, 10), device="cpu")
+im = (np.random.RandomState(0).rand(60, 80, 3) * 255).astype(np.uint8)
+dets = detect_single(pred, im, cfg, 21)
+assert len(dets) == 21 and all(np.isfinite(d).all() for d in dets[1:])
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_trains_a_vgg_step_without_jax(tmp_path):
+    """``train_end2end --network vgg``: one step at 192 × 192 (VGG's
+    smallest anchors, 128 px, fit), conv1/conv2 frozen."""
+    r = run_blocked(f"""
+import dataclasses, math, torch
+torch.set_num_threads(2)
+import mx_rcnn_tpu_torch.tools.train_end2end as cli
+from mx_rcnn_tpu_torch.config import generate_config
+def tiny(network, dataset):
+    assert network == "vgg"
+    cfg = generate_config(network, dataset)
+    return cfg.replace(dataset=dataclasses.replace(cfg.dataset, SCALES=((192, 192),)),
+                       SHAPE_BUCKETS=((192, 192),),
+                       TRAIN=dataclasses.replace(cfg.TRAIN, RPN_PRE_NMS_TOP_N=200,
+                                                 RPN_POST_NMS_TOP_N=32, BATCH_ROIS=16,
+                                                 RPN_BATCH_SIZE=32))
+cli.generate_config = tiny
+out = cli.main(["--cpu", "1", "--network", "vgg", "--synthetic", "4", "--max_steps", "1",
+                "--prefix", {str(tmp_path / "e2e")!r}])
+model = out["state"].model
+assert out["steps"] == 1 and type(model.backbone).__name__ == "VGGBackbone", out
+assert all(math.isfinite(v) for v in out["history"][0].values()), out
+assert [n for n, p in model.named_parameters() if not p.requires_grad] == [
+    f"backbone.conv{{b}}_{{i}}.{{t}}" for b in (1, 2) for i in (1, 2) for t in ("weight", "bias")]
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
 def test_port_runs_alternate_training_without_jax(tmp_path):
     """The four-stage alternate CLI at a tiny size, one step a stage: its
     artifacts, and the combined tree loads into the port's FasterRCNN."""
