@@ -231,6 +231,35 @@
    1e-6 of the largest sum of a cell's |terms|; its ms beside a bytes
    bound (the cells its rois cover and its output); a small request and a
    small step card vs CPU;
+9e. ``[serve]``: the online serving stack (``serve/engine.py::ServingEngine``
+   over ``serve/runner.py::ServeRunner``) at full-width ResNet-101 C4
+   (608 × 1024 / 1024 × 608 buckets, max_batch 4, 21 classes, 6000 → 300)
+   with three families in one registry, one a precision rung (float32
+   on JAX's exact-rewrite weights; bf16 + FOLD_BN and int8 weights on
+   ``gate_weights``, where the gate can hold): warmup makes one signature
+   a rung and passes the bf16 and int8 parity gates, which refuse the
+   bf16 rung with its box regression perturbed.  On ``gate_weights`` the
+   gate and the responses' check cannot fail a wrong reduced forward (the
+   image moves a box by ~0.05 px, scores are the class bias's), so
+   ``reduced_rungs_hold`` runs each reduced slot on the exact-rewrite
+   weights and holds its raw heads at batch 4 against batch 1 at bars set
+   from the card's readings, which another image and neighbouring rois
+   fail; 48
+   VOC-sized requests of ``run_load`` (concurrency 8, every family, lanes
+   50/50, max_queue 4) in two runs, the first with a mid-load
+   ``admin("swap default <dump>")`` to the epoch dump of a one-step
+   ``tools/train_end2end.py`` run, then one request past its deadline and
+   one ``QueueFull`` (the float32 slot held until the queue fills), the
+   second profiled; every response held against ``detect_single`` of its
+   family and version on the card (nearest box of its class: float32 and
+   int8 at the ``[eval]`` bars, bf16 at the gate's), the float32 ones
+   before the swap to v1 and after it to v2; no new signature after
+   warmup; NMS twice and kernel 2 (its bf16 instance on the bf16 family)
+   once a forward; then three Mask R-CNN requests through ``mask_rles_for``
+   (device canvas, batch of 1, cuDNN deterministic) whose detections and
+   RLEs equal those of ``detect_single`` + ``eval/segm.py::canvas_rles`` on
+   the same weights; printed with the card: p50 / p99 latency, images/s,
+   fetch bytes a batch, the device-busy share of the profiled run;
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
    mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
@@ -4776,6 +4805,535 @@ def save_cases(path, timed, forward):
     log(f"  saved {len(cases)} {'forward' if forward else 'backward'} cases to {path}")
 
 
+# ------------------------------------------------------------ serve engine phase
+# The online serving stack (serve/engine.py over serve/runner.py) at full
+# width: three families of one ResNet-101 C4 registry, one a precision rung
+# ("default" float32, "bf16" COMPUTE_DTYPE bfloat16 + FOLD_BN, "int8"
+# per-channel int8 weights dequantized into the float32 graph), each rung
+# (family, bucket) one signature at max_batch 4.  The float32 family holds
+# JAX's exact-rewrite weights (rewrite_weights); the two reduced rungs
+# hold gate_weights, on which the parity gate holds (its box and score
+# bars need every confident detection matched: on seeded random weights,
+# calibrated or exact-rewrite, bf16 or int8 rounding reorders their NMS:
+# 409 px and 16 confident detections unmatched on the H100).  On
+# gate_weights neither the gate nor the responses' check can fail a wrong
+# reduced forward: reduced_rungs_hold is the check that can.
+SERVE_FAMILIES = (("default", "float32"), ("bf16", "bfloat16"), ("int8", "int8"))
+SERVE_MAX_BATCH = 4
+SERVE_MAX_QUEUE = 4
+SERVE_IN_FLIGHT = 2
+SERVE_CONCURRENCY = 8
+# two load runs of 24 requests (48 in all): the hot swap fires during the
+# first, the second is profiled
+SERVE_HALF = 24
+SERVE_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))
+C4_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd": 1}
+C4_BF16_SERVE = {"nms": 2, "roi_align_fwd_bf16": 1}
+# a response (batch of up to 4, padded to 4) against detect_single (batch of
+# 1) on the card, rows matched by nearest box of their class, those scoring
+# at least SCORE_THRESH + margin on either side: float32 and int8 at the
+# [eval] phase's batch-2-vs-batch-1 bars, bf16 at the parity gate's
+# tolerances (its batch-4 and batch-1 graphs round apart in bf16)
+SERVE_TOL = {"f32": (EVAL_BOX_TOL, EVAL_SCORE_TOL, 1e-3),
+             "int8": (EVAL_BOX_TOL, EVAL_SCORE_TOL, 1e-3),
+             "bf16": (4.0, 0.1, 0.1)}
+SERVE_MASK_REQUESTS = 3
+
+
+def _served_agree(got, ref, thresh, cap, tol) -> dict:
+    """One response against its reference detections: every row of either
+    side scoring at least ``thresh`` + margin has a row of its class on the
+    other side within the box and score bars (nearest box).  A side the
+    cross-class cap ``cap`` cut is compared above its cut + margin only (a
+    row at the cut may fall on either side of it).  Returns the rows
+    checked and the largest gaps; raises past a bar."""
+    box_tol, score_tol, margin = tol
+    floor = thresh + margin
+    for side in (got, ref):
+        scores = np.concatenate([d[:, 4] for d in side[1:]])
+        if len(scores) >= cap > 0:
+            floor = max(floor, float(scores.min()) + margin)
+    rows, gap, sgap = 0, 0.0, 0.0
+    for j in range(1, len(ref)):
+        for a, b in ((got[j], ref[j]), (ref[j], got[j])):
+            conf = a[a[:, 4] >= floor]
+            if not len(conf):
+                continue
+            if not len(b):
+                raise AssertionError(f"class {j}: {len(conf)} confident rows and none to match")
+            d, near = _nearest(conf[:, :4], b[:, :4])
+            ds = np.abs(conf[:, 4] - b[near, 4])
+            rows += len(conf)
+            gap, sgap = max(gap, float(d.max())), max(sgap, float(ds.max()))
+    if gap > box_tol or sgap > score_tol:
+        raise AssertionError(f"response off its reference by {gap} px / {sgap} score "
+                             f"(bars {box_tol} / {score_tol})")
+    return {"rows": rows, "box_gap_px": gap, "score_gap": sgap}
+
+
+# The checks above cannot fail a wrong bf16 or int8 forward: on
+# gate_weights a box depends on the image by ~0.05 px and every score on
+# the class bias alone, so the gate and the responses against
+# detect_single hold the reduced rungs by their launch counts only.  This
+# one can: each reduced slot's module runs on the exact-rewrite weights
+# (int8: quantized and dequantized) with no postprocess, and its raw head
+# outputs for a batch of SERVE_MAX_BATCH VOC-sized images are held against
+# the same rung at batch 1, image by image.  Each roi of the batch is
+# matched to the nearest roi of the image alone; at least ``share`` of them
+# must lie within ``radius`` px, and there the class probabilities and the
+# deltas within ``prob`` and ``deltas``.  The bars are set from the H100's
+# readings at batch 4 vs 1 (NVIDIA H100 80GB HBM3, 700.00 W, 8 images):
+# bf16 74.7-81.0% of rois within 0.1 px (median 0.055 px apart: the batch's
+# convolutions round apart), gaps <= 0.0041 / 0.0031 there; int8 (the
+# float32 graph) every roi at 0 px, gaps <= 5.4e-7.  Against a wrong
+# forward: an image of the batch against ANOTHER image alone matched at
+# most 1 roi of 300 within 0.1 px, with delta gaps of 0.015-0.031 there,
+# and neighbouring rois' outputs (a forward that pools the wrong place)
+# differ by 0.03-0.09; both must fail the bars.
+SERVE_HEAD_BARS = {  # rung: (radius px, share, prob, deltas)
+    "bf16": (0.1, 0.5, 1e-2, 1e-2),
+    "int8": (1e-3, 1.0, 1e-5, 1e-5),
+}
+
+
+def _raw_heads(runner, fam, placed, batch):
+    """The slot's module on ``placed`` params, no postprocess: host float32
+    arrays of its raw test outputs."""
+    slot = runner._slot(fam)
+    with slot.lock:
+        out = slot.predictor.predict_async(
+            {"images": batch["images"], "im_info": batch["im_info"]}, params=placed)
+        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+    return out
+
+
+def _head_gaps(a, i, b, j, radius) -> dict:
+    """Image ``i`` of raw outputs ``a`` against image ``j`` of ``b``: each
+    valid roi of ``a`` matched to the nearest valid roi of ``b``; the share
+    within ``radius`` px and, over those, the largest class-probability and
+    delta gaps; and the largest gaps between neighbouring rois of ``a``."""
+    va, vb = a["roi_valid"][i] > 0, b["roi_valid"][j] > 0
+    d, near = _nearest(a["rois"][i][va], b["rois"][j][vb])
+    m = d <= radius
+    gap = {"share": float(m.mean()), "median_px": float(np.median(d))}
+    for k in ("cls_prob", "bbox_deltas"):
+        x, y = a[k][i][va], b[k][j][vb][near]
+        gap[k] = float(np.abs(x[m] - y[m]).max()) if m.any() else 0.0
+        gap[f"{k}_neighbours"] = float(np.abs(x[1:] - x[:-1]).max())
+    return gap
+
+
+def _head_held(gap, bars) -> bool:
+    _, share, prob, deltas = bars
+    return gap["share"] >= share and gap["cls_prob"] <= prob and gap["bbox_deltas"] <= deltas
+
+
+def reduced_rungs_hold(runner, weights) -> dict:
+    """Each reduced slot (bf16, int8) on the exact-rewrite ``weights``:
+    its raw heads for a batch of SERVE_MAX_BATCH against batch 1 within
+    SERVE_HEAD_BARS; another image and neighbouring rois outside them.
+    Raises otherwise; returns the readings."""
+    from mx_rcnn_tpu_torch.core.quantize import dequantize_tree, quantize_tree
+    from mx_rcnn_tpu_torch.serve.loadgen import synthetic_image
+    from mx_rcnn_tpu_torch.utils.bridge import flax_state_dict, state_dict_to_flax
+
+    held = {}
+    for fam, _ in SERVE_FAMILIES[1:]:
+        slot = runner._slot(fam)
+        bars = SERVE_HEAD_BARS[slot.precision]
+        state = weights if slot.precision == "bf16" else flax_state_dict(
+            dequantize_tree(quantize_tree(state_dict_to_flax(weights))), weights)
+        placed = runner._stage(slot, state)
+        reqs = [runner.make_request(synthetic_image(i, 375, 500, 7), model=fam)
+                for i in range(SERVE_MAX_BATCH)]
+        many = _raw_heads(runner, fam, placed, runner.assemble(reqs))
+        alone = [_raw_heads(runner, fam, placed, {"images": r.image[None],
+                                                  "im_info": r.im_info[None]}) for r in reqs]
+        del placed
+        n = SERVE_MAX_BATCH
+        same = [_head_gaps(many, i, alone[i], 0, bars[0]) for i in range(n)]
+        wrong = [_head_gaps(many, i, alone[(i + 1) % n], 0, bars[0]) for i in range(n)]
+        worst = {k: max(g[k] for g in same) for k in ("cls_prob", "bbox_deltas")}
+        worst["share"] = min(g["share"] for g in same)
+        worst["median_px"] = max(g["median_px"] for g in same)
+        log(f"  {fam} rung on the exact-rewrite weights, raw heads at batch {n} vs 1: "
+            f"{worst} (bars {dict(zip(('radius_px', 'share', 'prob', 'deltas'), bars))}); "
+            f"another image: shares {[round(g['share'], 4) for g in wrong]}; neighbouring "
+            f"rois: prob {min(g['cls_prob_neighbours'] for g in same):.4f}, deltas "
+            f"{min(g['bbox_deltas_neighbours'] for g in same):.4f} at least")
+        if not all(_head_held(g, bars) for g in same):
+            raise AssertionError(f"the {fam} rung's heads at batch {n} left batch 1's: {same}")
+        if any(_head_held(g, bars) for g in wrong) or any(
+                g["cls_prob_neighbours"] <= bars[2] or g["bbox_deltas_neighbours"] <= bars[3]
+                for g in same):
+            raise AssertionError(f"the {fam} rung's head bars do not refuse a wrong forward: "
+                                 f"another image {wrong}, neighbours {same}")
+        held[fam] = {"same": worst, "another_image_share": max(g["share"] for g in wrong)}
+    return held
+
+
+class _ForwardCount:
+    """Counts each family's forwards (the slot predictor's predict_async,
+    live and candidate alike) for the launch reckoning."""
+
+    def __init__(self, runner):
+        self.n = {}
+        self._lock = threading.Lock()
+        for mid, _ in SERVE_FAMILIES:
+            pred = runner._slot(mid).predictor
+            pred.predict_async = self._wrap(mid, pred.predict_async)
+
+    def _wrap(self, mid, fn):
+        def counted(*a, **k):
+            with self._lock:
+                self.n[mid] = self.n.get(mid, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    def reset(self):
+        with self._lock:
+            self.n = {}
+
+
+def train_cli_checkpoint(cfg, weights, tmp):
+    """``tools/train_end2end.py`` for one epoch of one step (one synthetic
+    image, no flip) from ``weights`` (``build_model`` patched to load them,
+    as ``[images]`` does): the epoch dump it commits under ``tmp``."""
+    from mx_rcnn_tpu_torch.core.checkpoint import is_committed
+    from mx_rcnn_tpu_torch.tools import train_end2end as e2e
+
+    saved = e2e.build_model
+    e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
+    env = os.environ.get("MX_RCNN_ASSEMBLY_WORKERS")
+    os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = "0"
+    try:
+        out = e2e.main(["--network", "resnet", "--dataset", "PascalVOC", "--synthetic", "1",
+                        "--no_flip", "--epochs", "1", "--prefix", str(tmp / "e2e")])
+    finally:
+        e2e.build_model = saved
+        if env is None:
+            os.environ.pop("MX_RCNN_ASSEMBLY_WORKERS")
+        else:
+            os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = env
+    dumps = sorted(p for p in (tmp / "e2e").iterdir() if p.is_dir() and is_committed(str(p)))
+    if out["steps"] != 1 or not dumps:
+        raise AssertionError(f"the train CLI took {out['steps']} steps and committed {dumps}")
+    return str(dumps[-1])
+
+
+def gate_weights(cfg):
+    """The exact-rewrite weights with heads the image moves only sub-pixel:
+    the RPN objectness and the class scores their biases alone (the same
+    for every anchor of a type and every roi: the stable sorts order them
+    by index in every precision and batch), class 1 at probability
+    e^1.5 / (e^1.5 + 20) ≈ 0.18, above SCORE_THRESH + the gate's margin,
+    no RPN deltas (the proposals are the anchors, exactly) and the RCNN
+    deltas × 1e-4: the image moves a box by ~0.05 px, precision rounding
+    that by ~1e-3 px, and a perturbed rung (the deltas × 1e4) by tens of
+    pixels.  With RCNN deltas × 1e-2 an NMS decision flipped between a
+    batch of 4 and one of 1 in bf16 on the H100 (a box 32 px away)."""
+    w = {k: v.clone() for k, v in rewrite_weights(cfg).items()}
+    for k in ("rpn.rpn_cls_score.weight", "rpn.rpn_bbox_pred.weight", "rpn.rpn_bbox_pred.bias",
+              "rcnn.cls_score.weight", "rcnn.cls_score.bias"):
+        w[k].zero_()
+    w["rcnn.cls_score.bias"][1] = 1.5
+    w["rcnn.bbox_pred.weight"].mul_(1e-4)
+    return w
+
+
+def serve_header(cfg) -> str:
+    t = cfg.TEST
+    return (f"[serve] ServeRunner + ServingEngine, ResNet-{cfg.network.depth} C4 at full width: "
+            f"{cfg.dataset.NUM_CLASSES} classes, buckets {cfg.SHAPE_BUCKETS}, max_batch "
+            f"{SERVE_MAX_BATCH}, {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} proposals; rungs "
+            f"{dict(SERVE_FAMILIES)} (float32 on JAX's exact-rewrite weights, bf16 and int8 on "
+            f"gate_weights, their raw heads held at batch 1 on the exact-rewrite weights); "
+            f"{2 * SERVE_HALF} requests "
+            f"{SERVE_SIZES} (concurrency {SERVE_CONCURRENCY}, lanes 50/50, max_queue "
+            f"{SERVE_MAX_QUEUE}, in_flight {SERVE_IN_FLIGHT}) with a hot swap to a train-CLI "
+            f"dump; then {SERVE_MASK_REQUESTS} Mask R-CNN requests through mask_rles_for")
+
+
+def serve_engine_phase(cfg, dev, smi, mask_cfg, mask_weights) -> tuple:
+    """``[serve]``: ``ServeRunner`` + ``ServingEngine`` at full-width
+    ResNet-101 C4, its three precision rungs warmed up behind their parity
+    gates, the reduced ones then held by :func:`reduced_rungs_hold`; 48 VOC-sized requests of ``run_load`` (concurrency 8, every
+    family, a 50/50 lane mix) in two runs, a mid-load ``admin("swap ...")``
+    of the float32 family to a dump the train CLI wrote, one request past
+    its deadline and one ``QueueFull`` at max_queue 4; each response against
+    ``detect_single`` of its family and version on the card; the signatures
+    (the rungs after warmup, none new after the load and the swap); NMS and
+    kernel 2 (float32 and bf16 instances) launched as reckoned per forward;
+    then Mask R-CNN requests through ``mask_rles_for`` against the
+    ``detect_single`` + ``eval/segm.py`` path, RLE for RLE.  Returns
+    (launches of the C4 load, launches of the mask requests, figures)."""
+    from mx_rcnn_tpu_torch.core.checkpoint import restore_tree
+    from mx_rcnn_tpu_torch.eval.segm import canvas_rles
+    from mx_rcnn_tpu_torch.serve.batcher import QueueFull
+    from mx_rcnn_tpu_torch.serve.engine import DeadlineExceeded, ServingEngine
+    from mx_rcnn_tpu_torch.serve.loadgen import run_load, synthetic_image
+    from mx_rcnn_tpu_torch.serve.registry import ModelRegistry
+
+    fig = {"card": smi}
+    te = cfg.TEST
+    weights, gated = rewrite_weights(cfg), gate_weights(cfg)
+    registry = ModelRegistry()
+    for mid, _ in SERVE_FAMILIES:
+        registry.register(mid, bare_model(cfg), cfg, weights if mid == "default" else gated)
+    runner = runner_mod.ServeRunner(registry=registry, max_batch=SERVE_MAX_BATCH, device=dev,
+                                    precision=dict(SERVE_FAMILIES))
+    t0 = time.perf_counter()
+    misses = runner.warmup()
+    fig["warmup_s"] = time.perf_counter() - t0
+    rungs = len(SERVE_FAMILIES) * len(runner.ladder)
+    log(f"  warmup: {misses} signatures for {rungs} rungs in {fig['warmup_s']:.2f} s; parity "
+        + "; ".join(f"{k}: ok={v['ok']} unmatched={v['unmatched_confident']} box "
+                    f"{v['max_box_delta_px']} px score {v['max_score_delta']}"
+                    for k, v in runner.parity.items()))
+    if misses != rungs or sorted(runner.parity) != ["bf16:bf16", "int8:int8"]:
+        raise AssertionError(f"warmup made {misses} signatures for {rungs} rungs, gates "
+                             f"{sorted(runner.parity)}")
+    fig["parity"] = dict(runner.parity)
+    # the gate refuses a perturbed rung: the bf16 slot's box regression
+    # back at its seeded scale
+    slot = runner._slot("bf16")
+    box = slot.predictor.model.rcnn.bbox_pred.weight
+    with torch.no_grad():
+        box.mul_(1e4)
+    try:
+        runner.check_parity("bf16")
+        raise AssertionError("the parity gate passed a perturbed bf16 rung")
+    except runner_mod.PrecisionParityError as e:
+        log(f"  perturbed bf16 rung refused: {str(e)[:160]}")
+    finally:
+        with torch.no_grad():
+            box.mul_(1e-4)
+    runner.check_parity("bf16")
+    fig["reduced_heads"] = reduced_rungs_hold(runner, weights)
+
+    tmp = Path(tempfile.mkdtemp(prefix="serve-"))
+    try:
+        ckpt = train_cli_checkpoint(cfg, weights, tmp)
+        v2 = restore_tree(ckpt)["model"]
+        pp = make_test_postprocess(cfg, NUM_CLASSES, te.SCORE_THRESH, te.DET_PER_CLASS)
+        refs = {("default", 1): Predictor(loaded_model(cfg, weights), pp, device=dev),
+                ("default", 2): Predictor(loaded_model(cfg, v2), pp, device=dev),
+                ("bf16", 1): Predictor(loaded_model(bf16_cfg(cfg), gated), pp, device=dev),
+                ("int8", 1): Predictor(loaded_model(cfg, runner._int8_state("int8", 1)), pp,
+                                       device=dev)}
+        del v2
+        counter = _ForwardCount(runner)
+        engine = ServingEngine(runner, max_queue=SERVE_MAX_QUEUE, in_flight=SERVE_IN_FLIGHT)
+        swap = {}
+
+        def run_swap():
+            while engine.metrics.completed < SERVE_HALF // 3:
+                time.sleep(0.002)
+            swap["t0"] = time.monotonic()
+            swap["result"] = engine.admin(f"swap default {ckpt}")
+            swap["t1"] = time.monotonic()
+
+        load = dict(concurrency=SERVE_CONCURRENCY, sizes=SERVE_SIZES, collect=True,
+                    models=[None, "bf16", "int8"], lanes=["interactive", "bulk"])
+        engine.start(warmup=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        counter.reset()
+        compiled = runner.compile_cache.misses
+        try:
+            swapper = threading.Thread(target=run_swap, name="serve-swap")
+            swapper.start()
+            rep_a = run_load(engine, num_requests=SERVE_HALF, seed=0, **load)
+            swapper.join()
+            # one request already past its deadline: resolved without a forward
+            late = engine.submit(synthetic_image(0, 375, 500), deadline_s=0.0)
+            try:
+                late.result(timeout=60)
+                raise AssertionError("a request past its deadline was served")
+            except DeadlineExceeded:
+                pass
+            # one QueueFull: the float32 slot held, its batches wait in the
+            # completion threads and the assembler, the queue fills to 4
+            slot = runner._slot("default")
+            held, full = [], None
+            with slot.lock:
+                for i in range(SERVE_MAX_BATCH * (SERVE_IN_FLIGHT + 2) + 2):
+                    try:
+                        held.append(engine.submit(synthetic_image(100 + i, 375, 500)))
+                    except QueueFull as e:
+                        full = e
+                        break
+            if full is None:
+                raise AssertionError(f"{len(held)} requests queued past max_queue 4")
+            for f in held:
+                f.result(timeout=300)
+            rep_b, wall_ms, events = _profiled(
+                lambda: run_load(engine, num_requests=SERVE_HALF, seed=1, **load))
+        finally:
+            engine.stop()
+        launches = read_launches()
+        forwards = dict(counter.n)
+        snap = engine.snapshot()
+
+        # the reckoning: NMS twice a forward; kernel 2 once a float32 or
+        # int8 forward, its bf16 instance once a bf16 forward
+        f32_fwd = forwards.get("default", 0) + forwards.get("int8", 0)
+        want = dict(NO_LAUNCHES, nms=2 * sum(forwards.values()),
+                    roi_align_fwd=C4_SERVE_LAUNCHES["roi_align_fwd"] * f32_fwd,
+                    roi_align_fwd_bf16=C4_BF16_SERVE["roi_align_fwd_bf16"]
+                    * forwards.get("bf16", 0))
+        log(f"  forwards by family {forwards}; launches {launches}")
+        if launches != want or min(launches["nms"], launches["roi_align_fwd"],
+                                   launches["roi_align_fwd_bf16"]) <= 0:
+            raise AssertionError(f"the serving load launched {launches}, reckoned {want}")
+        if runner.compile_cache.misses != compiled:
+            raise AssertionError(f"{runner.compile_cache.misses - compiled} new signatures "
+                                 f"after warmup (the load and the swap)")
+        res = swap["result"]
+        log(f"  swap to {Path(ckpt).name}: v{res['previous']} -> v{res['version']}, "
+            f"{res['warmed']} rungs warmed, canary {res['canary_probes']}, "
+            f"{swap['t1'] - swap['t0']:.3f} s, swaps applied {runner.swaps_applied}")
+        for rep in (rep_a, rep_b):
+            o = rep["outcomes"]
+            if o["ok"] != SERVE_HALF or o["error"] or o["deadline"]:
+                raise AssertionError(f"requests lost or failed: {o}")
+
+        # every response against its family's and version's detect_single
+        checked = {"f32": [], "int8": [], "bf16": []}
+        versions = {"v1": 0, "v2": 0}
+        for rep, seed in ((rep_a, 0), (rep_b, 1)):
+            rng = np.random.RandomState(seed)
+            sizes = [SERVE_SIZES[rng.randint(len(SERVE_SIZES))] for _ in range(SERVE_HALF)]
+            models = [[None, "bf16", "int8"][rng.randint(3)] for _ in range(SERVE_HALF)]
+            for i in range(SERVE_HALF):
+                im = synthetic_image(i, *sizes[i], seed)
+                mid = models[i] or "default"
+                got = rep["_results"][i][1]
+                t_sub, t_done = rep["_times"][i]
+                rung = {"default": "f32", "int8": "int8", "bf16": "bf16"}[mid]
+                if mid != "default":
+                    ref = detect_single(refs[(mid, 1)], im,
+                                        bf16_cfg(cfg) if mid == "bf16" else cfg, NUM_CLASSES)
+                    ref, _ = cap_detections(ref, te.MAX_PER_IMAGE)
+                    checked[rung].append(_served_agree(got, ref, te.SCORE_THRESH,
+                                                       te.MAX_PER_IMAGE, SERVE_TOL[rung]))
+                    continue
+                # the float32 family: v1 before the swap, v2 after it, either
+                # while it ran (a request is served by one version)
+                must = 1 if t_done < swap["t0"] else 2 if t_sub > swap["t1"] else None
+                errs = {}
+                for v in (1, 2):
+                    ref, _ = cap_detections(detect_single(refs[("default", v)], im, cfg,
+                                                          NUM_CLASSES), te.MAX_PER_IMAGE)
+                    try:
+                        errs[v] = _served_agree(got, ref, te.SCORE_THRESH, te.MAX_PER_IMAGE,
+                                                SERVE_TOL["f32"])
+                    except AssertionError as e:
+                        errs[v] = e
+                ok = [v for v, r in errs.items() if isinstance(r, dict)]
+                if not ok or (must is not None and must not in ok):
+                    raise AssertionError(f"request {i} (seed {seed}) matches versions {ok}, "
+                                         f"must {must}: {errs}")
+                versions[f"v{ok[0]}"] += 1
+                checked["f32"].append(errs[ok[0]])
+        if min(versions.values()) == 0:
+            raise AssertionError(f"responses by version {versions}: the swap split nothing")
+        agree = {k: {"responses": len(v), "rows": sum(r["rows"] for r in v),
+                     "box_gap_px": max((r["box_gap_px"] for r in v), default=0.0),
+                     "score_gap": max((r["score_gap"] for r in v), default=0.0)}
+                 for k, v in checked.items()}
+        log(f"  every response against detect_single on the card, by rung: {agree}; "
+            f"float32 responses by version {versions}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lat = snap["latency"]["e2e"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    fig.update({
+        "requests": 2 * SERVE_HALF, "forwards": forwards, "launches": launches,
+        "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+        "images_per_s": [rep_a["imgs_per_sec"], rep_b["imgs_per_sec"]],
+        "fetch_bytes_per_batch": runner.fetch_bytes_total / max(runner.split_completes, 1),
+        "occupancy": snap["batches"]["occupancy"], "expired": snap["requests"]["expired"],
+        "queue_full_retries": rep_a["outcomes"]["queue_full_retries"]
+        + rep_b["outcomes"]["queue_full_retries"] + 1,
+        "scheduler": snap["scheduler"], "completion": snap["completion"],
+        "busy_ms_profiled": busy, "wall_ms_profiled": wall_ms,
+        "device_busy_share": busy / wall_ms, "swap": {k: v for k, v in res.items()},
+        "versions": versions, "agree": agree,
+        "signatures": runner.compile_cache.misses,
+    })
+    log(f"  latency e2e p50 {lat['p50_ms']} ms p99 {lat['p99_ms']} ms ({smi}); images/s "
+        f"{fig['images_per_s']} ({smi}); fetch bytes a batch "
+        f"{fig['fetch_bytes_per_batch']:.0f}; occupancy {fig['occupancy']}; scheduler "
+        f"{snap['scheduler']}; expired {fig['expired']}")
+    log(f"  device busy over the profiled run of {SERVE_HALF} requests: {busy:.3f} of "
+        f"{wall_ms:.3f} ms = {100 * fig['device_busy_share']:.1f}% ({smi})")
+    if snap["requests"]["expired"] != 1:
+        raise AssertionError(f"expired {snap['requests']['expired']}, not the 1 late request")
+    del refs, engine, runner
+
+    # Mask R-CNN through mask_rles_for: the device canvas, batch of 1, cuDNN
+    # deterministic, against the detect_single + eval/segm.py path on the
+    # same weights (host paste of the fetched grids), RLE for RLE
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mte = mask_cfg.TEST
+        mrunner = runner_mod.ServeRunner(bare_model(mask_cfg), mask_weights, mask_cfg,
+                                         max_batch=1, device=dev, mask_canvas=True)
+        mpred = Predictor(loaded_model(mask_cfg, mask_weights),
+                          make_test_postprocess(mask_cfg, COCO_CLASSES, mte.SCORE_THRESH,
+                                                mte.DET_PER_CLASS), device=dev)
+        images = masked_images(REQUEST_HW[:SERVE_MASK_REQUESTS], seed=40)
+        with ServingEngine(mrunner, in_flight=1) as meng:
+            torch.cuda.synchronize()
+            reset_launches()
+            dispatched = mrunner.split_dispatches
+            futs = [meng.submit(im, masks=True) for im in images]
+            served = [f.result(timeout=300) for f in futs]
+            torch.cuda.synchronize()
+            mask_launches = read_launches()
+            n_fwd = mrunner.split_dispatches - dispatched
+        want = dict(NO_LAUNCHES, **{k: v * n_fwd for k, v in MASK_SERVE_LAUNCHES.items()})
+        if mask_launches != want or n_fwd != len(images):
+            raise AssertionError(f"mask requests launched {mask_launches} in {n_fwd} forwards, "
+                                 f"reckoned {want}")
+        n_rles = 0
+        ladder = BucketLadder(mask_cfg.SHAPE_BUCKETS)
+        for im, (dets, rles) in zip(images, served):
+            req = prepare_request(im, mask_cfg, ladder)
+            batch = {"images": req.image[None], "im_info": req.im_info[None],
+                     "orig_hw": np.asarray([req.orig_hw], np.float32)}
+            out = mpred.predict(batch)
+            rd, _, rows = runner_mod.detections_from_output(
+                out, batch["im_info"][0], req.orig_hw, mask_cfg, COCO_CLASSES, with_rows=True)
+            rd, _, rows = cap_detections(rd, mte.MAX_PER_IMAGE, None, rows=rows)
+            lut = {int(f): p for p, f in enumerate(out["det_mask_idx"][0]) if f >= 0}
+            max_out = out["det_boxes"].shape[2]
+            fill = np.full(out["det_masks"].shape[2:], -80.0, np.float32)
+            for j in range(1, COCO_CLASSES):
+                if dets[j].tobytes() != rd[j].tobytes():
+                    raise AssertionError(f"mask request class {j}: detections differ")
+                grids = [out["det_masks"][0][lut[(j - 1) * max_out + int(r)]]
+                         if (j - 1) * max_out + int(r) in lut else fill for r in rows[j]]
+                want_rles = canvas_rles(grids, rd[j], float(req.im_info[2]), *req.bucket)
+                if rles[j] != want_rles:
+                    raise AssertionError(f"mask request class {j}: RLEs differ")
+                n_rles += len(want_rles)
+        if n_rles == 0:
+            raise AssertionError("the mask requests served no mask")
+        log(f"  Mask R-CNN: {len(images)} requests through mask_rles_for (device canvas), "
+            f"{n_rles} RLEs identical to detect_single + eval/segm.py's; launches "
+            f"{mask_launches}; paste ms {mrunner.paste_ms_total:.3f} over {mrunner.pastes} "
+            f"images, {mrunner.paste_bytes_total} bytes")
+        fig["mask"] = {"requests": len(images), "rles": n_rles, "launches": mask_launches,
+                       "paste_ms": mrunner.paste_ms_total}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    return launches, mask_launches, fig
+
+
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
@@ -5005,6 +5563,9 @@ def main(argv=None) -> int:
         f"{MASK_EVAL_IMAGES} synthetic {MASK_EVAL_HW[0]}x{MASK_EVAL_HW[1]} masked images, "
         f"{COCO_CLASSES} classes, serial and the JAX defaults, box mAP and the COCO segm stats")
     mask_eval_stats = mask_eval_phase(mask_cfg, mask_weights, dev)
+    log(serve_header(cfg))
+    engine_launches, engine_mask_launches, serve_stats = serve_engine_phase(
+        cfg, dev, smi, mask_cfg, mask_weights)
 
     log(f"[bf16] COMPUTE_DTYPE bfloat16 with FOLD_BN (bench.py's configuration): the bf16 "
         f"instances of kernels 2-5 vs plain, synthetic")
@@ -5168,6 +5729,7 @@ def main(argv=None) -> int:
     log(f"[fpn serve] stats {json.dumps(fpn_serve_stats)}")
     log(f"[mask serve] stats {json.dumps(mask_serve_stats)}")
     log(f"[mask eval] stats {json.dumps(mask_eval_stats)}")
+    log(f"[serve] stats {json.dumps(serve_stats)}")
     log(f"[bf16] stats {json.dumps(bf16_stats)}")
     log(f"[vgg] stats {json.dumps(vgg_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
@@ -5206,7 +5768,7 @@ def main(argv=None) -> int:
         return {k: v for lv, e in mtrain[kernel].items()
                 for k, v in _prefixed(f"mask_train_{lv}", e).items()}
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "nms", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": "mx_rcnn_tpu/ops/pallas/nms.py:40", "design": "PR 4",
@@ -5214,6 +5776,8 @@ def main(argv=None) -> int:
             "launches": launches["nms"], "fpn_launches": fpn_launches["nms"],
             "eval_launches": eval_launches["nms"],
             "serve_launches": serve_launches["nms"],
+            "serve_engine_launches": engine_launches["nms"],
+            "serve_engine_mask_launches": engine_mask_launches["nms"],
             **infer_launches("nms"), **images_launches("nms"),
             "max_abs_err": nms_diff.max_abs_err, "mismatches": nms_diff.mismatches,
             **train_nms, "library_ms": None,
@@ -5230,6 +5794,8 @@ def main(argv=None) -> int:
             "launches": launches["roi_align_fwd"], "fpn_launches": fpn_launches["roi_align_fwd"],
             "eval_launches": eval_launches["roi_align_fwd"],
             "serve_launches": serve_launches["roi_align_fwd"],
+            "serve_engine_launches": engine_launches["roi_align_fwd"],
+            "serve_engine_mask_launches": engine_mask_launches["roi_align_fwd"],
             **infer_launches("roi_align_fwd"), **images_launches("roi_align_fwd"),
             "max_abs_err": roi_err, f"s{RUNTIME_S}_max_abs_err": s5_err, **train_roi,
             "library_ms": None, **_prefixed("serve", serve_roi), **_prefixed("fpn_p4", fpn_roi),
@@ -5286,7 +5852,11 @@ def main(argv=None) -> int:
         },
         *bf16_kernel_entries(redesigned, bf16_launches, (bf16_fwd, bf16_bwd, bf16_stream), b16,
                              nfg),
-    ]}), flush=True)
+    ]
+    for entry in kernels:
+        if entry["name"] == "roi_align_fwd_bf16":
+            entry["serve_engine_launches"] = engine_launches["roi_align_fwd_bf16"]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ of ``mx_rcnn_tpu/core/resilience.py``).
   bad-batch budget so silent divergence cannot pass for training.
 - :class:`StepWatchdog`: wall-clock timer per step; on expiry it runs the
   caller's dump and aborts the process with :data:`WATCHDOG_EXIT_CODE`.
+- :class:`RetryPolicy` / :func:`make_retry_policy`: the bounded
+  deterministic retry and its per-site presets ("loader", "serve",
+  "replica"), kept in ``utils/retry.py`` (free of torch, for the loader's
+  assembly processes) and re-exported here as the JAX module does.
 
 The loops are written for the JAX package's functional contract,
 ``step_fn(state, batch, rng[, lr_scale]) → (state, aux)``.  The port's
@@ -37,6 +41,7 @@ import torch
 
 from mx_rcnn_tpu_torch.models.faster_rcnn import fold_in
 from mx_rcnn_tpu_torch.utils import faults
+from mx_rcnn_tpu_torch.utils.retry import RETRY_PRESETS, RetryPolicy, make_retry_policy  # noqa: F401
 
 logger = logging.getLogger(__name__)
 

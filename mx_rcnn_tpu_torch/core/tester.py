@@ -122,15 +122,23 @@ class Predictor:
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.postprocess = postprocess
 
-    def predict_async(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def predict_async(self, batch: Dict, params: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
         """Dispatch the forward and return the device outputs without
-        fetching them (the consumer does: :class:`PendingFetch`)."""
+        fetching them (the consumer does: :class:`PendingFetch`).
+        ``params``, a ``state_dict`` of tensors on the device, stands in
+        for the model's own for this forward (``torch.func.functional_call``:
+        the JAX ``Predictor``'s ``predict_with``); the caller keeps other
+        forwards of this model out meanwhile."""
         with torch.inference_mode():
             images = _on_device(batch["images"], self.device)
             im_info = _on_device(batch["im_info"], self.device, torch.float32)
             extra = {k: _on_device(batch[k], self.device) for k in ("proposals", "prop_valid")
                      if k in batch}
-            out = self.model(images, im_info, **extra)
+            if params is None:
+                out = self.model(images, im_info, **extra)
+            else:
+                out = torch.func.functional_call(self.model, params, (images, im_info), extra)
             orig_hw = batch.get("orig_hw")
             if self.postprocess is not None and orig_hw is not None:
                 orig_hw = _on_device(orig_hw, self.device, torch.float32)

@@ -56,7 +56,16 @@ def flax_to_torch(params_np: Dict, model: nn.Module, partial: bool = False) -> n
     model must be matched, with equal shapes.  ``partial``: only the
     model's tensors under the tree's top-level names must be matched, and
     the others stay as they are."""
-    state = model.state_dict()
+    model.load_state_dict(flax_state_dict(params_np, model.state_dict(), partial),
+                          strict=not partial)
+    return model
+
+
+def flax_state_dict(params_np: Dict, state: Dict[str, torch.Tensor],
+                    partial: bool = False) -> Dict[str, torch.Tensor]:
+    """A Flax tree → the ``state_dict`` it makes of a model whose own
+    ``state_dict`` is ``state`` (names and shapes checked as
+    :func:`flax_to_torch` does), as float32 CPU tensors."""
     new = {}
     for path, a in _leaves(params_np):
         leaf = path[-1]
@@ -70,8 +79,7 @@ def flax_to_torch(params_np: Dict, model: nn.Module, partial: bool = False) -> n
     missing = sorted(k for k in set(state) - set(new) if not partial or k.split(".")[0] in params_np)
     if missing:
         raise KeyError(f"model tensors with no Flax leaf: {missing[:5]} (+{max(len(missing) - 5, 0)})")
-    model.load_state_dict(new, strict=not partial)
-    return model
+    return new
 
 
 def _flax_tree(named: Iterator[Tuple[str, torch.Tensor]]) -> Dict:
@@ -95,7 +103,12 @@ def _flax_tree(named: Iterator[Tuple[str, torch.Tensor]]) -> Dict:
 
 def torch_to_flax(model: nn.Module) -> Dict:
     """The model's tensors as a Flax-layout tree of numpy arrays."""
-    return _flax_tree(iter(model.state_dict().items()))
+    return state_dict_to_flax(model.state_dict())
+
+
+def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
+    """A ``state_dict`` as a Flax-layout tree of numpy arrays."""
+    return _flax_tree(iter(state.items()))
 
 
 def grads_to_flax(model: nn.Module) -> Dict:

@@ -23,7 +23,17 @@ Spec grammar, the JAX package's: comma-separated entries
     stall@STEP:SECONDS     sleep SECONDS at guarded step STEP (drives the
                            step past the watchdog deadline)
 
-The JAX package's other kinds (serving, swap and device faults) belong to paths the port does not have: a spec naming one raises
+Swap-phase injectors are keyed by the registry-wide swap ordinal (1-based:
+the Nth ``SwapController`` the registry launches, any model), or ``*`` for
+every swap.  Each fires at its stage of ``serve/registry.py``'s controller
+and raises :class:`InjectedSwapFault`, driving the rollback path::
+
+    swap_verify_fail@N     fail swap N's manifest-verification stage
+    swap_warm_fail@N       fail swap N after its warmup rungs ran
+    canary_fail@N          fail swap N's post-commit canary probe (the
+                           committed version rolls back between batches)
+
+The JAX package's other kinds (replica, poison and device faults) belong to paths the port does not have: a spec naming one raises
 ``NotImplementedError``, and a kind neither package knows raises
 ``ValueError``, so no entry is ignored.  Injection sites cost one
 environment lookup when the variable is unset.
@@ -49,13 +59,26 @@ class SimulatedCrash(RuntimeError):
     writer cannot clean up, the ``.tmp`` dir is left uncommitted)."""
 
 
-_PORTED_KINDS = frozenset({"nan_loss", "spike", "record_fail", "save_crash", "stall"})
+class InjectedSwapFault(RuntimeError):
+    """Raised by the swap-phase injector inside a ``SwapController`` stage:
+    a RuntimeError, so the controller rolls back exactly as on a real
+    verification, warmup or canary failure."""
+
+
+# swap-phase kinds, keyed by the 1-based registry-wide swap ordinal
+_SWAP_KINDS = {
+    "verify": "swap_verify_fail",
+    "warm": "swap_warm_fail",
+    "canary": "canary_fail",
+}
+
+_PORTED_KINDS = frozenset({"nan_loss", "spike", "record_fail", "save_crash", "stall"}
+                          | set(_SWAP_KINDS.values()))
 
 # the JAX package's kinds whose injection sites the port does not have yet
 _UNPORTED_KINDS = frozenset({
     "predict_fail", "predict_stall", "replica_wedge",
     "poison_fail", "poison_stall", "poison_wedge",
-    "swap_verify_fail", "swap_warm_fail", "canary_fail",
     "device_lost", "device_wedge",
 })
 
@@ -65,7 +88,7 @@ _DEFAULT_ARG = {"spike": 1e4, "stall": 5.0}
 @dataclass
 class _Fault:
     kind: str
-    key: int
+    key: Optional[int]  # None: every key (``*``, the swap kinds)
     times: Optional[int]  # None = unbounded
     arg: float
     fired: int = 0
@@ -112,7 +135,7 @@ def _parse(spec: str) -> List[_Fault]:
             rest, _, times_s = rest.partition("x")
             times = int(times_s)
         out.append(_Fault(
-            kind=kind, key=int(rest), times=times,
+            kind=kind, key=None if rest == "*" else int(rest), times=times,
             arg=float(arg_s) if arg_s is not None else _DEFAULT_ARG.get(kind, 0.0),
         ))
     return out
@@ -184,3 +207,20 @@ def stall(step: int) -> None:
     for f in reg.faults:
         if f.kind == "stall" and f.key == step and f.fire():
             time.sleep(f.arg)
+
+
+def swap_fault(stage: str, ordinal: int) -> None:
+    """The swap controller's hook (``serve/registry.py``): fail this swap's
+    ``stage`` ("verify" | "warm" | "canary"), called once per swap per
+    stage with the registry-wide 1-based swap ordinal."""
+    reg = _active()
+    if reg is None:
+        return
+    kind = _SWAP_KINDS[stage]
+    for f in reg.faults:
+        if f.kind != kind:
+            continue
+        if f.key is not None and f.key != ordinal:
+            continue
+        if f.fire():
+            raise InjectedSwapFault(f"injected {kind}: swap #{ordinal} ({stage} stage)")

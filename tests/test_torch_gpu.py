@@ -465,3 +465,53 @@ def test_roi_align_forward_kernels_refuse_a_zero_sample_ratio(card):
         troi.roi_align(feat, rois, (7, 7), 1.0 / 16, 0)
     with pytest.raises(ValueError):
         tstream.roi_align_stream(feat, rois, (7, 7), 0.25, 0)
+
+
+def test_serving_engine_on_the_card_matches_detect_single(card):
+    """The serving stack on the card: a small ResNet-50 C4 behind
+    ``ServeRunner`` + ``ServingEngine``, each request's detections against
+    ``detect_single`` on the card (same keep counts, scores within 1e-4,
+    boxes within 1e-3 px: a padded batch of 2 against a batch of 1, cuDNN's
+    choices per shape), NMS and kernel 2 launched by the served forwards,
+    and no new signature after warmup."""
+    import dataclasses
+
+    from mx_rcnn_tpu_torch.config import generate_config
+    from mx_rcnn_tpu_torch.core.tester import Predictor
+    from mx_rcnn_tpu_torch.models import build_model
+    from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
+    from mx_rcnn_tpu_torch.serve.engine import ServingEngine
+    from mx_rcnn_tpu_torch.serve.runner import ServeRunner, detect_single
+
+    cfg = generate_config("resnet50", "PascalVOC")
+    cfg = cfg.replace(
+        SHAPE_BUCKETS=((96, 128), (128, 96)),
+        dataset=dataclasses.replace(cfg.dataset, NUM_CLASSES=4, SCALES=((96, 128),)),
+        TEST=dataclasses.replace(cfg.TEST, RPN_PRE_NMS_TOP_N=200, RPN_POST_NMS_TOP_N=32,
+                                 SCORE_THRESH=0.05),
+    )
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in (model.rpn.rpn_cls_score, model.rpn.rpn_bbox_pred):
+            layer.weight.mul_(1e-3)
+    runner = ServeRunner(model, model.state_dict(), cfg, max_batch=2)
+    assert runner.device.type == "cuda"
+    assert runner.warmup() == 2
+    pred = Predictor(model, make_test_postprocess(cfg, 4, 0.05, cfg.TEST.DET_PER_CLASS))
+    rng = np.random.RandomState(0)
+    images = [(rng.rand(h, w, 3) * 255).astype(np.uint8)
+              for h, w in ((96, 128), (128, 96), (90, 120), (100, 80))]
+    before = (tnms.kernel.launches, troi.kernel.launches)
+    with ServingEngine(runner, max_linger=0.02, in_flight=2) as eng:
+        futs = [eng.submit(im) for im in images]
+        served = [f.result(timeout=300) for f in futs]
+    assert tnms.kernel.launches > before[0] and troi.kernel.launches > before[1]
+    assert runner.compile_cache.misses == 2
+    for im, got in zip(images, served):
+        ref = detect_single(pred, im, cfg, 4)
+        for j in range(1, 4):
+            g, r = got[j], ref[j]
+            assert g.shape == r.shape
+            g, r = g[np.argsort(-g[:, 4], kind="stable")], r[np.argsort(-r[:, 4], kind="stable")]
+            np.testing.assert_allclose(g[:, 4], r[:, 4], atol=1e-4, rtol=0)
+            np.testing.assert_allclose(g[:, :4], r[:, :4], atol=1e-3, rtol=0)

@@ -1,6 +1,6 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV, PIL and the
 JAX package cannot be imported (it serves a request and a mask request, a
-bf16 request, trains a step of the C4 (float32 and bf16) and of the mask
+bf16 request, requests through the serving engine by ``tools/serve.py``, trains a step of the C4 (float32 and bf16) and of the mask
 network through its CLI, runs the alternate
 training CLI, evaluates through ``tools/test.py``, decodes a JPEG and writes
 a PNG), and ``chip_smoke.py`` refuses
@@ -418,6 +418,26 @@ def _no_result(r: subprocess.CompletedProcess) -> bool:
         except (ValueError, AttributeError):
             continue
     return True
+
+
+def test_port_serves_through_the_engine_and_cli_without_jax():
+    """Requests through ``ServingEngine`` (two families, both lanes, the
+    response cache) by ``tools/serve.py --cpu``."""
+    r = run_blocked("""
+import torch
+torch.set_num_threads(2)
+from mx_rcnn_tpu_torch.tools import serve
+rep = serve.main(["--cpu", "--small", "--requests", "4", "--concurrency", "2", "--max_batch", "1",
+                  "--model", "second=resnet50:random:1", "--lane_mix", "2",
+                  "--response_cache", "4"])
+e = rep["engine"]
+assert rep["outcomes"]["ok"] == 4 and e["requests"]["completed"] == 4, rep["outcomes"]
+assert e["compile"]["misses"] == 4 and e["response_cache"]["capacity"] == 4
+assert not any(m.split(".")[0] in _BLOCKED for m in sys.modules)
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-1] == "ok"
 
 
 def test_chip_smoke_fails_without_a_card():
