@@ -260,6 +260,27 @@
    RLEs equal those of ``detect_single`` + ``eval/segm.py::canvas_rles`` on
    the same weights; printed with the card: p50 / p99 latency, images/s,
    fetch bytes a batch, the device-busy share of the profiled run;
+9f. ``[dp]``: data parallel (``parallel/``) at full-width ResNet-101 C4 from
+   the calibrated ``[train]`` weights under cuDNN's deterministic mode:
+   (a) 3 DP steps (``make_parallel_train_step``) at world size 1 over NCCL
+   in this process, bit-identical (state and losses) to 3 ``train_step``s on
+   the same batches, NMS and kernels 2 and 3 once a step; (b) two rank
+   processes on the card over gloo (``parallel/dist_smoke.py::run_case``),
+   one image each of 2-image batches with per-image ``sample_seeds``, 4
+   steps: the ranks' states bit-identical after every step, the momentum
+   after step 1 within ``DP_STEP1_BAR`` (relative L2 by leaf) of one rank on
+   the 2-image batch while a sum-reduced (x2) step must exceed it, each
+   rank's launches; (c) ``train_end2end --elastic`` as two ``--dist_*``
+   ranks with a ``--prefix`` each and ``device_lost@2.1:2`` (8 images, 4
+   steps an epoch, 2 epochs, ``--lr 1e-5``): 1 shrink, 1 regrow at the epoch
+   boundary, the window's replays, a committed emergency dump, the
+   survivor's degraded epoch dump bit-identical to one rank restored from
+   the emergency dump over the same batches' kept rows, both ranks equal at
+   the end with the same final loss, only rank 0's prefix written; (d) its
+   ``--resume`` for a third epoch as two ``--dist_*`` processes: both at
+   rank 0's dump, the same final loss and state; printed with the
+   card: the DP and plain step medians, the all-reduce's ms and bytes a
+   step at world 2, the elastic ``recovery_s``, the peak MiB a rank;
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
    mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
@@ -318,11 +339,13 @@ import torch
 from mx_rcnn_tpu_torch.config import generate_config
 from mx_rcnn_tpu_torch.core.checkpoint import (
     DATA_FILE,
+    is_committed,
     latest_checkpoint,
     load_checkpoint,
     read_manifest,
     restorable_checkpoints,
     save_checkpoint,
+    tree_checksum,
 )
 from mx_rcnn_tpu_torch.core.fit import fit
 from mx_rcnn_tpu_torch.core.metrics import METRIC_NAMES
@@ -340,6 +363,7 @@ from mx_rcnn_tpu_torch.data.image import load_image
 from mx_rcnn_tpu_torch.data.imdb import IMDB
 from mx_rcnn_tpu_torch.data.loader import (
     TestLoader,
+    TrainLoader,
     _orientation_bucket,
     build_test_batch,
     load_record_image,
@@ -367,6 +391,13 @@ from mx_rcnn_tpu_torch.ops import roi_align as roi_mod
 from mx_rcnn_tpu_torch.ops import roi_align_stream as stream_mod
 from mx_rcnn_tpu_torch.ops import roi_pool as roi_pool_mod
 from mx_rcnn_tpu_torch.ops.postprocess import make_test_postprocess
+from mx_rcnn_tpu_torch.parallel import distributed
+from mx_rcnn_tpu_torch.parallel.dist_smoke import free_port, run_case
+from mx_rcnn_tpu_torch.parallel.mesh import (
+    make_mesh,
+    make_parallel_train_step,
+    take_replica_rows,
+)
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve import runner as runner_mod
 from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepare_request
@@ -3599,9 +3630,12 @@ def images_phase(cfg, weights, dev, workers, smi) -> dict:
         # and build the decoder themselves (none is built where they look)
         for stale in hostops.BUILD_DIR.glob("jpegdec-*.so"):
             stale.unlink()
-        saved = (e2e.generate_config, e2e.build_model)
+        saved = (e2e.generate_config, e2e.build_model, e2e.ranks_to_launch)
         e2e.generate_config = lambda network, dataset: tree_cfg
         e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
+        # one rank in this process, on a host with more cards too: launched
+        # ranks would not see these patches
+        e2e.ranks_to_launch = lambda args: 0
         env = os.environ.get("MX_RCNN_ASSEMBLY_WORKERS")
         os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = str(max(2, workers))
         torch.cuda.synchronize()
@@ -3612,7 +3646,7 @@ def images_phase(cfg, weights, dev, workers, smi) -> dict:
                             "--max_steps", str(IMAGES_TRAIN_STEPS), "--frequent", "1",
                             "--aux_interval", "1", "--prefix", str(tmp / "e2e")])
         finally:
-            e2e.generate_config, e2e.build_model = saved
+            e2e.generate_config, e2e.build_model, e2e.ranks_to_launch = saved
             if env is None:
                 os.environ.pop("MX_RCNN_ASSEMBLY_WORKERS")
             else:
@@ -4002,11 +4036,12 @@ def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, 
 
     epochs = -(-steps // (len(roidb) // batch))
 
-    saved = (e2e.generate_config, e2e.build_model, e2e.load_gt_roidb)
+    saved = (e2e.generate_config, e2e.build_model, e2e.load_gt_roidb, e2e.ranks_to_launch)
     e2e.generate_config = lambda network, dataset: cfg.replace(
         network=dataclasses.replace(cfg.network, FOLD_BN=True))
     e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
     e2e.load_gt_roidb = lambda *a, **k: (None, roidb)
+    e2e.ranks_to_launch = lambda args: 0  # one rank, in this process
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--compute_dtype", "bfloat16", "--synthetic", str(len(roidb)), "--no_flip",
                 "--epochs", str(epochs), "--max_steps", str(steps), "--frequent", str(steps),
@@ -4020,7 +4055,7 @@ def bf16_train_cli(cfg, weights, roidb, dev, label, batch=1, steps=TRAIN_STEPS, 
             with Capture(keep=keep) as cap:
                 out = e2e.main(argv)
         finally:
-            e2e.generate_config, e2e.build_model, e2e.load_gt_roidb = saved
+            e2e.generate_config, e2e.build_model, e2e.load_gt_roidb, e2e.ranks_to_launch = saved
         launches = read_launches()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**20
     model_cfg = out["state"].model.cfg.network
@@ -5002,15 +5037,16 @@ def train_cli_checkpoint(cfg, weights, tmp):
     from mx_rcnn_tpu_torch.core.checkpoint import is_committed
     from mx_rcnn_tpu_torch.tools import train_end2end as e2e
 
-    saved = e2e.build_model
+    saved = (e2e.build_model, e2e.ranks_to_launch)
     e2e.build_model = lambda c, generator=None: loaded_model(c, weights)
+    e2e.ranks_to_launch = lambda args: 0  # one rank, in this process
     env = os.environ.get("MX_RCNN_ASSEMBLY_WORKERS")
     os.environ["MX_RCNN_ASSEMBLY_WORKERS"] = "0"
     try:
         out = e2e.main(["--network", "resnet", "--dataset", "PascalVOC", "--synthetic", "1",
                         "--no_flip", "--epochs", "1", "--prefix", str(tmp / "e2e")])
     finally:
-        e2e.build_model = saved
+        e2e.build_model, e2e.ranks_to_launch = saved
         if env is None:
             os.environ.pop("MX_RCNN_ASSEMBLY_WORKERS")
         else:
@@ -5334,6 +5370,360 @@ def serve_engine_phase(cfg, dev, smi, mask_cfg, mask_weights) -> tuple:
     return launches, mask_launches, fig
 
 
+# ------------------------------------------------------------- data parallel
+# [dp]: (a) 3 DP steps at world size 1 over NCCL, (b) 4 steps at world size 2
+# over gloo (both ranks on the card), (c) an elastic 2 -> 1 -> 2 run of the
+# CLI, (d) the CLI as two --dist_* processes and their resume
+DP_STEPS = 3
+# (a)'s step times: this many more steps of each, in turns, after the 3
+DP_TIMED_STEPS = 8
+DP_WORLD2_STEPS = 4
+# (b)'s bar: relative L2 distance by leaf of the momentum after step 1 (the
+# clipped, reduced gradient plus the decay term) between two ranks of one
+# image and one rank of the 2-image batch; a sum-reduced step (x2) fails it.
+# Predicted 1e-3; read (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6): worst
+# leaf 6.2e-6, the sum-reduced step's smallest 0.98; set 16x the reading
+DP_STEP1_BAR = 1e-4
+DP_ALL_REDUCE_REPS = 5
+DP_ELASTIC_IMAGES = 8  # 4 steps an epoch at a global batch of 2
+DP_FAULT_STEP = 2
+DP_FAULT = f"device_lost@{DP_FAULT_STEP}.1:2"  # rank 1 down for steps [2, 4)
+DP_CLI_AUX_INTERVAL = 8  # the card CLI's default: the fault's window replays
+# (c) and (d) train from the CLI's random init: at the config's 1e-3 the
+# losses grow past 1e6 in 8 steps, hidden only by the guard's warmup; at
+# 1e-5 they stay within 45-236 of a first loss of 109 on the H100
+DP_CLI_LR = 1e-5
+DP_CLI_LOSS_GROWTH = 10.0  # no loss of a run above this many times its first
+DP_TIMEOUT_S = 300
+
+
+def dp_cli_entry(deterministic: bool) -> list:
+    """The command of a ``train_end2end`` rank: the module, or under cuDNN's
+    deterministic mode (for the bitwise comparison of (c)) its ``main``."""
+    if not deterministic:
+        return [sys.executable, "-m", "mx_rcnn_tpu_torch.tools.train_end2end"]
+    return [sys.executable, "-c",
+            "import sys, torch; "
+            "torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; "
+            "from mx_rcnn_tpu_torch.tools.train_end2end import main; main(sys.argv[1:])"]
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def dp_world1(cfg, weights, roidb, dev) -> dict:
+    """(a): DP steps at world size 1 over NCCL against ``train_step`` from
+    the same weights and batches: bit-identical states and losses, the
+    main path's kernels launched once a step."""
+    assert distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0) == "nccl"
+    try:
+        mesh = make_mesh()
+        runs = {}
+        for name in ("dp", "plain"):
+            model = loaded_model(cfg, weights).to(dev, memory_format=torch.channels_last).train()
+            opt = make_optimizer(cfg, model, lambda s: cfg.TRAIN.LEARNING_RATE)
+            runs[name] = {"state": create_train_state(model, opt), "ms": [], "losses": []}
+        dp_step = make_parallel_train_step(mesh)
+        launches = {}
+        for k in range(DP_STEPS + DP_TIMED_STEPS):
+            batch = train_batch(cfg, roidb, k % len(roidb), dev)
+            for name, step in (("dp", dp_step), ("plain", train_step)):
+                run = runs[name]
+                if name == "dp" and k < DP_STEPS:
+                    reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, aux = step(run["state"], batch, 5)
+                torch.cuda.synchronize()
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                if k >= DP_STEPS:
+                    continue
+                run["losses"].append(float(aux["loss"]))
+                if name == "dp":
+                    got = read_launches()
+                    launches = {n: launches.get(n, 0) + got[n] for n in got}
+            if k == DP_STEPS - 1:
+                trees = {name: run["state"].state_tree() for name, run in runs.items()}
+    finally:
+        distributed.shutdown()
+    bad = tree_diff(trees["dp"], trees["plain"])
+    if bad or runs["dp"]["losses"] != runs["plain"]["losses"]:
+        raise AssertionError(f"[dp] world 1: the DP steps differ from train_step: {bad[:5]}, "
+                             f"losses {runs['dp']['losses']} vs {runs['plain']['losses']}")
+    want = {n: DP_STEPS * c for n, c in C4_LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"[dp] world 1: launches {launches}, not {want}")
+    timed = {name: run["ms"][DP_STEPS:] for name, run in runs.items()}
+    out = {"backend": "nccl", "launches": launches, "losses": runs["dp"]["losses"],
+           "dp_ms": runs["dp"]["ms"], "plain_ms": runs["plain"]["ms"],
+           "dp_ms_median": statistics.median(timed["dp"]),
+           "plain_ms_median": statistics.median(timed["plain"]),
+           "comm": dict(dp_step.comm)}
+    log(f"[dp] (a) world 1 over NCCL: {DP_STEPS} DP steps bit-identical to train_step "
+        f"(state checksum, losses {out['losses']}); launches {launches}; step median over "
+        f"{DP_TIMED_STEPS} more in turns {out['dp_ms_median']:.3f} ms DP vs "
+        f"{out['plain_ms_median']:.3f} ms plain (each {out['dp_ms']} / {out['plain_ms']}); "
+        f"all-reduce bytes a step {dp_step.comm['bytes'] // len(runs['dp']['ms'])}")
+    return out
+
+
+def dp_world2(cfg, weights, roidb, dev, tmp) -> dict:
+    """(b): two rank processes on the card over gloo, one image each, per-image
+    ``sample_seeds``: equal states after every step, step 1 against one rank
+    of the 2-image batch at :data:`DP_STEP1_BAR` (and a sum-reduced step
+    failing it), each rank's launches, the all-reduce's time and bytes."""
+    bucket = _orientation_bucket(roidb[0], cfg.SHAPE_BUCKETS)
+    recs = [i for i, r in enumerate(roidb)
+            if _orientation_bucket(r, cfg.SHAPE_BUCKETS) == bucket][:2 * DP_WORLD2_STEPS]
+    if len(recs) < 2 * DP_WORLD2_STEPS:
+        raise AssertionError(f"[dp] {len(recs)} records in one bucket")
+    batches = [make_batch([roidb[i] for i in recs[2 * k:2 * k + 2]], cfg, bucket,
+                          seeds=recs[2 * k:2 * k + 2]) for k in range(DP_WORLD2_STEPS)]
+    rng = 5
+    case = {"cfg": cfg, "weights": {k: v.cpu() for k, v in weights.items()},
+            "batches": batches, "rng": rng, "device": dev.type, "deterministic": True,
+            "time_all_reduce": DP_ALL_REDUCE_REPS,
+            "variants": [{"reduce": "sum", "steps": 1, "params_after": 0},
+                         {"reduce": "mean", "steps": DP_WORLD2_STEPS, "params_after": 0}]}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_case(case, str(tmp / "world2.pt"), 2, DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"[dp] world 2: backends {[r['backend'] for r in ranks]}")
+    # (the sum-reduced variant reduces no aux: its losses are each rank's own)
+    for v in range(2):
+        a, b = (r["variants"][v] for r in ranks)
+        if a["checksums"] != b["checksums"] or (v == 1 and a["losses"] != b["losses"]):
+            raise AssertionError(f"[dp] world 2, variant {v}: the ranks' states differ after "
+                                 f"some step: {a['checksums']} vs {b['checksums']}")
+    # one rank, the 2-image batch, from the same weights (cuDNN deterministic)
+    model = loaded_model(cfg, weights).to(dev, memory_format=torch.channels_last).train()
+    opt = make_optimizer(cfg, model, lambda s: cfg.TRAIN.LEARNING_RATE)
+    state = create_train_state(model, opt)
+    _, aux1 = train_step(state, batch_to_device(batches[0], dev), rng)
+    ref_m = {n: opt.sgd.state[p]["momentum_buffer"].cpu() for n, p in zip(state.names, opt.params)}
+    ref_p = {n: p.detach().cpu() for n, p in zip(state.names, opt.params)}
+    reading = {}
+    for name, v in (("sum", 0), ("mean", 1)):
+        got = ranks[0]["variants"][v]
+        reading[name] = {
+            "momentum_rel_l2": {n: _rel_l2(got["momenta"][n], ref_m[n]) for n in ref_m},
+            "param_rel_l2": {n: _rel_l2(got["params"][n], ref_p[n]) for n in ref_p},
+            "loss": got["losses"][0]}
+    worst = {k: max(reading[k]["momentum_rel_l2"].items(), key=lambda kv: kv[1])
+             for k in reading}
+    log(f"[dp] (b) world 2 over gloo (2 ranks on the card): step 1 momentum relative L2 by "
+        f"leaf, worst {worst['mean'][0]} {worst['mean'][1]:.3e} (median "
+        f"{statistics.median(reading['mean']['momentum_rel_l2'].values()):.3e}); the "
+        f"sum-reduced (x2) step: worst {worst['sum'][1]:.3e}, median "
+        f"{statistics.median(reading['sum']['momentum_rel_l2'].values()):.3e}, smallest "
+        f"{min(reading['sum']['momentum_rel_l2'].values()):.3e}; bar {DP_STEP1_BAR}; loss "
+        f"{reading['mean']['loss']} vs one rank {float(aux1['loss'])}")
+    if worst["mean"][1] > DP_STEP1_BAR:
+        raise AssertionError(f"[dp] world 2: step 1 is {worst['mean'][1]:.3e} from one rank's "
+                             f"at {worst['mean'][0]}, over the bar {DP_STEP1_BAR}")
+    if worst["sum"][1] <= DP_STEP1_BAR:
+        raise AssertionError(f"[dp] world 2: the sum-reduced step passes the bar "
+                             f"({worst['sum'][1]:.3e}): the check cannot see it")
+    per_rank = [r["variants"][1]["launches"] for r in ranks]
+    want = {n: DP_WORLD2_STEPS * C4_LAUNCHES_PER_STEP.get(n, 0) for n in per_rank[0]}
+    if any(lr != want for lr in per_rank):
+        raise AssertionError(f"[dp] world 2: rank launches {per_rank}, not {want}")
+    comm = ranks[0]["variants"][1]["comm"]
+    out = {"backend": "gloo", "rank_launches": per_rank, "wall_s": wall,
+           "losses": ranks[0]["variants"][1]["losses"],
+           "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+           "all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+           "step_bytes": comm["bytes"] // DP_WORLD2_STEPS,
+           "peak_mib": [r["variants"][1].get("peak_mib") for r in ranks],
+           "momentum_rel_l2_worst": worst["mean"], "sum_rel_l2_worst": worst["sum"],
+           "sum_rel_l2_min": min(reading["sum"]["momentum_rel_l2"].values()),
+           "param_rel_l2_worst": max(reading["mean"]["param_rel_l2"].values()),
+           "bar": DP_STEP1_BAR}
+    log(f"[dp] (b) {DP_WORLD2_STEPS} steps, the ranks bit-identical after each; rank launches "
+        f"{per_rank}; all-reduce of the {out['all_reduce_bytes']} gradient bytes "
+        f"{out['all_reduce_ms']} ms (median of {DP_ALL_REDUCE_REPS}, each rank); bytes reduced "
+        f"a step {out['step_bytes']}; peak MiB a rank {out['peak_mib']}; {wall:.1f} s of "
+        f"rank processes")
+    return out
+
+
+def dp_cli_ranks(argv_of, n, tmp, label, env_extra=None, deterministic=False) -> list:
+    """``n`` ranks of ``train_end2end`` started as a user would on this host
+    (``--dist_coordinator 127.0.0.1:P --dist_nprocs n --dist_procid i``),
+    one shared deadline; → each rank's report.  A rank that fails fails the
+    phase, with the tail of its log."""
+    port = free_port()
+    reports = tmp / f"{label}_reports"
+    reports.mkdir()
+    env = dict(os.environ, MX_RCNN_RANK_REPORT=str(reports), LOCAL_WORLD_SIZE=str(n),
+               PYTHONPATH=str(Path(__file__).resolve().parent), **(env_extra or {}))
+    entry = dp_cli_entry(deterministic)
+    logs = [tmp / f"{label}_rank{i}.log" for i in range(n)]
+    procs = []
+    for i in range(n):
+        with open(logs[i], "w") as f:
+            procs.append(subprocess.Popen(
+                entry + argv_of(i) + ["--dist_coordinator", f"127.0.0.1:{port}",
+                                      "--dist_nprocs", str(n), "--dist_procid", str(i)],
+                stdout=f, stderr=subprocess.STDOUT, env=env,
+                cwd=Path(__file__).resolve().parent))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"[dp] {label}: rank {i} exited {p.returncode}:\n"
+                                 + logs[i].read_text()[-4000:])
+    return [json.loads((reports / f"rank{i}.json").read_text()) for i in range(n)]
+
+
+def _sane_losses(label: str, report: dict) -> list:
+    """The run's losses: finite, none above :data:`DP_CLI_LOSS_GROWTH`
+    times the first, and no step retried or skipped by the divergence
+    guard."""
+    losses = [h["loss"] for h in report["history"]]
+    if not all(math.isfinite(v) and v <= DP_CLI_LOSS_GROWTH * losses[0] for v in losses):
+        raise AssertionError(f"[dp] {label}: the losses ran away: {losses}")
+    if report["pipeline"]["retried_steps"] or report["pipeline"]["skipped_batches"]:
+        raise AssertionError(f"[dp] {label}: the guard acted: {report['pipeline']}")
+    return losses
+
+
+def dp_elastic(dev, tmp) -> dict:
+    """(c): ``train_end2end --elastic`` as two ``--dist_*`` ranks on the
+    card over gloo, each with its own ``--prefix``, ``MX_RCNN_FAULTS`` =
+    :data:`DP_FAULT`: one shrink, one regrow at the epoch boundary, the
+    window's replays, a committed emergency dump; the survivor's degraded
+    epoch dump bit-identical to one rank restored from the emergency dump
+    over the same batches' kept rows; both ranks equal at the end, with the
+    same final loss; only rank 0's prefix written."""
+    prefix = tmp / "elastic0"
+    t0 = time.perf_counter()
+    reports = dp_cli_ranks(lambda i: [
+        "--synthetic", str(DP_ELASTIC_IMAGES), "--no_flip", "--batch_images", "1",
+        "--epochs", "2", "--lr", str(DP_CLI_LR), "--elastic",
+        "--aux_interval", str(DP_CLI_AUX_INTERVAL), "--frequent", "1",
+        "--prefix", str(tmp / f"elastic{i}")], 2, tmp, "elastic", {faults.ENV_VAR: DP_FAULT},
+        deterministic=True)
+    wall = time.perf_counter() - t0
+    r0, r1 = reports
+    el = r0["elastic"]
+    replayed = DP_FAULT_STEP - DP_FAULT_STEP // DP_CLI_AUX_INTERVAL * DP_CLI_AUX_INTERVAL
+    got = (el["shrinks"], el["regrows"], el["replayed_steps"], el["emergency_checkpoints"])
+    if got != (1, 1, replayed, 1) or r0["degraded"] or r1["elastic"]["transitions"] != \
+            el["transitions"]:
+        raise AssertionError(f"[dp] elastic: shrinks, regrows, replays, emergency dumps {got} "
+                             f"(expected (1, 1, {replayed}, 1)); {el['transitions']}")
+    losses = _sane_losses("elastic", r0)
+    if r0["state_checksum"] != r1["state_checksum"] or \
+            r0["history"][-1]["loss"] != r1["history"][-1]["loss"]:
+        raise AssertionError("[dp] elastic: the ranks' final states or losses differ after the "
+                             "regrow")
+    written = sorted(os.listdir(prefix))
+    if (tmp / "elastic1").exists() or "run_meta.json" not in written or r1["saves"]:
+        raise AssertionError(f"[dp] elastic: rank 0 wrote {written}; rank 1's prefix exists: "
+                             f"{(tmp / 'elastic1').exists()}")
+    emergency = [s for s in r0["saves"] if s["path"] not in
+                 (str(prefix / "epoch_0001"), str(prefix / "epoch_0002"))]
+    path = Path(emergency[0]["path"])
+    man = read_manifest(str(path))
+    if man is None or man.get("meta", {}).get("event") != "shrink" or not is_committed(str(path)):
+        raise AssertionError(f"[dp] elastic: the emergency dump {path} is not committed: {man}")
+    # one rank from the emergency dump over the same batches' kept rows
+    cfg = generate_config("resnet", "PascalVOC")
+    cfg = cfg.replace(TRAIN=dataclasses.replace(cfg.TRAIN, LEARNING_RATE=DP_CLI_LR))
+    _, roidb = load_gt_roidb(cfg, None, flip=False, synthetic_size=DP_ELASTIC_IMAGES)
+    model = bare_model(cfg).to(dev, memory_format=torch.channels_last).train()
+    loader = TrainLoader(roidb, cfg, 2, shuffle=cfg.TRAIN.SHUFFLE, seed=0, prefetch=0)
+    state = create_train_state(model, make_optimizer(cfg, model,
+                                                     make_lr_schedule(cfg, len(loader))))
+    load_checkpoint(str(prefix), emergency[0]["epoch"], state, emergency[0]["batch"])
+    loader.epoch, loader.skip_batches = emergency[0]["epoch"], emergency[0]["batch"]
+    reset_launches()
+    for b in loader:
+        train_step(state, batch_to_device(take_replica_rows(b, 1, 2), dev), 123)  # --seed 0 + 123
+    fresh_launches = read_launches()
+    degraded = read_manifest(str(prefix / "epoch_0001"))["checksum"]
+    if tree_checksum(state.state_tree()) != degraded:
+        raise AssertionError("[dp] elastic: the survivor's degraded epoch differs from one rank "
+                             "restored from the emergency dump")
+    out = {"recovery_s": el["recovery_s"], "transitions": el["transitions"],
+           "replayed_steps": el["replayed_steps"], "emergency": str(path.name),
+           "wall_s": wall, "fresh_launches": fresh_launches, "losses": losses,
+           "written": written}
+    log(f"[dp] (c) elastic over gloo as two --dist_* processes, {DP_FAULT}: shrink and regrow "
+        f"{el['transitions']}, {el['replayed_steps']} step(s) replayed, emergency dump "
+        f"{path.name}; the degraded epoch bit-identical to one rank restored from it; the ranks "
+        f"equal after the regrow, final loss {losses[-1]} on both; losses {losses}; rank 0's "
+        f"prefix {written}, rank 1's none; recovery_s {el['recovery_s']}; {wall:.1f} s of rank "
+        f"processes")
+    return out
+
+
+def dp_cli(tmp) -> dict:
+    """(d): the ``--resume`` of (c)'s run for a third epoch as two
+    ``--dist_*`` processes: both resume at rank 0's last dump (rank 1's
+    prefix holds none), end with the same loss and state, and only rank
+    0's prefix is written."""
+    t0 = time.perf_counter()
+    again = dp_cli_ranks(lambda i: [
+        "--synthetic", str(DP_ELASTIC_IMAGES), "--no_flip", "--batch_images", "1",
+        "--epochs", "3", "--lr", str(DP_CLI_LR), "--resume", "--frequent", "1",
+        "--prefix", str(tmp / f"elastic{i}")], 2, tmp, "cli_resume")
+    wall = time.perf_counter() - t0
+    a, b = again
+    if a["history"][-1]["loss"] != b["history"][-1]["loss"] or \
+            a["state_checksum"] != b["state_checksum"]:
+        raise AssertionError("[dp] CLI resume: the ranks' final losses or states differ")
+    losses = _sane_losses("CLI resume", a)
+    if [tuple(r["begin"]) for r in again] != [(2, 0), (2, 0)]:
+        raise AssertionError(f"[dp] CLI: resumed at {[r['begin'] for r in again]}")
+    if (tmp / "elastic1").exists() or b["saves"] or \
+            restorable_checkpoints(str(tmp / "elastic0"))[:3] != [(3, 0), (2, 0), (1, 0)]:
+        raise AssertionError(f"[dp] CLI resume: rank 0's dumps "
+                             f"{restorable_checkpoints(str(tmp / 'elastic0'))}; rank 1's prefix "
+                             f"exists: {(tmp / 'elastic1').exists()}")
+    out = {"resumed_final_loss": losses[-1], "losses": losses, "wall_s": wall}
+    log(f"[dp] (d) --resume as two --dist_* processes: both at (2, 0), final loss "
+        f"{losses[-1]} on both (losses {losses}); rank 0's prefix written, rank 1's none; "
+        f"{wall:.1f} s of rank processes")
+    return out
+
+
+def dp_phase(cfg, weights, roidb, dev) -> tuple:
+    """The ``[dp]`` phase: (a)–(d) above; → (stats, (a)'s launches)."""
+    t0 = time.monotonic()
+    cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="dp-") as tmp:
+            tmp = Path(tmp)
+            stats = {"world1": dp_world1(cfg, weights, roidb, dev),
+                     "world2": dp_world2(cfg, weights, roidb, dev, tmp),
+                     "elastic": dp_elastic(dev, tmp),
+                     "cli": dp_cli(tmp)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    stats["seconds"] = time.monotonic() - t0
+    w1, w2 = stats["world1"], stats["world2"]
+    log(f"[dp] figures: DP step median {w1['dp_ms_median']:.3f} ms at world 1 (NCCL) vs plain "
+        f"{w1['plain_ms_median']:.3f} ms; world 2 (gloo) all-reduce {w2['all_reduce_ms']} ms "
+        f"of {w2['all_reduce_bytes']} bytes a step; elastic recovery_s "
+        f"{stats['elastic']['recovery_s']}; peak MiB a rank {w2['peak_mib']}; phase "
+        f"{stats['seconds']:.1f} s")
+    return stats, w1["launches"]
+
+
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
@@ -5578,6 +5968,14 @@ def main(argv=None) -> int:
         f"PyTorch (no TPU kernel)")
     vgg_stats, vgg_launches = vgg_phase(nms_diff, bwd_diff, stream_diff, dev)
 
+    log(f"[dp] data parallel: ResNet-{cfg.network.depth} C4 at full width from the calibrated "
+        f"[train] weights, cuDNN deterministic: (a) {DP_STEPS} steps at world size 1 over NCCL "
+        f"against train_step; (b) {DP_WORLD2_STEPS} steps at world size 2 over gloo, two rank "
+        f"processes on the card, one image each; (c) train_end2end --elastic as two ranks with "
+        f"{faults.ENV_VAR}={DP_FAULT}; (d) train_end2end as two --dist_* processes and their "
+        f"--resume")
+    dp_stats, dp_launches = dp_phase(cfg, c4_weights, roidb, dev)
+
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
     classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
@@ -5732,6 +6130,7 @@ def main(argv=None) -> int:
     log(f"[serve] stats {json.dumps(serve_stats)}")
     log(f"[bf16] stats {json.dumps(bf16_stats)}")
     log(f"[vgg] stats {json.dumps(vgg_stats)}")
+    log(f"[dp] stats {json.dumps(dp_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
     def infer_launches(kernel):
         return {"fpn_serve_launches": fpn_serve_launches[kernel],
@@ -5786,6 +6185,8 @@ def main(argv=None) -> int:
             **_prefixed("fpn_serve_classes", fpn_classes),
             **alt_launches("nms"), **vgg_runs_launches("nms"),
             **_prefixed("proposal_dump", dump_nms),
+            "dp_launches": dp_launches["nms"],
+            "dp_world2_rank_launches": [r["nms"] for r in dp_stats["world2"]["rank_launches"]],
         },
         {
             "name": "roi_align_fwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -5805,6 +6206,8 @@ def main(argv=None) -> int:
             **_prefixed("mask_serve_p2", mask_roi), **mask_train_timing("roi_fwd"),
             **alt_launches("roi_align_fwd"), **vgg_runs_launches("roi_align_fwd"),
             **_prefixed("fast_rcnn", alt_roi),
+            "dp_launches": dp_launches["roi_align_fwd"],
+            "dp_world2_rank_launches": [r["roi_align_fwd"] for r in dp_stats["world2"]["rank_launches"]],
         },
         {
             "name": "roi_align_bwd", "route": "cuda", "source": "mx_rcnn_tpu_torch/csrc/roi_align.cu",
@@ -5822,6 +6225,8 @@ def main(argv=None) -> int:
             **mask_train_timing("roi_bwd"),
             **alt_launches("roi_align_bwd"), **vgg_runs_launches("roi_align_bwd"),
             **_prefixed("fast_rcnn", alt_bwd),
+            "dp_launches": dp_launches["roi_align_bwd"],
+            "dp_world2_rank_launches": [r["roi_align_bwd"] for r in dp_stats["world2"]["rank_launches"]],
         },
         {
             "name": "roi_align_stream_fwd", "route": "cuda",

@@ -124,9 +124,12 @@ def save_checkpoint(
     state: Any,
     epoch: int,
     batch_in_epoch: int = 0,
+    meta: Optional[Dict[str, Any]] = None,
 ) -> str:
     """Crash-safe save of ``state`` (a ``TrainState``, or a tree as
-    ``state_tree`` / ``TrainSnapshot.host`` give it): write ``<name>.tmp``,
+    ``state_tree`` / ``TrainSnapshot.host`` give it), with ``meta`` (JSON)
+    recorded under ``manifest["meta"]`` (an elastic shrink stamps its
+    emergency dump with the event): write ``<name>.tmp``,
     fsync the data and a manifest into it, rename it to ``<name>``, fsync the
     directory.  A kill at any point leaves the previous committed dump intact
     and at most an orphaned ``.tmp`` that every reader skips.  Returns the
@@ -149,6 +152,8 @@ def save_checkpoint(
         "checksum": tree_checksum(tree),
         "files": _manifest_files(tmp),
     }
+    if meta is not None:
+        manifest["meta"] = meta
     # injection point: a kill between the data write and the commit
     faults.crash_save()
     with open(os.path.join(tmp, MANIFEST), "w") as f:

@@ -8,10 +8,15 @@ One loop serves every graph: FasterRCNN, FPN and the stage models of
 alternate training (``models/stage_models.py``), whose batches carry the
 proposal roidb's ``proposals`` (``proposal_count``) and whose init may take
 subtrees of an earlier stage's tree (``init_donor``, :func:`merge_params`).
+With a data-parallel ``mesh`` (``parallel/mesh.py``) every rank runs this loop
+on its rows of each global batch, and with ``elastic`` it shrinks onto the
+ranks the fault injector leaves up and regrows at epoch ends
+(``parallel/elastic.py``; a rank whose process dies ends the run).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import logging
 import math
@@ -41,6 +46,9 @@ from mx_rcnn_tpu_torch.core.train import (
     train_step,
 )
 from mx_rcnn_tpu_torch.data.loader import TrainLoader
+from mx_rcnn_tpu_torch.parallel import distributed
+from mx_rcnn_tpu_torch.parallel.elastic import ElasticLoop, make_elastic_factory
+from mx_rcnn_tpu_torch.parallel.mesh import make_parallel_train_step, replicate
 from mx_rcnn_tpu_torch.utils.bridge import flax_to_torch
 from mx_rcnn_tpu_torch.utils.precision import full_float32
 
@@ -48,6 +56,11 @@ logger = logging.getLogger(__name__)
 
 # the steps a ``profile`` trace covers: from the 10th step done to the 20th
 PROFILE_STEPS = (10, 20)
+
+# data parallel: the ranks vote on a preemption stop every this many steps
+# (the same steps on every rank), so a signal that reached some ranks stops
+# all of them at one step
+STOP_VOTE_EVERY = 10
 
 
 def merge_params(model: nn.Module, donor: Dict) -> nn.Module:
@@ -137,6 +150,8 @@ def fit(
     accum_steps: int = 1,
     metrics_jsonl: Optional[str] = None,
     profile: Optional[str] = None,
+    mesh=None,
+    elastic: bool = False,
 ) -> Dict:
     """Train ``model`` in place on ``device`` (default: the card, which must
     be present).  The model starts from its own weights, except for the
@@ -177,6 +192,20 @@ def fit(
     weights, momentum and update count) and continues the batch stream where
     it stopped (the loader's per-(seed, epoch) plan and ``skip_batches``).
 
+    ``mesh`` (a ``parallel/mesh.py::DataMesh``; its device replaces
+    ``device``): data parallel.  A step takes ``BATCH_IMAGES × accum_steps ×
+    mesh.size`` images; the loader plans the global batches and loads this
+    rank's rows, the DP step (``make_parallel_train_step``) all-reduces the
+    gradients, and the state starts equal on every rank (``replicate``).
+    Only rank 0 writes checkpoints, ``metrics_jsonl``, ``stream_log`` and
+    the profile; a resume takes rank 0's choice of dump and its restored
+    state on every rank; the ranks vote on a preemption stop every
+    :data:`STOP_VOTE_EVERY` steps.  ``elastic`` runs the steps under
+    ``parallel/elastic.py::ElasticLoop``: every rank loads the base-size
+    global batch, a device fault shrinks the set (the lowest survivor writes
+    an emergency dump and, while the run is degraded, the epoch saves) and
+    each epoch end may regrow it.
+
     Returns ``{"steps": consumed batches, "history": [...], ...}``: one
     history dict per verified step, in stream order, with the aux metrics,
     ``loss``, ``index`` (its stream position), ``wait_ms`` (the step
@@ -191,18 +220,26 @@ def fit(
     (epoch, batch) the run started from); ``preempted`` and ``stopped_at``
     (the (epoch, batch) of a preemption's dump, else None); ``saves`` (one
     dict per dump: ``path``, ``epoch``, ``batch``, ``seconds``, ``bytes``,
-    ``at``, the host clock at its commit)."""
-    dev = resolve_device(device)
+    ``at``, the host clock at its commit); with a mesh ``rank``, and with
+    ``elastic`` ``elastic`` (the loop's ``stats()``) and ``degraded`` (the
+    run ended on fewer ranks than it began with)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    elastic = elastic and mesh is not None
+    rank = distributed.process_index()
     full_float32()
     if init_donor is not None:
         merge_params(model, init_donor)
     # channels_last: the NHWC images and pooled rois enter the convs as views
     model.to(dev, memory_format=torch.channels_last).train()
-    images_per_step = cfg.TRAIN.BATCH_IMAGES * accum_steps
+    # the global batch: every rank's microbatches
+    images_per_step = cfg.TRAIN.BATCH_IMAGES * accum_steps * (mesh.size if mesh is not None else 1)
+    rows = None
+    if mesh is not None and not elastic:
+        rows = distributed.process_slice(images_per_step, rank=mesh.position, world=mesh.size)
     loader = TrainLoader(
         roidb, cfg, images_per_step, shuffle=cfg.TRAIN.SHUFFLE, seed=seed,
         prefetch=prefetch, failure_budget=loader_failure_budget,
-        assembly_workers=assembly_workers, proposal_count=proposal_count,
+        assembly_workers=assembly_workers, proposal_count=proposal_count, row_slice=rows,
     )
     optimizer = make_optimizer(cfg, model, make_lr_schedule(cfg, max(len(loader), 1)),
                                fixed_params)
@@ -211,14 +248,31 @@ def fit(
     dispatched = 0
     saves: List[Dict] = []
 
-    def step_fn(state, batch, rng, lr_scale=None):
-        nonlocal dispatched
-        dispatched += 1
-        return train_step(state, batch, rng, lr_scale, accum_steps=accum_steps)
+    def counted(step):
+        def step_fn(state, batch, rng, lr_scale=None):
+            nonlocal dispatched
+            dispatched += 1
+            return step(state, batch, rng, lr_scale)
+        return step_fn
 
-    def save(epoch: int, batch: int, tree=None) -> str:
+    if mesh is None:
+        step_fn = counted(lambda state, batch, rng, lr_scale: train_step(
+            state, batch, rng, lr_scale, accum_steps=accum_steps))
+    elif not elastic:
+        dp_step = make_parallel_train_step(mesh, accum_steps)
+        step_fn = counted(lambda state, batch, rng, lr_scale: dp_step(state, batch, rng, lr_scale))
+    eloop = None
+
+    def writer() -> bool:
+        """Whether this rank writes the run's dumps: rank 0, or while an
+        elastic run is degraded the lowest active rank."""
+        if eloop is not None:
+            return rank == mesh.ranks[min(eloop.active)]
+        return rank == 0
+
+    def save(epoch: int, batch: int, tree=None, meta=None) -> str:
         t0 = time.perf_counter()
-        path = save_checkpoint(prefix, state if tree is None else tree, epoch, batch)
+        path = save_checkpoint(prefix, state if tree is None else tree, epoch, batch, meta=meta)
         t1 = time.perf_counter()
         nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
         saves.append({"path": path, "epoch": epoch, "batch": batch, "seconds": t1 - t0,
@@ -230,24 +284,51 @@ def fit(
     # number the steps one by one, so an index maps to its stream position
     starts: List[Tuple[int, int, int]] = []
 
+    def position(index: int) -> Tuple[int, int]:
+        """The (epoch, batch) a stream index stands for."""
+        first, epoch, batch = max(s for s in starts if s[0] <= index)
+        return epoch, batch + index - first
+
     def watchdog_dump():
-        got = pipeline.snapshot_for_dump() if prefix else None
+        got = pipeline.snapshot_for_dump() if prefix and writer() else None
         if got is None:
             return None
         index, tree = got
         # named at the position the snapshot stands for, so a resume
         # consumes the steps since then again
-        first, epoch, batch = max(s for s in starts if s[0] <= index)
-        return save(epoch, batch + index - first, tree)
+        return save(*position(index), tree)
+
+    def emergency_dump(anchor, index, meta):
+        if not prefix or not writer():
+            return None
+        tree = anchor.tree() if hasattr(anchor, "tree") else anchor
+        return save(*position(index), tree, meta=meta)
 
     watchdog = StepWatchdog(step_timeout, dump_fn=watchdog_dump) if step_timeout > 0 else None
-    pipeline = PipelinedLoop(
-        step_fn, policy=guard_policy, snapshot_every=snapshot_every, watchdog=watchdog,
-        aux_interval=aux_interval,
-    )
-    place = make_place_fn(dev)
+    if elastic:
+        make_ctx = make_elastic_factory(ranks=mesh.ranks, device=dev, accum_steps=accum_steps)
+
+        def factory(active):
+            ctx = make_ctx(active)
+            if ctx.step_fn is None:
+                return ctx
+            return dataclasses.replace(ctx, step_fn=counted(ctx.step_fn))
+
+        eloop = ElasticLoop(factory, mesh.size, policy=guard_policy, watchdog=watchdog,
+                            aux_interval=aux_interval, checkpoint_fn=emergency_dump)
+        pipeline = eloop.pipe
+        # host batches: the loop keeps the survivors' prefix and places it
+        place = lambda batch: batch  # noqa: E731
+    else:
+        pipeline = PipelinedLoop(
+            step_fn, policy=guard_policy, snapshot_every=snapshot_every, watchdog=watchdog,
+            aux_interval=aux_interval,
+        )
+        place = make_place_fn(dev, mesh=mesh)
+    step_loop = eloop if eloop is not None else pipeline
+    main = rank == 0
     tracker = MetricTracker()
-    speedo = Speedometer(images_per_step, frequent, jsonl_path=metrics_jsonl)
+    speedo = Speedometer(images_per_step, frequent, jsonl_path=metrics_jsonl if main else None)
     history: List[Dict[str, float]] = []
     timing: Dict[int, Dict[str, float]] = {}
     step_start: List[float] = []
@@ -260,18 +341,25 @@ def fit(
             history.append(vals)
             tracker.update(vals)
 
-    log_f = open(stream_log, "a") if stream_log else None
+    log_f = open(stream_log, "a") if stream_log and main else None
     guard = prof = None
     total_steps = 0
     begin_epoch = begin_batch = 0
     stopped_at = None
     try:
         if prefix and resume:
-            got = load_restorable(prefix, state)
-            if got is not None:
-                (begin_epoch, begin_batch), _ = got
+            # the ranks may see other dumps (per-host disks): rank 0 picks,
+            # and its restored state reaches every rank below
+            got = load_restorable(prefix, state) if main else None
+            at = distributed.broadcast_ints(got[0] if got is not None else (-1, -1))
+            if at != (-1, -1):
+                begin_epoch, begin_batch = at
                 logger.info("fit: resuming from epoch %d batch %d", begin_epoch, begin_batch)
         loader.epoch, loader.skip_batches = begin_epoch, begin_batch
+        if eloop is not None:
+            state = eloop.ctx.place_state(state)
+        elif mesh is not None:
+            state = replicate(state, mesh)
         if watchdog is not None and prefix:
             state.mirror_snapshots()  # a watchdog dump must read no device memory
         if prefix:
@@ -296,11 +384,11 @@ def fit(
                     if log_f is not None:
                         log_f.write(f"{epoch} {pos} {digest}\n")
                         log_f.flush()
-                    if profile and total_steps == PROFILE_STEPS[0]:
+                    if profile and main and total_steps == PROFILE_STEPS[0]:
                         prof = _profiler(dev)
                     idx = pipeline.next_index
                     timing[idx] = {"wait_ms": (t1 - t0) * 1e3}
-                    state, ready, _ok = pipeline.step(state, batch, rng)
+                    state, ready, _ok = step_loop.step(state, batch, rng)
                     if aux_interval <= 1:
                         timing[idx]["step_ms"] = (time.perf_counter() - t1) * 1e3
                     deliver(ready)
@@ -310,7 +398,7 @@ def fit(
                         logger.info("profiler trace -> %s", _write_profile(prof, profile))
                         prof = None
                     speedo(epoch, total_steps, tracker)
-                    if guard is not None and guard.should_stop:
+                    if stop_agreed(guard, total_steps):
                         stopped_at = (epoch, pos)
                         break
                     if max_steps and total_steps >= max_steps:
@@ -319,17 +407,22 @@ def fit(
                 feed.close()
                 feed_stats.append(feed.stats())
             # a divergence inside the window must roll back before any save
-            state, ready, _ok = pipeline.flush(state)
+            state, ready, _ok = step_loop.flush(state)
             deliver(ready)
             if stopped_at is not None:
-                save(*stopped_at)
+                if writer():
+                    save(*stopped_at)
                 logger.warning("fit: preempted at epoch %d batch %d", *stopped_at)
                 break
             if max_steps and total_steps >= max_steps:
                 break
-            if prefix:
+            if prefix and writer():
                 save(epoch + 1, 0)
                 prune_step_checkpoints(prefix, epoch)
+            if eloop is not None:
+                # regrow only here: the save above is what a failed regrow
+                # would fall back to
+                state, _ = eloop.checkpoint_boundary(state)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         end = time.perf_counter()  # before the assembly processes shut down
@@ -352,10 +445,36 @@ def fit(
         )
     if total_steps and not math.isfinite(last_loss):
         logger.warning("fit finished with a non-finite loss")
-    return {
+    out = {
         "steps": total_steps, "history": history, "dispatched_steps": dispatched,
         "pipeline": pipeline.stats(), "loader": loader_stats, "feed": feed_stats,
         "clock": {"step_start": step_start, "end": end}, "state": state,
         "begin": (begin_epoch, begin_batch), "preempted": stopped_at is not None,
         "stopped_at": stopped_at, "saves": saves,
     }
+    if mesh is not None:
+        out["rank"] = rank
+    if eloop is not None:
+        st = eloop.stats()
+        if st["shrinks"]:
+            logger.warning(
+                "elastic summary: %d shrink(s), %d regrow(s), %d emergency checkpoint(s), %d "
+                "step(s) replayed, %.2f s of recovery; final set %d/%d replicas", st["shrinks"],
+                st["regrows"], st["emergency_checkpoints"], st["replayed_steps"],
+                st["recovery_s"], st["active_replicas"], st["base_replicas"])
+        out.update(elastic=st, degraded=eloop.degraded)
+    return out
+
+
+def stop_agreed(guard: Optional[PreemptionGuard], step: int) -> bool:
+    """Whether the run stops for a preemption signal after ``step`` steps.
+    In one process, as soon as the signal came; with several ranks they
+    vote every :data:`STOP_VOTE_EVERY` steps (any rank's signal stops all
+    of them at that step), so none is left waiting in a collective."""
+    if guard is None:
+        return False
+    if distributed.process_count() == 1:
+        return guard.should_stop
+    if step % STOP_VOTE_EVERY:
+        return False
+    return distributed.any_rank(guard.should_stop)

@@ -42,6 +42,7 @@ from mx_rcnn_tpu_torch.core.resilience import (
     StepWatchdog,
     fetch_host,
     snapshot_on_host,
+    supports_lr_scale,
     take_snapshot,
 )
 from mx_rcnn_tpu_torch.core.tester import resolve_device
@@ -69,9 +70,11 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
 
 def make_place_fn(device=None, mesh=None) -> Callable[[Any], Any]:
     """The placement of a host batch on ``device`` (default: the card, which
-    must be present).  A mesh means data parallel, which is not ported."""
+    must be present).  With a data-parallel ``mesh`` (``parallel/mesh.py``)
+    the batch holds this rank's rows (a loader with ``row_slice``), which go
+    to the mesh's device."""
     if mesh is not None:
-        raise NotImplementedError("data parallel is not ported: make_place_fn takes one device")
+        return lambda batch: batch_to_device(batch, mesh.device)
     dev = resolve_device(device)
     return lambda batch: batch_to_device(batch, dev)
 
@@ -401,6 +404,37 @@ class PipelinedLoop:
     def next_index(self) -> int:
         """Stream index the next ``step`` call will dispatch at."""
         return self._idx if self.aux_interval > 1 else self.guard.step_index
+
+    @property
+    def pending(self) -> int:
+        """Dispatched but unverified steps of the current window."""
+        return len(self._entries)
+
+    # -- elastic set changes (parallel/elastic.py)
+    def rebind(self, step_fn: Callable, place_fn: Optional[Callable[[Any], Any]] = None) -> None:
+        """Swap the step and placement functions in place: the elastic loop
+        rebuilds both over a shrunken or regrown set of ranks, and the loop
+        (and its guard's retries) must dispatch through the new ones.  The
+        counters, the divergence EMA and the budgets stay: the run goes on,
+        only what executes it changed."""
+        self._step_fn = step_fn
+        self.guard._step_fn = step_fn
+        self.guard._lr_scale_ok = supports_lr_scale(step_fn)
+        if place_fn is not None:
+            self._place = place_fn
+            self.guard._place = place_fn
+
+    def rewind(self, idx: int) -> None:
+        """Drop every unverified window entry and set the stream coordinate
+        to ``idx``.  After a device fault the window's aux came from the
+        broken set; the elastic loop restores its own anchor and dispatches
+        the window's batches again through the rebound step."""
+        self._entries = []
+        self._win_snapshot = None
+        self._idx = idx
+        self.guard.step_index = idx
+        self.guard._snapshot = None
+        self.guard._since_snapshot = 0
 
     # -- step execution
     def _window_snapshot(self, state, index: int) -> None:

@@ -49,6 +49,11 @@ logger = logging.getLogger(__name__)
 # distinct from timeout(1)'s 124
 WATCHDOG_EXIT_CODE = 75
 
+# exit status of a run that finished, but degraded: an elastic run that ended
+# on fewer ranks than it started with (parallel/elastic.py), so a scheduler
+# can reschedule it at full size
+DEGRADED_EXIT_CODE = 76
+
 
 class TrainingDiverged(RuntimeError):
     """Raised when the bad-batch budget is exhausted: the run is not

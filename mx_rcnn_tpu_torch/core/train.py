@@ -264,6 +264,19 @@ class TrainSnapshot:
         opt.count = self.count
         return self.state
 
+    def tree(self) -> Dict:
+        """The snapshot as a whole checkpoint tree on the host (the layout
+        of :meth:`TrainState.state_tree`), copied now: its trainable tensors
+        and momenta, the live model's frozen tensors and buffers, which no
+        step changes.  What an elastic shrink's emergency dump writes."""
+        state = self.state
+        model = {k: _host(v) for k, v in state.model.state_dict().items()}
+        model.update((n, _host(t)) for n, t in zip(state.names, self.params))
+        return {"model": model,
+                "momentum": {n: None if t is None else _host(t)
+                             for n, t in zip(state.names, self.momenta)},
+                "count": self.count}
+
     def host(self) -> Optional[Tuple[int, Dict]]:
         """``(index, tree)`` of the newest complete host mirror, or None:
         the tree a whole checkpoint (the layout of
@@ -395,7 +408,8 @@ def _loss_and_aux(model: nn.Module, batch: Dict, rng: int,
 
 
 def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[float] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None, accum_steps: int = 1):
+               draws: Optional[Dict[str, torch.Tensor]] = None, accum_steps: int = 1,
+               reduce: Optional[Callable[[List[torch.Tensor], Dict], Dict]] = None):
     """One train step, the JAX step's contract: ``(state, aux)``, the state
     updated in place.  Forward in train mode, backward, one optimizer update
     (``lr_scale`` scales this update only).  ``batch`` holds device tensors
@@ -410,7 +424,12 @@ def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[floa
     into that many microbatches, averages their gradients and their aux,
     then makes one update (JAX ``make_train_step(accum_steps=)``).  With
     per-image ``sample_seeds`` each microbatch draws as the unaccumulated
-    step does; without them microbatch i folds i into the step's seed."""
+    step does; without them microbatch i folds i into the step's seed.
+
+    ``reduce(params, aux) → aux``, the role of JAX's ``pmean_axis``, runs
+    between the last backward and the update on the trainable tensors
+    (their ``.grad``) and the aux with ``loss``: the data-parallel step's
+    all-reduce (``parallel/mesh.py``).  Without it the step is unchanged."""
     model, optimizer = state.model, state.optimizer
     optimizer.zero_grad()
     seed = fold_in(rng, optimizer.count)
@@ -435,6 +454,10 @@ def train_step(state: TrainState, batch: Dict, rng: int, lr_scale: Optional[floa
             auxes.append(maux)
         loss = torch.stack(losses).mean()
         aux = {k: torch.stack([a[k].detach().float() for a in auxes]).mean(0) for k in auxes[0]}
+    if reduce is not None:
+        aux = reduce(optimizer.params, {**aux, "loss": loss})
+        optimizer.step(lr_scale)
+        return state, {k: v.detach() for k, v in aux.items()}
     optimizer.step(lr_scale)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["loss"] = loss.detach()

@@ -447,7 +447,10 @@ class TrainLoader:
     order as each batch is handed to its worker, so a pooled stream fails
     the same reads as the serial one.  ``proposal_count`` > 0 gives every
     batch the records' ``proposals`` / ``prop_valid`` padded to that count
-    (Fast R-CNN on a proposal roidb)."""
+    (Fast R-CNN on a proposal roidb).  ``row_slice`` (data parallel,
+    ``parallel/distributed.py::process_slice``): every rank computes the
+    same global plan and loads only these rows of each global batch, so the
+    global data order does not depend on the number of ranks."""
 
     def __init__(
         self,
@@ -461,11 +464,13 @@ class TrainLoader:
         failure_budget: Optional[int] = None,
         assembly_workers: Optional[int] = None,
         proposal_count: int = 0,
+        row_slice: Optional[slice] = None,
     ):
         self.roidb = roidb
         self.cfg = cfg
         self.batch_size = batch_size
         self.proposal_count = proposal_count
+        self.row_slice = row_slice
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
@@ -553,6 +558,8 @@ class TrainLoader:
         if self.skip_batches:
             plan = plan[self.skip_batches:]
             self.skip_batches = 0
+        if self.row_slice is not None:
+            plan = [(b, idxs[self.row_slice]) for b, idxs in plan]
         workers = (
             default_assembly_workers() if self.assembly_workers is None
             else max(0, int(self.assembly_workers))

@@ -33,23 +33,52 @@ torchvision's pixel statistics in the config and its ``run_meta.json``.
 ``--compute_dtype
 bfloat16`` trains the bf16 graph (COMPUTE_DTYPE; FOLD_BN comes from the
 config, as in the JAX CLI, which has no flag for it).
+
+Data parallel (``parallel/``): one rank a process, one device a rank.  As
+the JAX CLI trains on every device, the CLI starts one rank per local card
+(on a one-card machine that is the plain path), and ``--cpu N`` starts N
+ranks on the CPU over gloo.  It starts them as subprocesses of this module
+(``python -m mx_rcnn_tpu_torch.tools.train_end2end``; a script that calls
+:func:`main` after patching this module passes ``rank_command`` to have
+each rank run it instead), each with ``--dist_coordinator 127.0.0.1:PORT
+--dist_nprocs N --dist_procid i`` (a rendezvous the launching process
+hosts), waits for them and returns rank 0's report; a rank that exits with
+another code than 0 (or 76) fails the run.  Given those three flags the
+process is one rank of a run launched by someone else (other hosts).  The
+global batch is ``BATCH_IMAGES × ranks × --grad_accum``.  ``--elastic``
+shrinks onto the surviving ranks when ``MX_RCNN_FAULTS``' ``device_lost`` /
+``device_wedge`` mark ranks down, and regrows at epoch ends
+(``parallel/elastic.py``): a run that ends on fewer ranks than it began
+with exits with code 76.  A rank whose process really dies ends the run:
+the others raise ``NoSurvivorsError`` (the process group cannot lose a
+member).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
+import os
+import shutil
+import signal
+import subprocess
 import sys
-from typing import Dict
+import tempfile
+import time
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from mx_rcnn_tpu_torch.config import generate_config
+from mx_rcnn_tpu_torch.core.checkpoint import tree_checksum
 from mx_rcnn_tpu_torch.core.fit import fit
-from mx_rcnn_tpu_torch.core.resilience import DivergencePolicy
+from mx_rcnn_tpu_torch.core.resilience import DEGRADED_EXIT_CODE, DivergencePolicy
 from mx_rcnn_tpu_torch.data.loader import load_record_image
 from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.parallel import distributed
+from mx_rcnn_tpu_torch.parallel.mesh import make_mesh
 from mx_rcnn_tpu_torch.utils.load_data import load_gt_roidb
 from mx_rcnn_tpu_torch.utils.pretrained import (
     apply_pretrained,
@@ -58,6 +87,13 @@ from mx_rcnn_tpu_torch.utils.pretrained import (
 )
 from mx_rcnn_tpu_torch.utils.run_meta import save_run_meta
 from mx_rcnn_tpu_torch.utils.precision import full_float32
+
+logger = logging.getLogger(__name__)
+
+# a launched rank writes its report (JSON) as rank<i>.json into this directory
+REPORT_ENV = "MX_RCNN_RANK_REPORT"
+# what a launched rank runs, before its arguments
+RANK_COMMAND = (sys.executable, "-m", "mx_rcnn_tpu_torch.tools.train_end2end")
 
 
 def parse_args(argv=None):
@@ -91,7 +127,19 @@ def parse_args(argv=None):
                    help="stop after N steps (smoke runs; the unfinished epoch is not saved)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
                    help="run on the CPU (the plain versions of the kernels) instead of the "
-                        "card; N > 1 devices needs data parallel, which is not ported")
+                        "card, as N data-parallel ranks over gloo")
+    p.add_argument("--elastic", action="store_true",
+                   help="survive injected device loss: on a device fault, take an "
+                        "emergency checkpoint, shrink to the surviving ranks, replay the "
+                        "in-flight window and keep training (regrow is tried at epoch ends); a "
+                        "run that finishes shrunken exits 76; a rank process that dies ends "
+                        "the run (NoSurvivorsError)")
+    p.add_argument("--dist_coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process training: rank 0's rendezvous address")
+    p.add_argument("--dist_nprocs", type=int, default=None,
+                   help="multi-process training: the number of ranks")
+    p.add_argument("--dist_procid", type=int, default=None,
+                   help="multi-process training: this process's rank")
     p.add_argument("--metrics_jsonl", default=None, metavar="PATH",
                    help="append one JSON line of metrics per logging interval (structured twin "
                         "of the Speedometer log)")
@@ -124,8 +172,18 @@ def parse_args(argv=None):
 
 
 def train_net(args) -> Dict:
-    if args.cpu > 1:
-        raise NotImplementedError(f"--cpu {args.cpu}: data-parallel training is not ported")
+    """One rank's run (the whole run in one process): returns ``fit``'s
+    result."""
+    backend = distributed.initialize(args.dist_coordinator, args.dist_nprocs, args.dist_procid,
+                                     cpu=bool(args.cpu))
+    try:
+        return _train(args)
+    finally:
+        if backend is not None:
+            distributed.shutdown()
+
+
+def _train(args) -> Dict:
     cfg = generate_config(args.network, args.dataset)
     overrides = {}
     if args.lr is not None:
@@ -144,9 +202,13 @@ def train_net(args) -> Dict:
         net_overrides["PIXEL_MEANS"], net_overrides["PIXEL_STDS"] = torchvision_pixel_stats()
     if net_overrides:
         cfg = cfg.replace(network=dataclasses.replace(cfg.network, **net_overrides))
+    ranks = distributed.process_count()
+    logger.info("ranks=%d (%s) per_rank_batch=%d grad_accum=%d global_batch=%d", ranks,
+                distributed.backend() or "one process", cfg.TRAIN.BATCH_IMAGES, args.grad_accum,
+                cfg.TRAIN.BATCH_IMAGES * ranks * args.grad_accum)
     _, roidb = load_gt_roidb(cfg, args.image_set, flip=cfg.TRAIN.FLIP and not args.no_flip,
                              synthetic_size=args.synthetic)
-    logging.getLogger(__name__).info("roidb size: %d", len(roidb))
+    logger.info("roidb size: %d", len(roidb))
     if not args.synthetic:
         # an unreadable dataset (missing files, another format) fails at its
         # first image here rather than spend the loader's failure budget
@@ -156,11 +218,13 @@ def train_net(args) -> Dict:
         net = cfg.network
         apply_pretrained(model, load_state_dict(args.pretrained), net.name, net.depth,
                          fpn=net.USE_FPN)
-        logging.getLogger(__name__).info("imported pretrained backbone from %s", args.pretrained)
-    save_run_meta(args.prefix, cfg)
+        logger.info("imported pretrained backbone from %s", args.pretrained)
+    if distributed.is_main():
+        save_run_meta(args.prefix, cfg)
     return fit(
         model, cfg, roidb, epochs=args.epochs, seed=args.seed, max_steps=args.max_steps,
         frequent=args.frequent, device="cpu" if args.cpu else None,
+        mesh=make_mesh() if ranks > 1 else None, elastic=args.elastic,
         guard_policy=DivergencePolicy(spike_factor=args.spike_factor,
                                       max_bad_batches=args.max_bad_batches),
         step_timeout=args.step_timeout, snapshot_every=args.snapshot_every,
@@ -171,10 +235,111 @@ def train_net(args) -> Dict:
     )
 
 
-def main(argv=None) -> Dict:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", stream=sys.stdout)
+def ranks_to_launch(args) -> int:
+    """How many rank processes this invocation starts: none when it is a
+    rank itself (``--dist_*``) or the run has one device, else ``--cpu N``'s
+    N or the local card count."""
+    if args.dist_coordinator is not None or args.dist_nprocs is not None \
+            or args.dist_procid is not None:
+        return 0
+    if args.cpu:
+        return args.cpu if args.cpu > 1 else 0
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return count if count > 1 else 0
+
+
+def _rank_report(out: Dict) -> Dict:
+    """``fit``'s result as JSON, with the final state's checksum."""
+    report = {k: v for k, v in out.items() if k != "state"}
+    report["state_checksum"] = tree_checksum(out["state"].state_tree())
+    return report
+
+
+def _as_tuples(report: Dict) -> Dict:
+    for k in ("begin", "stopped_at"):
+        if report.get(k) is not None:
+            report[k] = tuple(report[k])
+    return report
+
+
+def launch_ranks(argv: List[str], n: int, command: Sequence[str] = RANK_COMMAND) -> Dict:
+    """Start ``n`` ranks of this run on this host (``command`` + ``argv`` +
+    ``--dist_*``), forward SIGTERM / SIGINT to them, wait, and return rank
+    0's report with every rank's under ``ranks``.  A rank that fails stops
+    the others and the run."""
+    store, coordinator = distributed.host_rendezvous(n)
+    report_dir = tempfile.mkdtemp(prefix="train-ranks-")
+    # the ranks import this package from where this process found it
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, **{REPORT_ENV: report_dir, "LOCAL_WORLD_SIZE": str(n),
+                              distributed.HOSTED_STORE_ENV: "1"})
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    logger.info("starting %d ranks: %s ... --dist_coordinator %s", n, " ".join(command),
+                coordinator)
+    procs: List[subprocess.Popen] = []
+
+    def forward(signum, _frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    old = {s: signal.signal(s, forward) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        for i in range(n):
+            procs.append(subprocess.Popen([*command, *argv, "--dist_coordinator", coordinator,
+                                           "--dist_nprocs", str(n), "--dist_procid", str(i)],
+                                          env=env))
+        while any(p.poll() is None for p in procs):
+            failed = [(i, p.returncode) for i, p in enumerate(procs)
+                      if p.returncode not in (None, 0, DEGRADED_EXIT_CODE)]
+            if failed:
+                raise RuntimeError(f"rank {failed[0][0]} exited with code {failed[0][1]}")
+            time.sleep(0.1)
+        failed = [(i, p.returncode) for i, p in enumerate(procs)
+                  if p.returncode not in (0, DEGRADED_EXIT_CODE)]
+        if failed:
+            raise RuntimeError(f"rank {failed[0][0]} exited with code {failed[0][1]}")
+        reports = []
+        for i in range(n):
+            with open(os.path.join(report_dir, f"rank{i}.json")) as f:
+                reports.append(_as_tuples(json.load(f)))
+        return dict(reports[0], ranks=reports)
+    finally:
+        for s, h in old.items():
+            signal.signal(s, h)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        del store
+        shutil.rmtree(report_dir, ignore_errors=True)
+
+
+def main(argv: Optional[List[str]] = None,
+         rank_command: Sequence[str] = RANK_COMMAND) -> Dict:
+    """Run the CLI: returns the report (rank 0's when it starts ranks), or
+    exits with :data:`DEGRADED_EXIT_CODE` when an elastic run ended on fewer
+    ranks than it began with.  Ranks it starts run ``rank_command`` (this
+    module; a script that patched it passes itself)."""
     full_float32()
-    return train_net(parse_args(argv))
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    rank = f"[rank {args.dist_procid}] " if args.dist_procid is not None else ""
+    logging.basicConfig(level=logging.INFO, format=f"%(asctime)s {rank}%(message)s",
+                        stream=sys.stdout)
+    n = ranks_to_launch(args)
+    if n:
+        report = launch_ranks(argv, n, rank_command)
+    else:
+        report = train_net(args)
+        report_dir = os.environ.get(REPORT_ENV)
+        if report_dir:
+            with open(os.path.join(report_dir, f"rank{args.dist_procid or 0}.json"), "w") as f:
+                json.dump(_rank_report(report), f)
+    if report.get("degraded"):
+        # the run finished, but on fewer ranks: a scheduler may rerun it whole
+        sys.exit(DEGRADED_EXIT_CODE)
+    return report
 
 
 if __name__ == "__main__":

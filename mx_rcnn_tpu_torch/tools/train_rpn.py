@@ -88,7 +88,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="N synthetic images (no dataset needed)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
                    help="run on the CPU (the plain versions of the kernels) instead of the "
-                        "card; N > 1 devices needs data parallel, which is not ported")
+                        "card; one device at any N, as the JAX stage CLIs")
 
 
 def add_train_flags(p: argparse.ArgumentParser, checkpoints: bool = True) -> None:
@@ -110,9 +110,9 @@ def add_train_flags(p: argparse.ArgumentParser, checkpoints: bool = True) -> Non
 
 
 def device_of(args) -> Optional[str]:
-    """The device a stage CLI runs on; raises for what is not ported."""
-    if args.cpu > 1:
-        raise NotImplementedError(f"--cpu {args.cpu}: data-parallel training is not ported")
+    """The device a stage CLI runs on: the CPU under ``--cpu N`` for any N
+    (the JAX stage CLIs build no mesh and train on one device), else the
+    card."""
     return "cpu" if args.cpu else None
 
 

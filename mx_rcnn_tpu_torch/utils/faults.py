@@ -33,10 +33,26 @@ and raises :class:`InjectedSwapFault`, driving the rollback path::
     canary_fail@N          fail swap N's post-commit canary probe (the
                            committed version rolls back between batches)
 
-The JAX package's other kinds (replica, poison and device faults) belong to paths the port does not have: a spec naming one raises
-``NotImplementedError``, and a kind neither package knows raises
-``ValueError``, so no entry is ignored.  Injection sites cost one
-environment lookup when the variable is unset.
+Device-phase injectors (elastic data parallel, ``parallel/elastic.py``) are
+keyed ``STEP.REPLICA``: the stream step at which the fault strikes and the
+victim's ordinal in the base (full) set of ranks.  The optional ``:DUR`` is
+a down-window in steps: the replica answers :func:`down_replicas` as dead
+for stream positions in ``[STEP, STEP+DUR)`` and healthy after, which drives
+regrow without a wall clock::
+
+    device_lost@S.R[:DUR]  raise InjectedDeviceFault("device_lost") when
+                           step S dispatches while replica R is active;
+                           DUR 0 (the default): R never returns
+    device_wedge@S.R[:DUR] the wedged-collective flavour (default DUR 8)
+
+Both are pure functions of (spec, step): every rank computes the same fault
+at the same step with no communication.
+
+The JAX package's other kinds (replica and poison faults) belong to paths
+the port does not have: a spec naming one raises ``NotImplementedError``,
+and a kind neither package knows raises ``ValueError``, so no entry is
+ignored.  Injection sites cost one environment lookup when the variable is
+unset.
 """
 
 from __future__ import annotations
@@ -44,7 +60,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple, Union
 
 ENV_VAR = "MX_RCNN_FAULTS"
 
@@ -65,6 +81,19 @@ class InjectedSwapFault(RuntimeError):
     verification, warmup or canary failure."""
 
 
+class InjectedDeviceFault(RuntimeError):
+    """Raised by the device-phase injector at a train-step dispatch: a
+    RuntimeError, as a backend's collective failure is, so the elastic
+    loop classifies it as a real device loss.  Carries the victim's
+    base-set ordinal (``replica``) and ``fault_kind`` ("device_lost" |
+    "device_wedge")."""
+
+    def __init__(self, msg: str, replica: int, fault_kind: str):
+        super().__init__(msg)
+        self.replica = replica
+        self.fault_kind = fault_kind
+
+
 # swap-phase kinds, keyed by the 1-based registry-wide swap ordinal
 _SWAP_KINDS = {
     "verify": "swap_verify_fail",
@@ -72,23 +101,26 @@ _SWAP_KINDS = {
     "canary": "canary_fail",
 }
 
+# device-phase kinds (elastic training), keyed STEP.REPLICA
+_DEVICE_KINDS = ("device_lost", "device_wedge")
+
 _PORTED_KINDS = frozenset({"nan_loss", "spike", "record_fail", "save_crash", "stall"}
-                          | set(_SWAP_KINDS.values()))
+                          | set(_SWAP_KINDS.values()) | set(_DEVICE_KINDS))
 
 # the JAX package's kinds whose injection sites the port does not have yet
 _UNPORTED_KINDS = frozenset({
     "predict_fail", "predict_stall", "replica_wedge",
     "poison_fail", "poison_stall", "poison_wedge",
-    "device_lost", "device_wedge",
 })
 
-_DEFAULT_ARG = {"spike": 1e4, "stall": 5.0}
+_DEFAULT_ARG = {"spike": 1e4, "stall": 5.0, "device_wedge": 8.0}
 
 
 @dataclass
 class _Fault:
     kind: str
-    key: Optional[int]  # None: every key (``*``, the swap kinds)
+    # None: every key (``*``, the swap kinds); (step, replica) for the device kinds
+    key: Union[None, int, Tuple[int, int]]
     times: Optional[int]  # None = unbounded
     arg: float
     fired: int = 0
@@ -134,8 +166,15 @@ def _parse(spec: str) -> List[_Fault]:
         if "x" in rest:
             rest, _, times_s = rest.partition("x")
             times = int(times_s)
+        if rest == "*":
+            key = None
+        elif "." in rest:
+            step_s, _, replica_s = rest.partition(".")
+            key = (int(step_s), int(replica_s))
+        else:
+            key = int(rest)
         out.append(_Fault(
-            kind=kind, key=None if rest == "*" else int(rest), times=times,
+            kind=kind, key=key, times=times,
             arg=float(arg_s) if arg_s is not None else _DEFAULT_ARG.get(kind, 0.0),
         ))
     return out
@@ -224,3 +263,46 @@ def swap_fault(stage: str, ordinal: int) -> None:
             continue
         if f.fire():
             raise InjectedSwapFault(f"injected {kind}: swap #{ordinal} ({stage} stage)")
+
+
+def device_fault(step: int, active=None) -> None:
+    """The elastic loop's dispatch hook (``parallel/elastic.py``): strike a
+    replica at stream step ``step``.  ``active``: the base ordinals still
+    in the set; a fault whose victim was already dropped cannot fire again,
+    so the replay of the poison step after a shrink runs.  The first
+    matching fault raises :class:`InjectedDeviceFault` with its victim."""
+    reg = _active()
+    if reg is None:
+        return
+    for f in reg.faults:
+        if f.kind not in _DEVICE_KINDS or not isinstance(f.key, tuple):
+            continue
+        s, r = f.key
+        if s != step or (active is not None and r not in active):
+            continue
+        if f.fire():
+            raise InjectedDeviceFault(
+                f"injected {f.kind}: replica {r} at step {step}"
+                + (f" (down for {int(f.arg)} step(s))" if f.arg else ""),
+                replica=r, fault_kind=f.kind,
+            )
+
+
+def down_replicas(step: int) -> frozenset:
+    """The base ordinals inside a device fault's down-window at stream
+    position ``step``: a pure function of the spec and the step, so every
+    rank, and a replayed run, sees the same health timeline.  A
+    ``device_lost`` without ``:DUR`` never clears."""
+    reg = _active()
+    if reg is None:
+        return frozenset()
+    down = set()
+    for f in reg.faults:
+        if f.kind not in _DEVICE_KINDS or not isinstance(f.key, tuple):
+            continue
+        s, r = f.key
+        if step < s:
+            continue
+        if f.arg <= 0 or step < s + int(f.arg):
+            down.add(r)
+    return frozenset(down)

@@ -784,8 +784,8 @@ def test_stage_cli_chain_on_the_cpu(monkeypatch, tmp_path, caplog):
     ``--prefix`` under tmp_path, then ``tools/test.py --dump`` of the
     combined tree and ``reeval``, whose results equal JAX's ``reeval`` of
     the same dump; ``train_rpn --pretrained`` seeds the backbone from a
-    torchvision checkpoint and records its pixel statistics; ``--cpu 2``
-    raises."""
+    torchvision checkpoint and records its pixel statistics;
+    ``train_alternate --cpu 2`` trains on the CPU."""
     for mod in (train_rpn_cli, test_rpn_cli, train_rcnn_cli, test_cli, reeval_cli):
         monkeypatch.setattr(mod, "generate_config", _small)
     rpn, props, rcnn = (str(tmp_path / n) for n in ("rpn.pkl", "props.pkl", "rcnn.pkl"))
@@ -822,5 +822,10 @@ def test_stage_cli_chain_on_the_cpu(monkeypatch, tmp_path, caplog):
     np.testing.assert_array_equal(pt_tree["backbone"]["conv0"]["kernel"],
                                   sd["conv1.weight"].transpose(2, 3, 1, 0))
     assert tuple(load_run_meta(rpn_pt)["PIXEL_MEANS"]) == torchvision_pixel_stats()[0]
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        alt_cli.main(["--cpu", "2", "--synthetic", "3"])
+    # --cpu N trains on the CPU at any N, as the JAX stage CLIs (no mesh)
+    seen = {}
+    monkeypatch.setattr(alt_cli, "generate_config", _small)
+    monkeypatch.setattr(alt_cli, "alternate_train",
+                        lambda cfg, roidb, **kw: seen.update(kw, n=len(roidb)) or {})
+    alt_cli.main(["--cpu", "2", "--synthetic", "3", "--out_dir", str(tmp_path / "alt2")])
+    assert seen["device"] == "cpu" and seen["n"] == 3

@@ -1,6 +1,7 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV, PIL and the
 JAX package cannot be imported (it serves a request and a mask request, a
-bf16 request, requests through the serving engine by ``tools/serve.py``, trains a step of the C4 (float32 and bf16) and of the mask
+bf16 request, requests through the serving engine by ``tools/serve.py``,
+runs a data-parallel step over a one-rank gloo group, trains a step of the C4 (float32 and bf16) and of the mask
 network through its CLI, runs the alternate
 training CLI, evaluates through ``tools/test.py``, decodes a JPEG and writes
 a PNG), and ``chip_smoke.py`` refuses
@@ -136,6 +137,41 @@ out = cli.main(["--cpu", "1", "--synthetic", "8", "--max_steps", "1",
                 "--prefix", {str(tmp_path / "e2e")!r}])
 assert out["steps"] == 1, out
 assert all(math.isfinite(v) for v in out["history"][0].values()), out
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_runs_a_gloo_dp_step_without_jax():
+    """Every ``parallel`` module imports, and a world-1 gloo group runs the
+    DP train step (the all-reduce, the aux mean, the update)."""
+    r = run_blocked("""
+import importlib, numpy as np, torch
+torch.set_num_threads(2)
+for n in ("distributed", "mesh", "elastic", "dist_smoke"):
+    importlib.import_module("mx_rcnn_tpu_torch.parallel." + n)
+from mx_rcnn_tpu_torch.core.pipeline import batch_to_device
+from mx_rcnn_tpu_torch.core.train import create_train_state, make_optimizer
+from mx_rcnn_tpu_torch.models import build_model
+from mx_rcnn_tpu_torch.parallel import distributed
+from mx_rcnn_tpu_torch.parallel.dist_smoke import free_port, small_c4_cfg
+from mx_rcnn_tpu_torch.parallel.mesh import make_mesh, make_parallel_train_step, replicate
+distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, cpu=True)
+assert distributed.backend() == "gloo"
+cfg = small_c4_cfg()
+model = build_model(cfg, generator=torch.Generator().manual_seed(0)).train()
+mesh = make_mesh()
+state = replicate(create_train_state(model, make_optimizer(cfg, model, lambda s: 1e-3)), mesh)
+rng = np.random.RandomState(0)
+gt = np.zeros((1, 4, 5), np.float32); gt[0, 0] = [8, 8, 40, 40, 1]
+batch = {"images": rng.rand(1, 64, 64, 3).astype(np.float32),
+         "im_info": np.asarray([[64, 64, 1.0]], np.float32), "gt_boxes": gt,
+         "gt_valid": gt[..., 4] > 0, "sample_seeds": np.asarray([0], np.int32)}
+step = make_parallel_train_step(mesh)
+state, aux = step(state, batch_to_device(batch, "cpu"), 3)
+assert np.isfinite(float(aux["loss"])) and state.step == 1 and step.comm["all_reduces"] == 1
+distributed.shutdown()
 print("ok")
 """)
     assert r.returncode == 0, r.stderr

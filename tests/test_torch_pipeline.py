@@ -292,8 +292,22 @@ def test_device_feed_reraises_worker_error():
 
 
 def test_feed_needs_a_card_or_the_cpu_and_one_device():
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        tpipeline.make_place_fn("cpu", mesh=object())
+    """A data-parallel mesh's placement puts this rank's rows (a row-sliced
+    loader's batch) on the mesh's device; without one, the card or the
+    CPU."""
+    from mx_rcnn_tpu_torch.parallel.mesh import DataMesh
+
+    rows = {"images": np.arange(12, dtype=np.float32).reshape(2, 2, 3, 1),
+            "sample_seeds": np.asarray([4, 5], np.int32)}
+    mesh = DataMesh(None, (0, 1), 1, torch.device("cpu"))
+    placed = tpipeline.make_place_fn("cpu", mesh=mesh)(rows)
+    assert placed["images"].device.type == "cpu" and placed["sample_seeds"] == [4, 5]
+    np.testing.assert_array_equal(placed["images"].numpy(), rows["images"])
+    # the same placement as the distributed module's globalize_batch
+    from mx_rcnn_tpu_torch.parallel.distributed import globalize_batch
+
+    again = globalize_batch(rows, mesh)
+    assert again["sample_seeds"] == [4, 5] and torch.equal(again["images"], placed["images"])
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -352,7 +366,7 @@ def test_fault_grammar_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,exc", [("predict_fail@0.1", NotImplementedError),
-                                      ("device_lost@4.2", NotImplementedError),
+                                      ("replica_wedge@0.1", NotImplementedError),
                                       ("nan_los@3", ValueError)])
 def test_fault_kinds_the_port_lacks_raise(monkeypatch, spec, exc):
     monkeypatch.setenv("MX_RCNN_FAULTS", spec)
