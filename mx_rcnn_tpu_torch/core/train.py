@@ -101,6 +101,7 @@ def make_optimizer(
     model: nn.Module,
     lr_schedule: Callable[[int], float],
     fixed_params: Optional[Sequence[str]] = None,
+    train_bn_affines: bool = False,
 ) -> MXNetSGD:
     """Freeze ``model``'s tensors of the freeze set (``requires_grad`` off,
     so no gradient is computed for them) and return the MXNet SGD over the
@@ -108,15 +109,21 @@ def make_optimizer(
     alternate training freeze FIXED_PARAMS_SHARED), else
     ``cfg.network.FIXED_PARAMS``.
 
-    The frozen BN affines are buffers here (``models/layers.py``), never
-    trained: a freeze set that leaves one of the model's BNs out (a ResNet
-    set without ``"bn"``) would have the JAX package train it, so it raises.
-    A model with no BN (VGG-16) trains under any set."""
+    The frozen BN affines are buffers here (``models/layers.py``): a freeze
+    set that leaves one of the model's BNs out (a ResNet set without
+    ``"bn"``) has the JAX package train its ``scale`` / ``bias``, so it
+    raises, unless ``train_bn_affines`` makes those BNs' affines trainable
+    parameters (``FrozenBatchNorm.thaw_affine``; the integration gate's
+    empty freeze set).  A model with no BN (VGG-16) trains under any set."""
     t = cfg.TRAIN
     fixed = cfg.network.FIXED_PARAMS if fixed_params is None else tuple(fixed_params)
     thawed_bn = [name for name, m in model.named_modules() if isinstance(m, FrozenBatchNorm)
                  and not is_frozen_path(tuple(name.split(".")) + ("scale",), fixed)]
-    if thawed_bn:
+    if thawed_bn and train_bn_affines:
+        modules = dict(model.named_modules())
+        for name in thawed_bn:
+            modules[name].thaw_affine()
+    elif thawed_bn:
         raise NotImplementedError(
             f"FIXED_PARAMS {fixed} trains the BN affines of {thawed_bn[:3]} "
             f"(+{max(len(thawed_bn) - 3, 0)}), which the port keeps as frozen buffers"

@@ -52,6 +52,15 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
+    def thaw_affine(self) -> None:
+        """Make ``scale`` and ``bias`` trainable parameters, with the same
+        names and values (``state_dict`` keys unchanged), as the JAX package
+        trains them under a freeze set without ``"bn"``; ``mean`` / ``var``
+        stay buffers."""
+        for k in ("scale", "bias"):
+            if k in self._buffers:
+                self.register_parameter(k, nn.Parameter(self._buffers.pop(k)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul = self.scale * torch.rsqrt(self.var + self.eps)
         add = self.bias - self.mean * mul
@@ -165,12 +174,12 @@ class ConvBNFolder:
     """The folded kernels of a module's (conv, frozen BN) pairs, refolded
     only when needed.
 
-    A pair whose kernel takes a gradient in this forward (grad mode on and
-    ``requires_grad``) is folded anew, into the autograd graph.  Every other
-    pair (inference, frozen layers) is folded once and kept until its kernel
-    or a BN buffer is written or replaced (its ``_version`` or address
-    changes), so a served model folds once.  Each call folds what it must
-    in one :func:`fold_conv_bn` per kind."""
+    A pair whose kernel or BN affine takes a gradient in this forward (grad
+    mode on and ``requires_grad``) is folded anew, into the autograd graph.
+    Every other pair (inference, frozen layers) is folded once and kept
+    until its kernel or a BN buffer is written or replaced (its
+    ``_version`` or address changes), so a served model folds once.  Each
+    call folds what it must in one :func:`fold_conv_bn` per kind."""
 
     def __init__(self, pairs: Sequence[Tuple[nn.Conv2d, FrozenBatchNorm]], dtype: torch.dtype):
         self.pairs = list(pairs)
@@ -183,7 +192,7 @@ class ConvBNFolder:
         inference = torch.is_inference_mode_enabled()
         out, fresh, stale = {}, [], []
         for i, (c, bn) in enumerate(self.pairs):
-            if graph and c.weight.requires_grad:
+            if graph and (c.weight.requires_grad or bn.scale.requires_grad):
                 fresh.append(i)
                 continue
             key = _version_key((c.weight, bn.scale, bn.bias, bn.mean, bn.var))

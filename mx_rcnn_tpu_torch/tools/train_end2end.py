@@ -262,11 +262,12 @@ def _as_tuples(report: Dict) -> Dict:
     return report
 
 
-def launch_ranks(argv: List[str], n: int, command: Sequence[str] = RANK_COMMAND) -> Dict:
+def launch_ranks(argv: List[str], n: int, command: Sequence[str] = RANK_COMMAND,
+                 timeout: Optional[float] = None) -> Dict:
     """Start ``n`` ranks of this run on this host (``command`` + ``argv`` +
     ``--dist_*``), forward SIGTERM / SIGINT to them, wait, and return rank
     0's report with every rank's under ``ranks``.  A rank that fails stops
-    the others and the run."""
+    the others and the run, as does ``timeout`` seconds passing first."""
     store, coordinator = distributed.host_rendezvous(n)
     report_dir = tempfile.mkdtemp(prefix="train-ranks-")
     # the ranks import this package from where this process found it
@@ -289,7 +290,10 @@ def launch_ranks(argv: List[str], n: int, command: Sequence[str] = RANK_COMMAND)
             procs.append(subprocess.Popen([*command, *argv, "--dist_coordinator", coordinator,
                                            "--dist_nprocs", str(n), "--dist_procid", str(i)],
                                           env=env))
+        deadline = None if timeout is None else time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"the {n} ranks did not finish within {timeout} s")
             failed = [(i, p.returncode) for i, p in enumerate(procs)
                       if p.returncode not in (None, 0, DEGRADED_EXIT_CODE)]
             if failed:

@@ -1,7 +1,8 @@
 """The PyTorch port imports and runs where JAX, Flax, OpenCV, PIL and the
 JAX package cannot be imported (it serves a request and a mask request, a
 bf16 request, requests through the serving engine by ``tools/serve.py``,
-runs a data-parallel step over a one-rank gloo group, trains a step of the C4 (float32 and bf16) and of the mask
+runs a data-parallel step over a one-rank gloo group, runs two steps of the
+integration gate, trains a step of the C4 (float32 and bf16) and of the mask
 network through its CLI, runs the alternate
 training CLI, evaluates through ``tools/test.py``, decodes a JPEG and writes
 a PNG), and ``chip_smoke.py`` refuses
@@ -172,6 +173,25 @@ step = make_parallel_train_step(mesh)
 state, aux = step(state, batch_to_device(batch, "cpu"), 3)
 assert np.isfinite(float(aux["loss"])) and state.step == 1 and step.comm["all_reduces"] == 1
 distributed.shutdown()
+print("ok")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def test_port_runs_the_integration_gate_without_jax():
+    """The gate, calibration and measuring tools import, and a 2-step CPU
+    ``run_gate`` trains C4 and evaluates it through the full eval stack."""
+    r = run_blocked("""
+import importlib, numpy as np, torch
+torch.set_num_threads(2)
+for n in ("utils.bn_calibrate", "tools.integration_gate", "tools.profile_step",
+          "tools.bench_eval", "tools.check_data", "tools.bench_coco_eval"):
+    importlib.import_module("mx_rcnn_tpu_torch." + n)
+from mx_rcnn_tpu_torch.tools.integration_gate import run_gate
+out = run_gate("resnet50", num_images=2, steps=2, eval_every=2, target=0, device="cpu")
+assert out["steps"] == 2 and np.isfinite(out["gate"]) and out["per_eval"][0][0] == 2
+assert not any(m.split(".")[0] in _BLOCKED for m in sys.modules)
 print("ok")
 """)
     assert r.returncode == 0, r.stderr
